@@ -3,22 +3,37 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-1. Builds every CUDA kernel of the port from the sources (nvcc, in
-   parallel) and prints the build time.
-2. Kernel phase: holds each kernel against its plain PyTorch version on
-   the card — on the MagNet main path's own operator (N=65,536, about 5M
-   nonzeros) at the widths it applies (4 and 64), float32 and bf16, and on
-   a small graph with duplicate edges and empty rows — and times kernel,
-   plain version and one library call beside the least time the card could
-   take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, the larger).
-3. Slice phase: builds the bench's magnet_mxu configuration through the
-   port's public API (DSBM N=65,536, degree features, magnetic Laplacian
-   pair at q=0.25, MagNet K=2 hidden 32, 2 layers), checks the kernel
-   tier's forward against the plain segment tier on the card and the
-   gradients against the CPU on a small graph, then trains 30 Adam steps
-   at lr 1e-2 with the launch counters set to 0 just before and read just
-   after.
+1. Builds every CUDA kernel of the port from the sources (nvcc, one
+   process per source, all at once) and prints the build time.
+2. magnet_mxu kernel phase: holds K1 (``csr_dual_spmm``) against its plain
+   PyTorch version on the card — on the MagNet path's own operator
+   (N=65,536, about 5M nonzeros) at the widths it applies (4 and 64),
+   float32 and bf16, and on a small graph with duplicate edges and empty
+   rows — and times kernel, plain version and one library call beside the
+   least time the card could take (bytes over 3.35 TB/s or flops over
+   67 TFLOP/s, the larger).
+3. magnet_mxu slice phase: builds the bench's magnet_mxu configuration
+   through the port's public API (DSBM N=65,536, degree features, magnetic
+   Laplacian pair at q=0.25, MagNet K=2 hidden 32, 2 layers), checks the
+   kernel tier's forward against the plain segment tier on the card and
+   the gradients against the CPU on a small graph, then trains 30 Adam
+   steps at lr 1e-2 on K1 alone.
+4. Giant phase: the giant bench's WikiTalk-scale power-law digraph
+   (N=2,400,000, 10M draws, alpha 1.0, seed 0) on the column-split and
+   streamed layouts, applied by K2 (``csr_dual_spmm_accum``).  Checks the
+   layouts, holds the apply and K2 alone against their plain versions,
+   times the apply in the flat, split and split+streamed layouts, checks
+   the forward against the segment tier, and trains 10 steps with bf16
+   messages.
+5. BSR phase: the bench's headline MagNet graph (N=8192, average degree
+   24) on the ``bsr`` tier, applied by K5 (``bsr_spmm``).  Holds K5 against
+   its plain version at the path's widths (2 and 32), forward and
+   transposed, times it beside a dense matmul and ``torch.sparse.mm`` on a
+   BSR tensor, checks the model's forward against the dense tier, and
+   trains 30 steps.
 
+Each training run sets the launch counters to 0 just before and reads
+them just after, and must launch exactly the kernels its layouts imply.
 Any failed phase raises, so the exit code is nonzero and no result line
 is printed.  The last lines are the card's nvidia-smi name and power
 limit, one JSON line of kernel measurements, and
@@ -36,11 +51,25 @@ DEV = "cuda"
 N = 65_536                   # the bench's magnet_mxu configuration
 EXPECTED_E = 2_456_932       # its input edges at seed 0
 STEPS = 30
+# scripts/bench_giant.py's graph and training run; the expected counts are
+# those of the generator and the port's magnetic Laplacian at seed 0
+GIANT = dict(nodes=2_400_000, edges=10_000_000, alpha=1.0, seed=0,
+             expected_e=9_929_144, expected_nnz=16_035_378, steps=10)
+LABEL_FREQ = (0.4, 0.25, 0.15, 0.12, 0.08)
+# bench.py's headline MagNet graph (_build_magnet(8192, 24))
+BSR_GRAPH = dict(nodes=8192, avg_deg=24, seed=0, steps=30)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 REPS = 20
+# f32: the kernels sum in compensated float32, the plain versions in
+# float64 (with atomics, in no fixed order)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# cuSPARSE yardsticks sum in plain float32 in their own order: a hub row
+# of 10^5 terms drifts by about 1e-5 of its value
+LIBRARY_TOL = dict(rtol=1e-4, atol=1e-4)
+SRC = "pytorch_geometric_signed_directed_tpu_torch/ops/cuda/csrc/"
+TPU = "pytorch_geometric_signed_directed_tpu/ops/pallas/"
 
 
 def log(*a):
@@ -89,6 +118,26 @@ def slice_graph(n, avg_deg, seed):
     return edge_index, w, (x / max(x.max(), 1.0)).astype(np.float32), labels
 
 
+def powerlaw_digraph(n, e, alpha, seed):
+    """The giant bench's graph generator, copied from
+    scripts/bench_giant.py (bit-equal for the same seed): Zipf(alpha)
+    endpoints, self-loops dropped, node ids randomly relabelled."""
+    rng = np.random.default_rng(seed)
+    w = (np.arange(1, n + 1, dtype=np.float64)) ** -alpha
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+
+    def zipf_ids(k):
+        return np.searchsorted(cdf, rng.random(k)).astype(np.int64)
+
+    row, col = zipf_ids(e), zipf_ids(e)
+    keep = row != col
+    row, col = row[keep], col[keep]
+    # random node relabeling: hubs land at arbitrary ids
+    relabel = rng.permutation(n)
+    return relabel[row], relabel[col]
+
+
 def make_model(device, seed=0):
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.nn import (
@@ -98,6 +147,71 @@ def make_model(device, seed=0):
         num_features=2, hidden=32, K=2, label_dim=5, activation=True,
         layer=2, device=device,
         generator=torch.Generator().manual_seed(seed))
+
+
+def train(model, x, y, lap, steps):
+    """``steps`` Adam steps at lr 1e-2 on the mean NLL over all nodes, the
+    launch counters set to 0 just before and read just after.  Returns
+    (losses, launches, per-step device ms, host seconds)."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+
+    def loss_fn(m):
+        return torch.nn.functional.nll_loss(m(x, x, lap), y)
+
+    trainer = Trainer(loss_fn, lr=1e-2, device=DEV)
+    state = trainer.init(model)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    events[0].record()
+    losses = []
+    for i in range(steps):
+        losses.append(trainer.step_async(state))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    losses = [float(v) for v in losses]
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    return losses, launches, step_ms, wall
+
+
+def check_launches(launches, expected, steps, what):
+    """Every kernel launched exactly ``expected[name]`` times a step."""
+    for name, count in launches.items():
+        if count != expected.get(name, 0) * steps:
+            raise AssertionError(
+                f"{what}: {name} launched {count} times in {steps} steps, "
+                f"expected {expected.get(name, 0)} a step ({launches})")
+
+
+def kernel_entry(name, r, launches, source, replaces):
+    return {"name": name, "route": "cuda", "source": SRC + source,
+            "replaces": TPU + replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]}
+
+
+def log_case(label, r):
+    log(f"{label}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={r['library_ms']} bound_us={r['bound_ms'] * 1e3:.2f} "
+        f"({r['bound_by']}, {r['bytes']} B) "
+        f"max_abs_err={r['max_abs_err']:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# magnet_mxu: K1
 
 
 def dual_kernel_case(D, width, dtype, seed):
@@ -114,7 +228,6 @@ def dual_kernel_case(D, width, dtype, seed):
     got = scatter_csr.csr_dual_spmm(*args)
     want = scatter_csr.csr_dual_spmm_plain(*args)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    # the plain version on the card sums with atomics, in no fixed order
     torch.testing.assert_close(got, want, **tol)
     if not torch.equal(got, scatter_csr.csr_dual_spmm(*args)):
         raise AssertionError("csr_dual_spmm is not deterministic")
@@ -129,13 +242,14 @@ def dual_kernel_case(D, width, dtype, seed):
         B = torch.sparse_csr_tensor(rp, cl, D.val_b, size=(n, m))
         xa, xb = x[:, :fa].contiguous(), x[:, fa:].contiguous()
         lib = torch.cat([torch.sparse.mm(A, xa), torch.sparse.mm(B, xb)], 1)
-        torch.testing.assert_close(lib, want, **tol)
+        torch.testing.assert_close(lib, want, **F32_TOL)
         library_ms = time_ms(lambda: (torch.sparse.mm(A, xa),
                                       torch.sparse.mm(B, xb)))
     nbytes = 4 * (n + 1) + 12 * nnz + x.numel() * x.element_size() + 4 * n * width
     b_ms, b_by = bound(nbytes, 2 * nnz * width)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, bytes=nbytes)
+                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+                shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
 def scatter_kernel_case(rowptr, nnz, width, dtype, seed):
@@ -159,13 +273,14 @@ def scatter_kernel_case(rowptr, nnz, width, dtype, seed):
         # yardstick only: one segment_reduce over the same rowptr
         offsets = rowptr.long()
         lib = torch.segment_reduce(msgs, "sum", offsets=offsets, axis=0)
-        torch.testing.assert_close(lib, want, **tol)
+        torch.testing.assert_close(lib, want, **F32_TOL)
         library_ms = time_ms(lambda: torch.segment_reduce(
             msgs, "sum", offsets=offsets, axis=0))
     nbytes = 4 * (n + 1) + msgs.numel() * msgs.element_size() + 4 * n * width
     b_ms, b_by = bound(nbytes, nnz * width)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, bytes=nbytes)
+                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+                shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
 def small_graph_checks():
@@ -226,35 +341,12 @@ def small_model_check():
         "gradients agree with the CPU at 1e-4")
 
 
-def main():
+def magnet_mxu_phase(smi):
+    """Phases 2 and 3: K1 on the magnet_mxu operator, then its training."""
     import torch
-
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
-                 "is False")
-    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        build, scatter_csr)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
         magnet_propagators)
-    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
-        f" | {kind}")
-
-    # ---- 1. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    secs = build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items()) or 'cached'})")
-    for name, text in build.BUILD_LOG.items():
-        print(f"--- nvcc {name}\n{text}", file=sys.stderr)
-
-    # ---- host set-up of the slice (also the kernel phase's operator) ----
     n = N
     t0 = time.perf_counter()
     ei, w, x_np, y_np = slice_graph(n, 30, seed=0)
@@ -263,15 +355,14 @@ def main():
                              device=DEV)
     torch.cuda.synchronize()
     D = lap.dual
-    if D is None or D.mode != "mxu":
-        raise AssertionError("mode='auto' did not pick the kernel tier")
+    if D is None or D.mode != "mxu" or D.rowptr is None:
+        raise AssertionError("mode='auto' did not pick the flat kernel tier")
     nnz = D.col.numel()
     log(f"slice graph: N={n} E={e} Laplacian nnz={nnz} "
         f"(built in {time.perf_counter() - t0:.2f} s)")
     if EXPECTED_E is not None and e != EXPECTED_E:
         raise AssertionError(f"expected the bench's E={EXPECTED_E}, got {e}")
 
-    # ---- 2. kernel phase --------------------------------------------------
     small_graph_checks()
     cases = {}
     for width in (4, 64):
@@ -279,22 +370,13 @@ def main():
             for op, d in (("fwd", D), ("bwd", D.transposed)):
                 r = dual_kernel_case(d, width, dtype, seed=width)
                 cases[("csr_dual_spmm", width, dtype, op)] = r
-                log(f"csr_dual_spmm {op} W={width} {str(dtype)[6:]}: "
-                    f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                    f"library_ms={r['library_ms']} "
-                    f"bound_us={r['bound_ms'] * 1e3:.2f} ({r['bound_by']}, "
-                    f"{r['bytes']} B) max_abs_err={r['max_abs_err']:.3g}")
+                log_case(f"csr_dual_spmm {op} W={width} {str(dtype)[6:]}", r)
     for width in (4, 64):
         for dtype in (torch.float32, torch.bfloat16):
             r = scatter_kernel_case(D.rowptr, nnz, width, dtype, seed=width)
             cases[("csr_scatter_sum", width, dtype)] = r
-            log(f"csr_scatter_sum W={width} {str(dtype)[6:]}: "
-                f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={r['library_ms']} "
-                f"bound_us={r['bound_ms'] * 1e3:.2f} ({r['bound_by']}) "
-                f"max_abs_err={r['max_abs_err']:.3g}")
+            log_case(f"csr_scatter_sum W={width} {str(dtype)[6:]}", r)
 
-    # ---- 3. slice phase ---------------------------------------------------
     small_model_check()
     x = torch.from_numpy(x_np).to(DEV)
     y = torch.from_numpy(y_np).to(DEV)
@@ -308,64 +390,517 @@ def main():
     log("slice forward: kernel tier agrees with the segment tier at 1e-4")
     del lap_plain
 
-    def loss_fn(m):
-        return torch.nn.functional.nll_loss(m(x, x, lap), y)
-
-    trainer = Trainer(loss_fn, lr=1e-2, device=DEV)
-    state = trainer.init(model)
-    steps = STEPS
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-    torch.cuda.synchronize()
-    scatter_csr.reset_launch_counts()
-    t0 = time.perf_counter()
-    events[0].record()
-    losses = []
-    for i in range(steps):
-        losses.append(trainer.step_async(state))
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(scatter_csr.LAUNCHES)
-    losses = [float(v) for v in losses]
-    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses[0]} -> "
-                             f"{losses[-1]}")
-    per_step = launches["csr_dual_spmm"] / steps
-    if launches["csr_dual_spmm"] != 6 * steps:
-        raise AssertionError(f"expected 6 csr_dual_spmm launches per step, "
-                             f"got {per_step}")
+    losses, launches, step_ms, wall = train(model, x, y, lap, STEPS)
+    # 4 forward applies, 2 transposed ones (layer 2's), all flat: K1 only
+    check_launches(launches, {"csr_dual_spmm": 6}, STEPS, "magnet_mxu")
     with torch.no_grad():
         acc = float((model(x, x, lap).argmax(1) == y).float().mean())
     ms_step = statistics.median(step_ms[1:])
-    log(f"slice train: {steps} steps, loss {losses[0]:.5f} -> "
-        f"{losses[-1]:.5f}, train acc {acc:.4f}; "
-        f"launches {launches} ({per_step:g} csr_dual_spmm per step)")
+    log(f"slice train: {STEPS} steps, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, train acc {acc:.4f}; launches {launches} "
+        f"(6 csr_dual_spmm per step)")
     log(f"slice speed on {smi}: median {ms_step:.3f} ms/step "
-        f"(first step {step_ms[0]:.3f} ms, mean {wall / steps * 1e3:.3f} ms "
+        f"(first step {step_ms[0]:.3f} ms, mean {wall / STEPS * 1e3:.3f} ms "
         f"by host clock), {e / (ms_step / 1e3):.1f} input edges/s")
+    return cases, launches
 
-    def entry(name, key, source):
-        r = cases[key]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": "pytorch_geometric_signed_directed_tpu/ops/"
-                            "pallas/scatter_mxu.py:503",
-                "launches": launches[name],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                "shape": f"N={n} nnz={nnz} W={key[1]} {str(key[2])[6:]}"}
 
-    src = "pytorch_geometric_signed_directed_tpu_torch/ops/cuda/csrc/scatter_csr.cu"
+# ---------------------------------------------------------------------------
+# giant: K2 on the column-split and streamed layouts
+
+
+def row_lengths(d):
+    """Edges of each row of one direction of a kernel-tier dual."""
+    import torch
+
+    if not d.blocks:
+        return (d.rowptr[1:] - d.rowptr[:-1]).long()
+    deg = torch.zeros(d.num_nodes, dtype=torch.long, device=d.col.device)
+    for b in d.blocks:
+        rows = b.rowptr.numel() - 1
+        deg[b.row0:b.row0 + rows] += (b.rowptr[1:] - b.rowptr[:-1]).long()
+    return deg
+
+
+def per_apply(d):
+    """The launches one apply of direction ``d`` makes."""
+    if d.blocks:
+        return {"csr_dual_spmm_accum": len(d.blocks)}
+    return {"csr_dual_spmm": 1}
+
+
+def plain_apply(d, x, fa):
+    """The plain version of one split or streamed apply: the same blocks
+    in the same order, each through K2's plain version."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    xm = x.to(spmm._kernel_dtype(x))
+    x_hot = xm[d.hot_ids] if d.hot_ids is not None else None
+    out = torch.zeros((d.num_nodes, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for i, b in enumerate(d.blocks):
+        out = scatter_csr.csr_dual_spmm_accum_plain(
+            b.rowptr, d.col[b.e0:b.e1], d.val_a[b.e0:b.e1],
+            d.val_b[b.e0:b.e1], x_hot if i < d.hot_blocks else xm, fa, out,
+            b.row0)
+    return out
+
+
+def accum_kernel_case(D, b, table_rows, width, dtype, seed):
+    """K2 alone on block ``b`` of ``D``, into a non-zero output: kernel vs
+    plain vs two cuSPARSE ``addmm``."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    n, fa = D.num_nodes, width // 2
+    rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
+    x = torch.randn(table_rows, width, device=DEV, generator=gen).to(dtype)
+    out0 = torch.randn(n, width, device=DEV, generator=gen)
+    args = (b.rowptr, D.col[b.e0:b.e1], D.val_a[b.e0:b.e1],
+            D.val_b[b.e0:b.e1], x, fa)
+    got = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), b.row0)
+    want = scatter_csr.csr_dual_spmm_accum_plain(*args, out0, b.row0)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, want, **tol)
+    err = float((got - want).abs().max())
+    out = out0.clone()
+    ms = time_ms(lambda: scatter_csr.csr_dual_spmm_accum(*args, out, b.row0))
+    plain_ms = time_ms(
+        lambda: scatter_csr.csr_dual_spmm_accum_plain(*args, out0, b.row0))
+    library_ms = None
+    if dtype == torch.float32:
+        # yardstick only: out_a + A x_a and out_b + B x_b by cuSPARSE
+        rp, cl = b.rowptr.long(), args[1].long()
+        A = torch.sparse_csr_tensor(rp, cl, args[2], size=(rows, table_rows))
+        B = torch.sparse_csr_tensor(rp, cl, args[3], size=(rows, table_rows))
+        oa = out0[b.row0:b.row0 + rows, :fa].contiguous()
+        ob = out0[b.row0:b.row0 + rows, fa:].contiguous()
+        xa, xb = x[:, :fa].contiguous(), x[:, fa:].contiguous()
+        lib = torch.cat([torch.addmm(oa, A, xa), torch.addmm(ob, B, xb)], 1)
+        torch.testing.assert_close(lib, want[b.row0:b.row0 + rows],
+                                   **LIBRARY_TOL)
+        library_ms = time_ms(lambda: (torch.addmm(oa, A, xa),
+                                      torch.addmm(ob, B, xb)))
+    # K1's bytes, with the output rows read as well as written
+    nbytes = (4 * (rows + 1) + 12 * nnz + x.numel() * x.element_size()
+              + 8 * rows * width)
+    b_ms, b_by = bound(nbytes, 2 * nnz * width)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+                shape=f"block 0 of the giant dual: rows={rows} nnz={nnz} "
+                      f"table={table_rows} W={width} {str(dtype)[6:]}")
+
+
+def scatter_accum_case(b, width, seed):
+    """K2's own contract on the rowptr of block ``b``, into a non-zero
+    output: kernel vs plain."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
+    msgs = torch.randn(nnz, width, device=DEV, generator=gen)
+    out0 = torch.randn(rows, width, device=DEV, generator=gen)
+    got = scatter_csr.csr_scatter_accum(b.rowptr, msgs, out0.clone())
+    want = scatter_csr.csr_scatter_accum_plain(b.rowptr, msgs, out0)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    out = out0.clone()
+    ms = time_ms(lambda: scatter_csr.csr_scatter_accum(b.rowptr, msgs, out))
+    plain_ms = time_ms(
+        lambda: scatter_csr.csr_scatter_accum_plain(b.rowptr, msgs, out0))
+    # yardstick only: one index_add_ in float32 (atomics)
+    ids = torch.repeat_interleave(
+        torch.arange(rows, device=DEV), (b.rowptr[1:] - b.rowptr[:-1]).long())
+    library_ms = time_ms(lambda: out.index_add_(0, ids, msgs))
+    nbytes = 4 * (rows + 1) + msgs.numel() * 4 + 8 * rows * width
+    b_ms, b_by = bound(nbytes, nnz * width)
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, bytes=nbytes,
+                shape=f"block 0 rowptr: rows={rows} nnz={nnz} W={width} "
+                      f"float32")
+
+
+def dual_with_knobs(arrays, n, **knobs):
+    """The kernel-tier dual of ``arrays`` built with ops/layout.py's knobs
+    set to ``knobs`` for the call."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops import layout, spmm
+
+    saved = {k: getattr(layout, k) for k in knobs}
+    for k, v in knobs.items():
+        setattr(layout, k, v)
+    try:
+        return spmm.dual_propagator(*arrays, n, mode="mxu", device=DEV)
+    finally:
+        for k, v in saved.items():
+            setattr(layout, k, v)
+
+
+def giant_phase(smi):
+    """Phase 4: the giant graph on the split and streamed layouts (K2)."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        in_out_degree)
+    from pytorch_geometric_signed_directed_tpu_torch.ops import layout, spmm
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        MagneticPair, magnet_operator_arrays, magnet_propagators)
+
+    g = GIANT
+    n = g["nodes"]
+    t0 = time.perf_counter()
+    row, col = powerlaw_digraph(n, g["edges"], g["alpha"], seed=g["seed"])
+    e = len(row)
+    ei = np.vstack([row, col])
+    w = np.ones(e, np.float32)
+    feats = in_out_degree(ei, n, edge_weight=w)
+    feats = (feats / max(feats.max(), 1.0)).astype(np.float32)
+    # 5 classes with unequal frequencies: the giant bench's uniform random
+    # labels leave nothing to learn at this N (their empirical frequencies
+    # differ from 1/5 by about 3e-4), and 10 Adam steps then move the loss
+    # by less than their own second-order noise
+    labels = np.random.default_rng(1).choice(5, n, p=LABEL_FREQ)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lap = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="mxu",
+                             device=DEV)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    D = lap.dual
+    nnz = D.col.numel()
+    log(f"giant graph: N={n} E={e} Laplacian nnz={nnz}; host seconds: "
+        f"graph + features {t_graph:.2f}, magnet_propagators (Laplacian + "
+        f"both layouts, on the card) {t_prep:.2f}")
+    if g["expected_e"] is not None and e != g["expected_e"]:
+        raise AssertionError(f"expected E={g['expected_e']}, got {e}")
+    if g["expected_nnz"] is not None and nnz != g["expected_nnz"]:
+        raise AssertionError(f"expected nnz={g['expected_nnz']}, got {nnz}")
+    largest = {}
+    for name, d in (("forward", D), ("transposed", D.transposed)):
+        if d.hot_ids is None or d.hot_ids.numel() != layout.GATHER_FAST_ROWS:
+            raise AssertionError(f"giant {name} direction is not "
+                                 f"column-split")
+        if not d.streamed or len(d.blocks) < 2:
+            raise AssertionError(f"giant {name} direction is not streamed")
+        lengths = row_lengths(d)
+        largest[name] = int(lengths.max())
+        hot_edges = d.blocks[d.hot_blocks - 1].e1
+        log(f"giant {name}: {len(d.blocks)} blocks ({d.hot_blocks} hot, "
+            f"edges per block {[b.e1 - b.e0 for b in d.blocks]}), "
+            f"{d.hot_ids.numel()} hot columns cover "
+            f"{hot_edges / nnz:.4f} of the edges; largest row "
+            f"{largest[name]} edges, rows over 10^5 edges: "
+            f"{int((lengths > 100_000).sum())}")
+
+    # the same operator in the flat and split-only layouts, and on the
+    # segment tier, from the same host arrays
+    t0 = time.perf_counter()
+    r, c, vre, vim, _ = magnet_operator_arrays(ei, w, q=0.25, num_nodes=n)
+    arrays = (r, c, vre, vim)
+    layouts = {
+        "flat": dual_with_knobs(arrays, n, COL_SPLIT_MIN_COLS=1 << 60,
+                                STREAM_THRESHOLD_EDGES=1 << 60),
+        "split": dual_with_knobs(arrays, n, STREAM_THRESHOLD_EDGES=1 << 60),
+        "split+streamed": D,
+    }
+    D_seg = spmm.dual_propagator(*arrays, n, mode="segment", device=DEV)
+    torch.cuda.synchronize()
+    log(f"giant comparison layouts built in {time.perf_counter() - t0:.2f} s")
+    if layouts["flat"].rowptr is None or layouts["split"].streamed or \
+            layouts["split"].hot_ids is None:
+        raise AssertionError("the knobs did not force the flat and split "
+                             "layouts")
+    del r, c, vre, vim, arrays
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    applies = {}
+    for width in (4, 64):
+        for mdt in (None, "bf16"):
+            x = torch.randn(n, width, device=DEV, generator=gen)
+            spmm.set_message_dtype(mdt)
+            try:
+                got = spmm.dual_spmm_stacked(D, x)
+                want = plain_apply(D, x, width // 2)
+            finally:
+                spmm.set_message_dtype(None)
+            torch.testing.assert_close(got, want,
+                                       **(BF16_TOL if mdt else F32_TOL))
+            applies[(width, mdt)] = float((got - want).abs().max())
+    log(f"giant apply (split+streamed) vs its plain version, max abs err "
+        f"by (width, message type): {applies}")
+
+    k2 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r2 = accum_kernel_case(D, D.blocks[0], D.hot_ids.numel(), 64, dtype,
+                               seed=3)
+        k2[dtype] = r2
+        log_case(f"csr_dual_spmm_accum block 0 W=64 {str(dtype)[6:]}", r2)
+    k2_own = scatter_accum_case(D.blocks[0], 64, seed=4)
+    log_case("csr_scatter_accum block 0 W=64 float32", k2_own)
+
+    # one apply at the path's widest shape, in each layout
+    spmm.set_message_dtype("bf16")
+    try:
+        x = torch.randn(n, 64, device=DEV, generator=gen)
+        layout_ms = {name: time_ms(lambda d=d: spmm.dual_spmm_stacked(d, x),
+                                   reps=10)
+                     for name, d in layouts.items()}
+        log(f"giant apply W=64 bf16 messages, ms by layout on {smi}: "
+            f"{layout_ms}")
+        # where the time of the split+streamed apply goes, block by block
+        xm = x.to(torch.bfloat16)
+        x_hot = xm[D.hot_ids]
+        out = torch.zeros((n, 64), device=DEV)
+        for i, b in enumerate(D.blocks):
+            lens = b.rowptr[1:] - b.rowptr[:-1]
+            bms = time_ms(lambda b=b, src=(x_hot if i < D.hot_blocks else xm):
+                          scatter_csr.csr_dual_spmm_accum(
+                              b.rowptr, D.col[b.e0:b.e1], D.val_a[b.e0:b.e1],
+                              D.val_b[b.e0:b.e1], src, 32, out, b.row0),
+                          reps=5)
+            log(f"  block {i} ({'hot' if i < D.hot_blocks else 'cold'}): "
+                f"rows={lens.numel()} edges={b.e1 - b.e0} largest row "
+                f"piece={int(lens.max())} kernel_ms={bms:.4f}")
+    finally:
+        spmm.set_message_dtype(None)
+    del layouts
+
+    # forward against the segment tier (f32 messages, "highest"), run in
+    # float64: in float32 its atomic sums over the 10^5-edge hub rows
+    # drift by about 3e-4 at the output, the kernels' compensated sums do
+    # not
+    xg = torch.from_numpy(feats).to(DEV)
+    y = torch.from_numpy(labels).to(DEV)
+    model = make_model(DEV, seed=0)
+    lap_seg = MagneticPair(*spmm.propagators_from_dual(D_seg), dual=D_seg)
+    with torch.no_grad():
+        got = model(xg, xg, lap)
+        seg32 = model(xg, xg, lap_seg)
+        xd = xg.double()
+        ref = make_model(DEV, seed=0).double()(xd, xd, lap_seg).float()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    log(f"giant forward (f32 messages): split+streamed kernel tier agrees "
+        f"with the float64 segment tier at 1e-4 (max abs err "
+        f"{float((got - ref).abs().max()):.3g}; the float32 segment tier's "
+        f"is {float((seg32 - ref).abs().max()):.3g})")
+    del lap_seg, D_seg, got, seg32, ref
+
+    # training as scripts/bench_giant.py runs it: bf16 messages, "default"
+    spmm.set_message_dtype("bf16")
+    spmm.set_matmul_precision("default")
+    try:
+        losses, launches, step_ms, wall = train(model, xg, y, lap,
+                                                g["steps"])
+    finally:
+        spmm.set_message_dtype(None)
+        spmm.set_matmul_precision("highest")
+    # 4 forward applies of D and 2 of its transpose (layer 2's backward)
+    expected = {}
+    for d, k in ((D, 4), (D.transposed, 2)):
+        for name, count in per_apply(d).items():
+            expected[name] = expected.get(name, 0) + k * count
+    check_launches(launches, expected, g["steps"], "giant")
+    ms_step = statistics.median(step_ms[1:])
+    log(f"giant train: {g['steps']} steps, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; launches {launches} ({expected} per step)")
+    log(f"giant speed on {smi}: median {ms_step:.3f} ms/step (first step "
+        f"{step_ms[0]:.3f} ms, mean {wall / g['steps'] * 1e3:.3f} ms by "
+        f"host clock), {e / (ms_step / 1e3):.1f} input edges/s; largest "
+        f"rows {largest}")
+    return k2, k2_own, launches
+
+
+# ---------------------------------------------------------------------------
+# bsr: K5
+
+
+def dense_of(op):
+    """The BSR operator as a dense [num_rows, num_cols] matrix."""
+    import torch
+
+    n_br = op.block_rowptr.numel() - 1
+    n_bc = -(-op.num_cols // 128)
+    dense = torch.zeros((n_br, n_bc, 128, 128), device=op.blocks.device)
+    dense[op.block_rows.long(), op.block_cols.long()] = op.blocks
+    dense = dense.permute(0, 2, 1, 3).reshape(n_br * 128, n_bc * 128)
+    return dense[:op.num_rows, :op.num_cols].contiguous()
+
+
+def bsr_kernel_case(op, width, seed):
+    """K5 vs plain vs a dense matmul and torch.sparse.mm on a BSR tensor."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import bsr_spmm
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(op.num_cols, width, device=DEV, generator=gen)
+    args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
+    got = bsr_spmm.bsr_matmul(*args)
+    want = bsr_spmm.bsr_matmul_plain(*args)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    if not torch.equal(got, bsr_spmm.bsr_matmul(*args)):
+        raise AssertionError("bsr_spmm is not deterministic")
+    ms = time_ms(lambda: bsr_spmm.bsr_matmul(*args))
+    plain_ms = time_ms(lambda: bsr_spmm.bsr_matmul_plain(*args))
+    # yardsticks only: the dense operator, and cuSPARSE's BSR product
+    dense = dense_of(op)
+    torch.testing.assert_close(torch.matmul(dense, x), want, **F32_TOL)
+    dense_ms = time_ms(lambda: torch.matmul(dense, x))
+    del dense
+    n_br = op.block_rowptr.numel() - 1
+    n_bc = -(-op.num_cols // 128)
+    x_pad = torch.zeros((n_bc * 128, width), device=DEV)
+    x_pad[:op.num_cols] = x
+    bsr_ms, bsr_note = None, ""
+    try:
+        A = torch.sparse_bsr_tensor(op.block_rowptr.long(),
+                                    op.block_cols.long(), op.blocks,
+                                    size=(n_br * 128, n_bc * 128))
+        lib = torch.sparse.mm(A, x_pad)[:op.num_rows]
+    except (RuntimeError, NotImplementedError) as exc:
+        # this torch has no BSR product on the card: the dense matmul is
+        # the only yardstick
+        bsr_note = f"torch.sparse.mm on a BSR tensor did not run: {exc}"
+    else:
+        torch.testing.assert_close(lib, want, **F32_TOL)
+        bsr_ms = time_ms(lambda: torch.sparse.mm(A, x_pad))
+    nb = op.blocks.shape[0]
+    nbytes = nb * 128 * 128 * 4 + x.numel() * 4 + op.num_rows * width * 4
+    b_ms, b_by = bound(nbytes, 2 * nb * 128 * 128 * width)
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=bsr_ms if bsr_ms is not None else dense_ms,
+                dense_ms=dense_ms, bsr_ms=bsr_ms, bsr_note=bsr_note,
+                bytes=nbytes,
+                shape=f"N={op.num_rows} blocks={nb} W={width} float32")
+
+
+def bsr_phase(smi):
+    """Phase 5: the headline MagNet graph on the bsr tier (K5)."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnet_propagators)
+
+    cfg = BSR_GRAPH
+    n = cfg["nodes"]
+    t0 = time.perf_counter()
+    ei, w, x_np, y_np = slice_graph(n, cfg["avg_deg"], seed=cfg["seed"])
+    e = ei.shape[1]
+    lap = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="bsr",
+                             device=DEV)
+    torch.cuda.synchronize()
+    if lap.dual is not None or lap.re.mode != "bsr" or lap.im.mode != "bsr":
+        raise AssertionError("mode='bsr' did not build two single bsr "
+                             "operators")
+    B = lap.re.bsr
+    nb = B.blocks.shape[0]
+    log(f"bsr graph: N={n} E={e} blocks={nb} per operator "
+        f"({nb * 128 * 128 * 4 / 1e6:.1f} MB of float32 blocks; "
+        f"built in {time.perf_counter() - t0:.2f} s)")
+
+    cases = {}
+    for width in (2, 32):
+        for op_name, op in (("fwd", B), ("bwd", B.transposed)):
+            r = bsr_kernel_case(op, width, seed=width)
+            cases[(width, op_name)] = r
+            log_case(f"bsr_spmm {op_name} W={width}", r)
+            log(f"  yardsticks: dense matmul {r['dense_ms']:.4f} ms, "
+                f"torch.sparse.mm on a BSR tensor {r['bsr_ms']} ms "
+                f"{r['bsr_note']}")
+
+    x = torch.from_numpy(x_np).to(DEV)
+    y = torch.from_numpy(y_np).to(DEV)
+    model = make_model(DEV, seed=0)
+    lap_dense = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="dense",
+                                   device=DEV)
+    with torch.no_grad():
+        torch.testing.assert_close(model(x, x, lap), model(x, x, lap_dense),
+                                   rtol=1e-4, atol=1e-4)
+    log("bsr forward: bsr tier agrees with the dense tier at 1e-4")
+    del lap_dense
+
+    losses, launches, step_ms, wall = train(model, x, y, lap, cfg["steps"])
+    # per step: 4 forward applies at width 2 (layer 1) and 4 at width 32
+    # (layer 2), and 4 transposed applies at width 32 (layer 2's backward)
+    check_launches(launches, {"bsr_spmm": 12}, cfg["steps"], "bsr")
+    ms_step = statistics.median(step_ms[1:])
+    log(f"bsr train: {cfg['steps']} steps, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; launches {launches} (12 bsr_spmm per step)")
+    log(f"bsr speed on {smi}: median {ms_step:.3f} ms/step (first step "
+        f"{step_ms[0]:.3f} ms, mean {wall / cfg['steps'] * 1e3:.3f} ms by "
+        f"host clock), {e / (ms_step / 1e3):.1f} input edges/s")
+    return cases, launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
+                 "is False")
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
+        f" | {kind}")
+    t_start = time.perf_counter()
+
+    # ---- 1. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items()) or 'cached'})")
+    for name, text in build.BUILD_LOG.items():
+        print(f"--- nvcc {name}\n{text}", file=sys.stderr)
+
+    # ---- 2-5. the three paths ---------------------------------------------
+    phases = {}
+    for name, phase in (("magnet_mxu", magnet_mxu_phase),
+                        ("giant", giant_phase), ("bsr", bsr_phase)):
+        t0 = time.perf_counter()
+        phases[name] = phase(smi)
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    k1_cases, k1_launches = phases["magnet_mxu"]
+    k2, k2_own, k2_launches = phases["giant"]
+    k5_cases, k5_launches = phases["bsr"]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
+
     print(smi)
     print(json.dumps({
-        "kernels": [entry("csr_dual_spmm",
-                          ("csr_dual_spmm", 64, torch.float32, "fwd"), src)],
-        # K1's plain segment-sum entry: tested, on no path yet
-        "off_path": [entry("csr_scatter_sum",
-                           ("csr_scatter_sum", 64, torch.float32), src)],
+        "kernels": [
+            kernel_entry("csr_dual_spmm",
+                         k1_cases[("csr_dual_spmm", 64, torch.float32,
+                                   "fwd")],
+                         k1_launches["csr_dual_spmm"], "scatter_csr.cu",
+                         "scatter_mxu.py:503"),
+            kernel_entry("csr_dual_spmm_accum", k2[torch.float32],
+                         k2_launches["csr_dual_spmm_accum"],
+                         "scatter_csr.cu", "scatter_mxu.py:580"),
+            kernel_entry("bsr_spmm", k5_cases[(32, "fwd")],
+                         k5_launches["bsr_spmm"], "bsr_spmm.cu",
+                         "bsr_spmm.py:119"),
+        ],
+        # the plain segment-sum entries of K1 and K2: tested, on no path
+        "off_path": [
+            kernel_entry("csr_scatter_sum",
+                         k1_cases[("csr_scatter_sum", 64, torch.float32)],
+                         k1_launches["csr_scatter_sum"], "scatter_csr.cu",
+                         "scatter_mxu.py:503"),
+            kernel_entry("csr_scatter_accum", k2_own,
+                         k2_launches["csr_scatter_accum"], "scatter_csr.cu",
+                         "scatter_mxu.py:580"),
+        ],
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

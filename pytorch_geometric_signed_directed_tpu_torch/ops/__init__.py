@@ -1,6 +1,10 @@
-"""Sparse tier: COO container, segment sum, tiered SpMM, CUDA kernels."""
+"""Sparse tier: COO container, segment sum, tiered SpMM, giant-graph
+layouts, BSR, CUDA kernels."""
 
+from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo
+from .layout import col_degree_split
+from .reorder import apply_permutation, block_density, rcm_permutation
 from .segment import segment_sum
 from .spmm import (
     CSR,
@@ -21,8 +25,15 @@ from .spmm import (
 )
 
 __all__ = [
+    "BSR",
+    "bsr_from_coo",
+    "bsr_spmm",
     "COO",
     "build_coo",
+    "col_degree_split",
+    "apply_permutation",
+    "block_density",
+    "rcm_permutation",
     "segment_sum",
     "CSR",
     "DualPropagator",

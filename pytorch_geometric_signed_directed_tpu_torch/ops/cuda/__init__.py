@@ -1,13 +1,31 @@
 """Hand-written CUDA kernels for Hopper, built with nvcc at first use."""
 
+from . import bsr_spmm, scatter_csr
+from .bsr_spmm import bsr_matmul, bsr_matmul_plain
 from .scatter_csr import (
-    LAUNCHES,
     csr_dual_spmm,
+    csr_dual_spmm_accum,
+    csr_dual_spmm_accum_plain,
     csr_dual_spmm_plain,
+    csr_scatter_accum,
+    csr_scatter_accum_plain,
     csr_scatter_sum,
     csr_scatter_sum_plain,
-    reset_launch_counts,
 )
 
-__all__ = ["LAUNCHES", "csr_dual_spmm", "csr_dual_spmm_plain",
-           "csr_scatter_sum", "csr_scatter_sum_plain", "reset_launch_counts"]
+
+def launch_counts() -> dict:
+    """Launches of every kernel wrapper since the last reset, by name."""
+    return {**scatter_csr.LAUNCHES, **bsr_spmm.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    scatter_csr.reset_launch_counts()
+    bsr_spmm.reset_launch_counts()
+
+
+__all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_spmm",
+           "csr_dual_spmm_accum", "csr_dual_spmm_accum_plain",
+           "csr_dual_spmm_plain", "csr_scatter_accum",
+           "csr_scatter_accum_plain", "csr_scatter_sum",
+           "csr_scatter_sum_plain", "launch_counts", "reset_launch_counts"]

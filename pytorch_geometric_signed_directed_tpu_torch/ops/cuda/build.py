@@ -22,7 +22,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
     "build", "torch_kernels")
-SOURCES = ("scatter_csr.cu",)
+SOURCES = ("scatter_csr.cu", "bsr_spmm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -5,10 +5,16 @@ mode strings are the JAX package's, so both take the same arguments:
 
   * ``dense``    — the operator materialised once; ``torch.matmul``.
   * ``segment``  — gather + ``index_add_`` (ops.segment.segment_sum).
-  * ``mxu``      — on the card, the tier of the hand-written CSR kernel
-                   (ops/cuda/scatter_csr.cu, the port of the TPU kernel
-                   K1 that the JAX package runs under this name).  CPU
-                   tensors take the kernel's plain PyTorch version.
+  * ``mxu``      — on the card, the tier of the hand-written CSR kernels
+                   (ops/cuda/scatter_csr.cu, the port of the TPU kernels
+                   K1 and K2 that the JAX package runs under this name).
+                   Giant operators take the column-split and streamed
+                   layouts of ops/layout.py, chosen as the JAX package
+                   chooses them.  CPU tensors take the kernels' plain
+                   PyTorch versions.
+  * ``bsr``      — 128×128 dense blocks (ops/bsr.py) applied by the
+                   hand-written block-sparse kernel
+                   (ops/cuda/bsr_spmm.cu, the port of the TPU kernel K5).
   * ``auto``     — ``dense`` up to 8192 nodes, else ``mxu``.
 
 Every tier is differentiable; on ``mxu`` the backward is the forward of
@@ -23,8 +29,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo, check_indices
-from .cuda.scatter_csr import csr_dual_spmm
+from .cuda.scatter_csr import csr_dual_spmm, csr_dual_spmm_accum
+from .layout import CsrBlock, CsrLayout, build_layout
 from .segment import segment_sum
 
 # Graphs at or below this many nodes use the dense tier by default.
@@ -76,49 +84,70 @@ def spmm_coo(A: COO, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# CSR layout of the kernel tier
+# CSR layouts of the kernel tier
 
 
 @dataclass(frozen=True)
 class CSR:
-    """One operator in row order for the kernel tier, plus its transpose.
+    """One operator in the kernel tier's layout, plus its transpose.
 
-    ``rowptr`` [num_rows+1] int32, ``col`` [nnz] int32, ``val`` [nnz]
-    float32; ``transposed`` is the same operator in column order."""
+    ``col`` [nnz] int32 and ``val`` [nnz] float32 in layout order.  Flat
+    layouts have ``rowptr`` [num_rows+1] int32; column-split or streamed
+    ones (ops/layout.py) have ``blocks`` instead, of which the first
+    ``hot_blocks`` gather from ``x[hot_ids]``.  ``transposed`` is the
+    same operator in column order, with its own split and stream."""
 
-    rowptr: torch.Tensor
+    rowptr: Optional[torch.Tensor]
     col: torch.Tensor
     val: torch.Tensor
     num_rows: int
     num_cols: int
     transposed: Optional["CSR"] = None
+    blocks: Tuple[CsrBlock, ...] = ()
+    hot_blocks: int = 0
+    hot_ids: Optional[torch.Tensor] = None
+    streamed: bool = False
 
 
-def _rowptr(row: torch.Tensor, n_rows: int) -> torch.Tensor:
-    counts = torch.bincount(row, minlength=n_rows)
-    zero = torch.zeros(1, dtype=counts.dtype, device=row.device)
-    return torch.cat([zero, counts.cumsum(0)]).to(torch.int32)
-
-
-def _csr_order(row: torch.Tensor, col: torch.Tensor, n_rows: int,
-               n_cols: int):
-    """(rowptr, col, perm) and (rowptr_t, col_t, perm_t): the edges in row
-    order and in column order.  Both sorts are stable, so edges that share
-    a row keep their input order."""
-    if row.numel() >= 2 ** 31:
-        raise ValueError(f"nnz={row.numel()} does not fit int32 offsets")
-    fwd = torch.argsort(row, stable=True)
-    bwd = torch.argsort(col, stable=True)
-    return ((_rowptr(row, n_rows), col[fwd].to(torch.int32), fwd),
-            (_rowptr(col, n_cols), row[bwd].to(torch.int32), bwd))
+def _layout_fields(L: CsrLayout) -> dict:
+    return dict(rowptr=L.rowptr, col=L.col, blocks=L.blocks,
+                hot_blocks=L.hot_blocks, hot_ids=L.hot_ids,
+                streamed=L.streamed)
 
 
 def _csr_from_coo(A: COO) -> CSR:
-    (rp, c, p), (rp_t, c_t, p_t) = _csr_order(A.row, A.col, A.num_nodes,
-                                              A.num_cols)
+    """The kernel tier's operator and its transpose, each split and
+    streamed as ops/layout.py's knobs say at call time."""
+    row, col = A.row.cpu().numpy(), A.col.cpu().numpy()
     val = A.val.to(torch.float32)
-    t = CSR(rp_t, c_t, val[p_t].contiguous(), A.num_cols, A.num_nodes)
-    return CSR(rp, c, val[p].contiguous(), A.num_nodes, A.num_cols, t)
+    L_t, p_t = build_layout(col, row, A.num_cols, A.num_nodes, A.val.device)
+    L, p = build_layout(row, col, A.num_nodes, A.num_cols, A.val.device)
+    t = CSR(val=val[p_t].contiguous(), num_rows=A.num_cols,
+            num_cols=A.num_nodes, **_layout_fields(L_t))
+    return CSR(val=val[p].contiguous(), num_rows=A.num_nodes,
+               num_cols=A.num_cols, transposed=t, **_layout_fields(L))
+
+
+def _layout_apply(d, val_a, val_b, n_rows: int, x: torch.Tensor,
+                  fa: int) -> torch.Tensor:
+    """Apply one direction of a kernel-tier operator (a CSR or a
+    DualPropagator) to x; lanes below ``fa`` take ``val_a``.
+
+    Flat layouts are one K1 launch.  Split or streamed layouts gather the
+    hot table ``x[hot_ids]`` once, then launch K2 for each block, in
+    order, into one float32 output; rows no block touches stay 0."""
+    xm = x.to(_kernel_dtype(x)).contiguous()
+    if not d.blocks:
+        out = csr_dual_spmm(d.rowptr, d.col, val_a, val_b, xm, fa)
+        return out.to(x.dtype)
+    x_hot = xm.index_select(0, d.hot_ids) if d.hot_ids is not None else None
+    out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for i, b in enumerate(d.blocks):
+        csr_dual_spmm_accum(b.rowptr, d.col[b.e0:b.e1], val_a[b.e0:b.e1],
+                            val_b[b.e0:b.e1], x_hot if i < d.hot_blocks
+                            else xm, fa, out, b.row0)
+    return out.to(x.dtype)
 
 
 class _CsrSpmm(torch.autograd.Function):
@@ -135,10 +164,8 @@ class _CsrSpmm(torch.autograd.Function):
 
 
 def _csr_apply(A: CSR, x: torch.Tensor) -> torch.Tensor:
-    xm = x.to(_kernel_dtype(x)).contiguous()
     # one operator: every lane selects val (fa = width)
-    out = csr_dual_spmm(A.rowptr, A.col, A.val, A.val, xm, x.shape[1])
-    return out.to(x.dtype)
+    return _layout_apply(A, A.val, A.val, A.num_rows, x, x.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +180,7 @@ class Propagator:
     dense: Optional[torch.Tensor]
     mode: str
     csr: Optional[CSR] = None
+    bsr: Optional[BSR] = None
 
     @property
     def num_nodes(self) -> int:
@@ -160,6 +188,8 @@ class Propagator:
             return self.dense.shape[0]
         if self.mode == "mxu":
             return self.csr.num_rows
+        if self.mode == "bsr":
+            return self.bsr.num_rows
         return self.coo.num_nodes
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -167,6 +197,8 @@ class Propagator:
             return torch.matmul(self.dense, x)
         if self.mode == "mxu":
             return _CsrSpmm.apply(x, self.csr)
+        if self.mode == "bsr":
+            return bsr_spmm(self.bsr, x)
         return spmm_coo(self.coo, x)
 
 
@@ -179,17 +211,14 @@ def make_propagator(
     mode: str = "auto",
     device: DeviceLike = None,
 ) -> Propagator:
-    """Host-side factory.  ``mode`` in {'auto', 'dense', 'segment', 'mxu'}."""
+    """Host-side factory.  ``mode`` in {'auto', 'dense', 'segment', 'mxu',
+    'bsr'}."""
     A = build_coo(row, col, val, num_nodes, device=device)
     return propagator_from_coo(A, mode=mode)
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "bsr":
-        raise NotImplementedError(
-            "the 'bsr' tier (TPU kernel K5) is not ported yet; see "
-            "ROADMAP.md queue B")
-    if mode not in ("auto", "dense", "segment", "mxu"):
+    if mode not in ("auto", "dense", "segment", "mxu", "bsr"):
         raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -204,6 +233,9 @@ def propagator_from_coo(A: COO, mode: str = "auto") -> Propagator:
     if mode == "mxu":
         return Propagator(coo=None, dense=None, mode="mxu",
                           csr=_csr_from_coo(A))
+    if mode == "bsr":
+        return Propagator(coo=None, dense=None, mode="bsr",
+                          bsr=bsr_from_coo(A))
     return Propagator(coo=A, dense=None, mode="segment")
 
 
@@ -216,20 +248,25 @@ class DualPropagator:
     """Two operators with one sparsity structure, applied as ONE gather and
     one segment sum to a lane-stacked ``[x_a | x_b]``.
 
-    ``mxu``: ``rowptr`` [N+1] int32 and int32 ``col`` in row order.
+    ``mxu``: int32 ``col`` in the layout's order, with ``rowptr`` [N+1]
+    int32 (flat) or ``blocks`` (column-split or streamed, as in CSR).
     ``segment``: int64 ``row`` and ``col`` sorted by (row, col).
     ``val_a``/``val_b`` are float32 in the same order.  ``transposed`` is
     the pair's transpose, whose forward is this pair's backward."""
 
     col: torch.Tensor
     row: Optional[torch.Tensor]       # segment tier
-    rowptr: Optional[torch.Tensor]    # mxu tier
+    rowptr: Optional[torch.Tensor]    # mxu tier, flat layouts
     val_a: torch.Tensor
     val_b: torch.Tensor
     num_nodes: int
     num_cols: int
     mode: str
     transposed: Optional["DualPropagator"] = None
+    blocks: Tuple[CsrBlock, ...] = ()
+    hot_blocks: int = 0
+    hot_ids: Optional[torch.Tensor] = None
+    streamed: bool = False
 
 
 def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
@@ -237,8 +274,10 @@ def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
                     device: DeviceLike = None) -> Optional[DualPropagator]:
     """Build a fused operator pair from one shared (row, col) edge list.
 
-    Returns None on the dense tier, where fusion buys nothing: callers
-    then apply the two operators separately."""
+    Returns None on the dense and bsr tiers, where fusion buys nothing:
+    callers then apply the two operators separately.  On ``mxu`` the
+    column split and the stream follow ops/layout.py's knobs, read at call
+    time; the transposed pair takes its own split and stream."""
     _check_mode(mode)
     device = resolve_device(device)
     row = np.asarray(row, np.int64)
@@ -251,25 +290,26 @@ def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
     if mode == "auto":
         mode = ("dense" if max(num_nodes, num_cols) <= _DENSE_AUTO_MAX_NODES
                 else "mxu")
-    if mode == "dense":
+    if mode in ("dense", "bsr"):
         return None
     check_indices(row, col, num_nodes, num_cols)
 
-    r = torch.from_numpy(row).to(device)
-    c = torch.from_numpy(col).to(device)
     va = torch.from_numpy(val_a).to(device)
     vb = torch.from_numpy(val_b).to(device)
     if mode == "mxu":
-        (rp, cf, p), (rp_t, cf_t, p_t) = _csr_order(r, c, num_nodes,
-                                                    num_cols)
+        L_t, p_t = build_layout(col, row, num_cols, num_nodes, device)
+        L, p = build_layout(row, col, num_nodes, num_cols, device)
         t = DualPropagator(
-            col=cf_t, row=None, rowptr=rp_t, val_a=va[p_t].contiguous(),
-            val_b=vb[p_t].contiguous(), num_nodes=num_cols,
-            num_cols=num_nodes, mode="mxu")
+            row=None, val_a=va[p_t].contiguous(), val_b=vb[p_t].contiguous(),
+            num_nodes=num_cols, num_cols=num_nodes, mode="mxu",
+            **_layout_fields(L_t))
         return DualPropagator(
-            col=cf, row=None, rowptr=rp, val_a=va[p].contiguous(),
-            val_b=vb[p].contiguous(), num_nodes=num_nodes,
-            num_cols=num_cols, mode="mxu", transposed=t)
+            row=None, val_a=va[p].contiguous(), val_b=vb[p].contiguous(),
+            num_nodes=num_nodes, num_cols=num_cols, mode="mxu",
+            transposed=t, **_layout_fields(L))
+
+    r = torch.from_numpy(row).to(device)
+    c = torch.from_numpy(col).to(device)
 
     def segment_one(r, c, n_rows, n_cols, t=None):
         order = torch.from_numpy(np.lexsort(
@@ -285,12 +325,16 @@ def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
 
 def propagators_from_dual(D: DualPropagator) -> Tuple[Propagator, Propagator]:
     """The pair's two operators as standalone Propagators — views over
-    the dual's tensors, no rebuild."""
+    the dual's tensors (layout, split and stream included), no rebuild."""
     if D.mode == "mxu":
         def one(d, which):
             t = one(d.transposed, which) if d.transposed is not None else None
-            return CSR(d.rowptr, d.col, d.val_a if which == "a" else d.val_b,
-                       d.num_nodes, d.num_cols, t)
+            return CSR(rowptr=d.rowptr, col=d.col,
+                       val=d.val_a if which == "a" else d.val_b,
+                       num_rows=d.num_nodes, num_cols=d.num_cols,
+                       transposed=t, blocks=d.blocks,
+                       hot_blocks=d.hot_blocks, hot_ids=d.hot_ids,
+                       streamed=d.streamed)
 
         return (Propagator(coo=None, dense=None, mode="mxu", csr=one(D, "a")),
                 Propagator(coo=None, dense=None, mode="mxu", csr=one(D, "b")))
@@ -311,9 +355,7 @@ def _dual_forward_stacked(D: DualPropagator, x: torch.Tensor) -> torch.Tensor:
             f"{x.shape[1]}")
     fa = x.shape[1] // 2
     if D.mode == "mxu":
-        xm = x.to(_kernel_dtype(x)).contiguous()
-        out = csr_dual_spmm(D.rowptr, D.col, D.val_a, D.val_b, xm, fa)
-        return out.to(x.dtype)
+        return _layout_apply(D, D.val_a, D.val_b, D.num_nodes, x, fa)
     lane = torch.arange(2 * fa, device=x.device) < fa
     msgs = x[D.col] * torch.where(lane[None, :], D.val_a[:, None],
                                   D.val_b[:, None])

@@ -2,10 +2,11 @@
 
 from .magnetic import (
     MagneticPair,
+    magnet_operator_arrays,
     magnet_propagators,
     magnetic_laplacian,
     magnetic_signed_laplacian,
 )
 
-__all__ = ["MagneticPair", "magnet_propagators", "magnetic_laplacian",
-           "magnetic_signed_laplacian"]
+__all__ = ["MagneticPair", "magnet_operator_arrays", "magnet_propagators",
+           "magnetic_laplacian", "magnetic_signed_laplacian"]

@@ -171,27 +171,25 @@ def magnetic_signed_laplacian(
                            absolute_degree=absolute_degree)
 
 
-def magnet_propagators(
+def magnet_operator_arrays(
     edge_index,
     edge_weight=None,
     q: float = 0.25,
     normalization: Optional[str] = "sym",
     num_nodes: Optional[int] = None,
     lambda_max: Optional[float] = None,
-    mode: str = "auto",
     signed: bool = False,
     absolute_degree: bool = True,
-    device: DeviceLike = None,
-) -> MagneticPair:
-    """Build the scaled Chebyshev operator pair (L_hat_re, L_hat_im) on
-    ``device`` (None means "cuda").
+):
+    """The shared edge list of the scaled Chebyshev operator pair
+    (L_hat_re, L_hat_im), as host numpy: ``(row, col, w_re, w_im,
+    num_nodes)`` sorted by (row, col), diagonal entries included.
 
     Orientation: the original MagNetConv's propagate computes
     ``out[tgt] += norm * x[src]``, i.e. it multiplies by L_hat^T.  L_re is
     symmetric and L_im antisymmetric, so the transpose is baked in here by
     negating the imaginary operator.
     """
-    device = resolve_device(device)
     num_nodes = _maybe_num_nodes(edge_index, num_nodes)
     fn = magnetic_signed_laplacian if signed else magnetic_laplacian
     kwargs = dict(normalization=normalization, num_nodes=num_nodes, q=q)
@@ -241,7 +239,28 @@ def magnet_propagators(
         col[dst] = ei[1, sl]
         vre[dst] = w_re[sl]
         vim[dst] = w_im[sl]
+    return row, col, vre, vim, num_nodes
 
+
+def magnet_propagators(
+    edge_index,
+    edge_weight=None,
+    q: float = 0.25,
+    normalization: Optional[str] = "sym",
+    num_nodes: Optional[int] = None,
+    lambda_max: Optional[float] = None,
+    mode: str = "auto",
+    signed: bool = False,
+    absolute_degree: bool = True,
+    device: DeviceLike = None,
+) -> MagneticPair:
+    """Build the scaled Chebyshev operator pair (L_hat_re, L_hat_im) of
+    ``magnet_operator_arrays`` on ``device`` (None means "cuda")."""
+    device = resolve_device(device)
+    row, col, vre, vim, num_nodes = magnet_operator_arrays(
+        edge_index, edge_weight, q=q, normalization=normalization,
+        num_nodes=num_nodes, lambda_max=lambda_max, signed=signed,
+        absolute_degree=absolute_degree)
     dual = dual_propagator(row, col, vre, vim, num_nodes, mode=mode,
                            device=device)
     # on the kernel tier the dual carries the hot path and the single

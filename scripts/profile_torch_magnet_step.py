@@ -3,13 +3,18 @@
 
 Builds the bench's magnet_mxu configuration with the PyTorch/CUDA port
 (DSBM N=65,536, seed 0; MagNet K=2, hidden 32, 2 layers; Adam lr 1e-2),
-times steps with CUDA events, then traces a window of steps with
-torch.profiler and prints device time by kernel and the device's busy
-share of the window.
+with ``--giant`` chip_smoke.py's giant graph (the giant bench's
+power-law digraph, N=2,400,000, on the column-split and streamed layouts,
+bf16 messages and "default" matmul precision as the bench runs it), or
+with ``--bsr`` the bench's headline graph (DSBM N=8192, average degree 24)
+on the ``bsr`` tier; times
+steps with CUDA events, then traces a window of steps with torch.profiler
+and prints device time by kernel and the device's busy share of the
+window.
 
 Run from the root of the checkout:
 
-    python3 scripts/profile_torch_magnet_step.py [--steps 20]
+    python3 scripts/profile_torch_magnet_step.py [--steps 20] [--giant | --bsr]
 """
 import argparse
 import os
@@ -22,10 +27,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.data import DSBM  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.graph import in_out_degree  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.nn import (  # noqa: E402
     MagNet_node_classification)
+from pytorch_geometric_signed_directed_tpu_torch.ops import spmm  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (  # noqa: E402
     magnet_propagators)
 from pytorch_geometric_signed_directed_tpu_torch.train import Trainer  # noqa: E402
@@ -33,9 +40,43 @@ from pytorch_geometric_signed_directed_tpu_torch.utils import (  # noqa: E402
     meta_graph_generation)
 
 
+def dsbm_setup(n, avg_deg, mode):
+    F = meta_graph_generation("cyclic", 5, 0.05, False)
+    A, labels = DSBM(n, 5, avg_deg / n * 5 / 2, F,
+                     rng=np.random.default_rng(0))
+    ei = np.vstack(A.nonzero())
+    w = A.tocoo().data
+    x = in_out_degree(ei, n, edge_weight=w)
+    x = torch.from_numpy((x / max(x.max(), 1.0)).astype(np.float32)).cuda()
+    y = torch.from_numpy(labels).cuda()
+    return ei.shape[1], x, y, magnet_propagators(ei, w, q=0.25, num_nodes=n,
+                                                 mode=mode)
+
+
+def giant_setup():
+    g = chip_smoke.GIANT
+    n = g["nodes"]
+    row, col = chip_smoke.powerlaw_digraph(n, g["edges"], g["alpha"],
+                                           seed=g["seed"])
+    ei = np.vstack([row, col])
+    w = np.ones(len(row), np.float32)
+    x = in_out_degree(ei, n, edge_weight=w)
+    x = torch.from_numpy((x / max(x.max(), 1.0)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.default_rng(1).choice(
+        5, n, p=chip_smoke.LABEL_FREQ)).cuda()
+    lap = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="mxu")
+    return len(row), x, y, lap
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--giant", action="store_true",
+                       help="the giant graph on the split and streamed "
+                            "layouts")
+    which.add_argument("--bsr", action="store_true",
+                       help="the N=8192 graph on the bsr tier")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -45,15 +86,20 @@ def main():
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
 
-    n = 65_536
-    F = meta_graph_generation("cyclic", 5, 0.05, False)
-    A, labels = DSBM(n, 5, 30 / n * 5 / 2, F, rng=np.random.default_rng(0))
-    ei = np.vstack(A.nonzero())
-    w = A.tocoo().data
-    x = in_out_degree(ei, n, edge_weight=w)
-    x = torch.from_numpy((x / max(x.max(), 1.0)).astype(np.float32)).cuda()
-    y = torch.from_numpy(labels).cuda()
-    lap = magnet_propagators(ei, w, q=0.25, num_nodes=n)
+    if args.giant:
+        e, x, y, lap = giant_setup()
+        spmm.set_message_dtype("bf16")
+        spmm.set_matmul_precision("default")
+    elif args.bsr:
+        e, x, y, lap = dsbm_setup(8192, 24, "bsr")
+    else:
+        e, x, y, lap = dsbm_setup(65_536, 30, "auto")
+    D = lap.dual
+    for name, d in (("forward", D), ("transposed", D and D.transposed)):
+        print(f"{name} layout: "
+              + ("two single bsr operators" if d is None
+                 else f"{len(d.blocks)} blocks ({d.hot_blocks} hot)"
+                 if d.blocks else "flat"))
     model = MagNet_node_classification(
         num_features=2, hidden=32, K=2, label_dim=5, activation=True,
         layer=2, generator=torch.Generator().manual_seed(0))
@@ -74,7 +120,7 @@ def main():
     med = statistics.median(step_ms)
     print(f"step: median {med:.4f} ms, min {min(step_ms):.4f} ms, "
           f"max {max(step_ms):.4f} ms over {args.steps} steps "
-          f"({ei.shape[1] / (med / 1e3):.1f} input edges/s)")
+          f"({e / (med / 1e3):.1f} input edges/s)")
 
     from torch.profiler import ProfilerActivity, profile
 

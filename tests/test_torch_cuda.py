@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
-from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import scatter_csr
+from pytorch_geometric_signed_directed_tpu_torch.ops import (
+    build_coo, layout, spmm)
+from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+    bsr_spmm, scatter_csr)
 
-# f32: the plain version on the card sums with atomics, in no fixed order
+# f32: the kernels sum in compensated float32, the plain versions in
+# float64 with atomics in no fixed order
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # bf16 messages: both round every message to bf16, then sum in f32
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -100,3 +103,181 @@ def test_wrapper_rejects_bad_inputs_on_card(card):
     with pytest.raises(ValueError, match="expected"):
         scatter_csr.csr_dual_spmm(D.rowptr, D.col, D.val_a, D.val_b.cpu(),
                                   x, 4)
+
+
+# --- K2: the accumulate entries --------------------------------------------
+
+def block(n_rows, n_cols, e, seed):
+    """One block of a layout: a local rowptr over ``n_rows`` rows (odd rows
+    without edges) and its edges in row order."""
+    row, col, va, vb = operator(n_rows, n_cols, e, seed)
+    order = np.argsort(row, kind="stable")
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(row,
+                                                        minlength=n_rows))])
+    return (torch.from_numpy(rowptr.astype(np.int32)),
+            torch.from_numpy(col[order].astype(np.int32)),
+            torch.from_numpy(va[order]), torch.from_numpy(vb[order]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [4, 38, 64, 300])
+def test_accumulate_kernels_match_plain_on_card(card, width, dtype):
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    n, m, e, row0, n_out = 1000, 2000, 20000, 700, 2500
+    rowptr, col, va, vb = (t.to(card) for t in block(n, m, e, seed=width))
+    x = torch.randn(m, width, device=card).to(mdt)
+    out0 = torch.randn(n_out, width, device=card)
+    before = dict(scatter_csr.LAUNCHES)
+    got = scatter_csr.csr_dual_spmm_accum(rowptr, col, va, vb, x, width // 2,
+                                          out0.clone(), row0)
+    want = scatter_csr.csr_dual_spmm_accum_plain(rowptr, col, va, vb, x,
+                                                 width // 2, out0, row0)
+    torch.testing.assert_close(got, want, **tol)
+    # rows outside the block, and the block's rows without edges, keep
+    # their prior values bit for bit
+    untouched = torch.ones(n_out, dtype=torch.bool, device=card)
+    untouched[row0:row0 + n:2] = False
+    assert torch.equal(got[untouched], out0[untouched])
+    msgs = torch.randn(e, width, device=card).to(mdt)
+    got = scatter_csr.csr_scatter_accum(rowptr, msgs, out0.clone(), row0)
+    torch.testing.assert_close(
+        got, scatter_csr.csr_scatter_accum_plain(rowptr, msgs, out0, row0),
+        **tol)
+    assert torch.equal(got[untouched], out0[untouched])
+    assert scatter_csr.LAUNCHES["csr_dual_spmm_accum"] == \
+        before["csr_dual_spmm_accum"] + 1
+    assert scatter_csr.LAUNCHES["csr_scatter_accum"] == \
+        before["csr_scatter_accum"] + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [False, True])
+def test_hub_row_sums_are_compensated_on_card(card, accum):
+    """One row of 300,000 edges: the compensated float32 sum stays at the
+    float64 sum (a plain float32 sum drifts by about 1e-5 here)."""
+    e, m, w = 300_000, 5000, 64
+    gen = torch.Generator(device=card).manual_seed(0)
+    rowptr = torch.tensor([0, e], dtype=torch.int32, device=card)
+    col = torch.randint(0, m, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    va = torch.randn(e, generator=gen, device=card) / e ** 0.5
+    vb = torch.randn(e, generator=gen, device=card) / e ** 0.5
+    x = torch.randn(m, w, generator=gen, device=card)
+    if accum:
+        out0 = torch.randn(3, w, generator=gen, device=card)
+        got = scatter_csr.csr_dual_spmm_accum(rowptr, col, va, vb, x, w // 2,
+                                              out0.clone(), 1)
+        want = scatter_csr.csr_dual_spmm_accum_plain(rowptr, col, va, vb, x,
+                                                     w // 2, out0, 1)
+    else:
+        got = scatter_csr.csr_dual_spmm(rowptr, col, va, vb, x, w // 2)
+        want = scatter_csr.csr_dual_spmm_plain(rowptr, col, va, vb, x, w // 2)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["split", "streamed", "split_streamed"])
+def test_layouts_match_flat_layout_on_card(card, kind, monkeypatch):
+    """The split and streamed duals on the card (K2, one launch per block)
+    against the flat one (K1): forward and transposed backward.  Both sum
+    every row in compensated float32, so they agree to rounding even on
+    the hub row of 12,000 edges."""
+    rng = np.random.default_rng(7)
+    n, e = 3000, 40000
+    row = np.concatenate([np.full(12000, 17), rng.integers(0, n, e - 12000)])
+    col = (rng.zipf(1.3, e) - 1) % n          # skewed column degrees
+    va = rng.standard_normal(e).astype(np.float32)
+    vb = rng.standard_normal(e).astype(np.float32)
+    flat = spmm.dual_propagator(row, col, va, vb, n, mode="mxu", device=card)
+    if "split" in kind:
+        monkeypatch.setattr(layout, "COL_SPLIT_MIN_COLS", 100)
+        monkeypatch.setattr(layout, "GATHER_FAST_ROWS", 64)
+        monkeypatch.setattr(layout, "COL_SPLIT_MIN_COVERAGE", 0.0)
+    if "streamed" in kind:
+        monkeypatch.setattr(layout, "STREAM_THRESHOLD_EDGES", 5000)
+        monkeypatch.setattr(layout, "STREAM_BLOCK_EDGES", 4096)
+    D = spmm.dual_propagator(row, col, va, vb, n, mode="mxu", device=card)
+    assert flat.rowptr is not None and D.rowptr is None
+    assert (D.hot_ids is not None) == ("split" in kind)
+    assert D.streamed == ("streamed" in kind)
+    x = torch.randn(n, 64, device=card, requires_grad=True)
+    g = torch.randn(n, 64, device=card)
+    outs, grads = [], []
+    for op in (flat, D):
+        scatter_csr.reset_launch_counts()
+        out = spmm.dual_spmm_stacked(op, x)
+        outs.append(out)
+        grads.append(torch.autograd.grad(out, x, g)[0])
+    torch.testing.assert_close(outs[1], outs[0], **F32_TOL)
+    torch.testing.assert_close(grads[1], grads[0], **F32_TOL)
+    assert scatter_csr.LAUNCHES["csr_dual_spmm_accum"] == \
+        len(D.blocks) + len(D.transposed.blocks)
+    assert scatter_csr.LAUNCHES["csr_dual_spmm"] == 0
+
+
+# --- K5: the block-sparse kernel -------------------------------------------
+
+def bsr_operator(n_rows, n_cols, e, seed, device):
+    """Rectangular operator whose block rows 1 and 3 hold no entries."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, n_rows, e)
+    row = row[(row // 128 != 1) & (row // 128 != 3)]
+    col = rng.integers(0, n_cols, len(row))
+    val = rng.standard_normal(len(row)).astype(np.float32)
+    return build_coo(row, col, val, n_rows, num_cols=n_cols, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 5, 32, 40])
+def test_bsr_kernel_matches_plain_on_card(card, width):
+    from pytorch_geometric_signed_directed_tpu_torch.ops.bsr import (
+        bsr_from_coo)
+
+    B = bsr_from_coo(bsr_operator(700, 520, 6000, seed=width, device=card))
+    outs = []
+    for op, cols in ((B, 520), (B.transposed, 700)):
+        x = torch.randn(cols, width, device=card)
+        args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
+        before = bsr_spmm.LAUNCHES["bsr_spmm"]
+        outs.append(bsr_spmm.bsr_matmul(*args))
+        assert bsr_spmm.LAUNCHES["bsr_spmm"] == before + 1
+        torch.testing.assert_close(outs[-1],
+                                   bsr_spmm.bsr_matmul_plain(*args),
+                                   **F32_TOL)
+    # the forward's empty block rows
+    assert torch.all(outs[0][128:256] == 0)
+    assert torch.all(outs[0][384:512] == 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bsr_propagator_backward_on_card(card):
+    A = bsr_operator(700, 700, 6000, seed=3, device=card)
+    P = spmm.propagator_from_coo(A, mode="bsr")
+    S = spmm.propagator_from_coo(A, mode="segment")
+    x = torch.randn(700, 32, device=card, requires_grad=True)
+    g = torch.randn(700, 32, device=card)
+    outs, grads = [], []
+    for op in (P, S):
+        out = op(x)
+        outs.append(out)
+        grads.append(torch.autograd.grad(out, x, g)[0])
+    torch.testing.assert_close(outs[0], outs[1], **F32_TOL)
+    torch.testing.assert_close(grads[0], grads[1], **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_bsr_wrapper_rejects_bad_inputs_on_card(card):
+    from pytorch_geometric_signed_directed_tpu_torch.ops.bsr import (
+        bsr_from_coo)
+
+    B = bsr_from_coo(bsr_operator(300, 300, 2000, seed=4, device=card))
+    x = torch.randn(300, 8, device=card)
+    with pytest.raises(TypeError):
+        bsr_spmm.bsr_matmul(B.blocks, B.block_rowptr, B.block_cols,
+                            x.double(), 300)
+    with pytest.raises(ValueError, match="block rows"):
+        bsr_spmm.bsr_matmul(B.blocks, B.block_rowptr, B.block_cols, x, 600)

@@ -1,6 +1,7 @@
 """Port MagNet layers and model vs the JAX package, with the same weights
 carried over by ``state_dict_from_jax``: forward outputs and every
-parameter gradient, on the dense, segment and kernel ("mxu") tiers."""
+parameter gradient, on the dense, segment and kernel ("mxu", "bsr")
+tiers."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +25,7 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (
 # the tolerance of the JAX package's own MagNet parity test: Chebyshev
 # recurrences and einsums in float32, summed in other orders
 TOL = dict(rtol=2e-4, atol=2e-4)
-TIERS = ["dense", "segment", "mxu"]
+TIERS = ["dense", "segment", "mxu", "bsr"]
 
 
 def graph(n, e, seed):

@@ -199,5 +199,9 @@ def test_mode_strings():
     assert spmm.dual_propagator(row, col, va, vb, 100, device="cpu") is None
     assert spmm.dual_propagator(row, col, va, vb, 9000,
                                 device="cpu").mode == "mxu"
-    with pytest.raises(NotImplementedError, match="K5"):
-        spmm.make_propagator(row, col, va, 100, mode="bsr", device="cpu")
+    P = spmm.make_propagator(row, col, va, 100, mode="bsr", device="cpu")
+    assert P.mode == "bsr" and P.num_nodes == 100
+    assert spmm.dual_propagator(row, col, va, vb, 100, mode="bsr",
+                                device="cpu") is None
+    with pytest.raises(ValueError, match="unknown mode"):
+        spmm.make_propagator(row, col, va, 100, mode="csr", device="cpu")
