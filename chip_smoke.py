@@ -31,6 +31,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    transposed, times it beside a dense matmul and ``torch.sparse.mm`` on a
    BSR tensor, checks the model's forward against the dense tier, and
    trains 30 steps.
+6. Trainable-q phase: the bench's trainable-q configuration
+   (``magnet_trainable_q_step_ratio``): the magnet_mxu graph, a
+   ``magnetic_template`` (mxu), MagNet with ``trainable_q=True`` from
+   q=0.25.  Holds K3 (``csr_dual_sddmm``) against its plain version on the
+   transposed template at the widths the path applies (4 and 64, f32 and
+   bf16), K4 (``csr_dual_sddmm_accum``) on a split and a streamed layout
+   of the template, and K1's ``csr_scatter_sum`` at the pair forward's
+   widths (8 and 128); times each beside its bound and a PyTorch
+   composite; checks forward, dx and dq of the flat template and of the
+   one-card sharded template (``local_mesh()``) against a float64
+   reference, and the model's gradients against the CPU; then trains 30
+   steps on each (flat: K1 only; sharded: K1 forward, K3 backward) and
+   prints the trainable/frozen step ratio against phase 3.
 
 Each training run sets the launch counters to 0 just before and reads
 them just after, and must launch exactly the kernels its layouts imply.
@@ -138,14 +151,14 @@ def powerlaw_digraph(n, e, alpha, seed):
     return relabel[row], relabel[col]
 
 
-def make_model(device, seed=0):
+def make_model(device, seed=0, trainable_q=False):
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.nn import (
         MagNet_node_classification)
 
     return MagNet_node_classification(
         num_features=2, hidden=32, K=2, label_dim=5, activation=True,
-        layer=2, device=device,
+        layer=2, trainable_q=trainable_q, q=0.25, device=device,
         generator=torch.Generator().manual_seed(seed))
 
 
@@ -402,7 +415,7 @@ def magnet_mxu_phase(smi):
     log(f"slice speed on {smi}: median {ms_step:.3f} ms/step "
         f"(first step {step_ms[0]:.3f} ms, mean {wall / STEPS * 1e3:.3f} ms "
         f"by host clock), {e / (ms_step / 1e3):.1f} input edges/s")
-    return cases, launches
+    return cases, launches, ms_step
 
 
 # ---------------------------------------------------------------------------
@@ -527,19 +540,28 @@ def scatter_accum_case(b, width, seed):
                       f"float32")
 
 
-def dual_with_knobs(arrays, n, **knobs):
-    """The kernel-tier dual of ``arrays`` built with ops/layout.py's knobs
-    set to ``knobs`` for the call."""
-    from pytorch_geometric_signed_directed_tpu_torch.ops import layout, spmm
+def with_knobs(build, **knobs):
+    """``build()`` with ops/layout.py's knobs set to ``knobs`` for the
+    call."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops import layout
 
     saved = {k: getattr(layout, k) for k in knobs}
     for k, v in knobs.items():
         setattr(layout, k, v)
     try:
-        return spmm.dual_propagator(*arrays, n, mode="mxu", device=DEV)
+        return build()
     finally:
         for k, v in saved.items():
             setattr(layout, k, v)
+
+
+def dual_with_knobs(arrays, n, **knobs):
+    """The kernel-tier dual of ``arrays`` built with the layout knobs set
+    to ``knobs``."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
+
+    return with_knobs(lambda: spmm.dual_propagator(*arrays, n, mode="mxu",
+                                                   device=DEV), **knobs)
 
 
 def giant_phase(smi):
@@ -838,6 +860,336 @@ def bsr_phase(smi):
     return cases, launches
 
 
+# ---------------------------------------------------------------------------
+# trainable q: K3 (and K4 off the path) on the magnet_mxu graph
+
+
+def template_terms(t, q):
+    """(va, vb, wa, wb) of template direction ``t`` at phase ``q``."""
+    from pytorch_geometric_signed_directed_tpu_torch.parallel.mxu_shard \
+        import _template_terms
+
+    return _template_terms(t.a_norm, t.theta, q)
+
+
+def sddmm_bytes(rows, nnz, g, width):
+    """Least bytes of one K3/K4 call: rowptr, 20 B per edge, the g table,
+    x read and out written once (out read too in the accumulate mode is
+    left out: a bound, not a count of what the kernel moves)."""
+    return (4 * (rows + 1) + 20 * nnz + g.numel() * g.element_size()
+            + 8 * rows * width + 4 * width)
+
+
+def composite_sddmm(rowptr, col, terms, g, x, fa, n_cols):
+    """The yardstick: four cuSPARSE products and a sum, the same function
+    as K3 in plain float32 (a composite of library calls, not one)."""
+    import torch
+
+    va, vb, wa, wb = terms
+    rows = rowptr.numel() - 1
+    rp, cl = rowptr.long(), col.long()
+    mats = [torch.sparse_csr_tensor(rp, cl, v, size=(rows, n_cols))
+            for v in (va, vb, wa, wb)]
+    ga, gb = g[:, :fa].contiguous(), g[:, fa:].contiguous()
+
+    def run():
+        out = torch.cat([torch.sparse.mm(mats[0], ga),
+                         torch.sparse.mm(mats[1], gb)], 1)
+        m = torch.cat([torch.sparse.mm(mats[2], ga),
+                       torch.sparse.mm(mats[3], gb)], 1)
+        return out, (x[:rows] * m).sum(0)
+
+    return run
+
+
+def sddmm_kernel_case(t, q, width, dtype, seed):
+    """K3 alone on the flat direction ``t``: kernel vs plain vs the
+    composite."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        dual_sddmm)
+
+    n, nnz = t.num_nodes, t.col.numel()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g = torch.randn(n, width, device=DEV, generator=gen).to(dtype)
+    x = torch.randn(n, width, device=DEV, generator=gen)
+    fa = width // 2
+    terms = template_terms(t, q)
+    args = (t.rowptr, t.col, *terms, g, x, fa)
+    got = dual_sddmm.csr_dual_sddmm(*args)
+    want = dual_sddmm.csr_dual_sddmm_plain(*args)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)
+    again = dual_sddmm.csr_dual_sddmm(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("csr_dual_sddmm is not deterministic")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm(*args))
+    plain_ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_plain(*args))
+    library_ms = None
+    if dtype == torch.float32:
+        run = composite_sddmm(t.rowptr, t.col, terms, g, x, fa, n)
+        for a, b in zip(run(), want):
+            torch.testing.assert_close(a, b, **LIBRARY_TOL)
+        library_ms = time_ms(run)
+    nbytes = sddmm_bytes(n, nnz, g, width)
+    b_ms, b_by = bound(nbytes, 4 * nnz * width + 2 * n * width)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+                library="composite: 4x torch.sparse.mm + (x*m).sum(0)",
+                shape=f"transposed template N={n} nnz={nnz} 2F={width} "
+                      f"{str(dtype)[6:]}")
+
+
+def accum_sddmm_case(L, q, width, seed):
+    """K4 alone on block 0 (hot) of the split direction ``L``, into a
+    non-zero (out, acc): kernel vs plain."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        dual_sddmm)
+
+    n, fa = L.num_nodes, width // 2
+    b = L.blocks[0]
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g_hot = torch.randn(L.hot_ids.numel(), width, device=DEV, generator=gen)
+    x = torch.randn(n, width, device=DEV, generator=gen)
+    out0 = torch.randn(n, width, device=DEV, generator=gen)
+    acc0 = torch.randn(width, device=DEV, generator=gen)
+    s = slice(b.e0, b.e1)
+    args = (b.rowptr, L.col[s], *(v[s] for v in template_terms(L, q)),
+            g_hot, x, fa)
+    got = dual_sddmm.csr_dual_sddmm_accum(*args, out0.clone(), acc0.clone(),
+                                          b.row0)
+    want = dual_sddmm.csr_dual_sddmm_accum_plain(*args, out0, acc0, b.row0)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, **F32_TOL)
+    err = max(float((a - c).abs().max()) for a, c in zip(got, want))
+    out, acc = out0.clone(), acc0.clone()
+    ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_accum(*args, out, acc,
+                                                         b.row0))
+    plain_ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_accum_plain(
+        *args, out0, acc0, b.row0))
+    rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
+    nbytes = sddmm_bytes(rows, nnz, g_hot, width)
+    b_ms, b_by = bound(nbytes, 4 * nnz * width + 2 * rows * width)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bytes=nbytes,
+                shape=f"hot block 0 of the split transposed template: "
+                      f"rows={rows} nnz={nnz} table={L.hot_ids.numel()} "
+                      f"2F={width} float32")
+
+
+def reference_apply(seg, q, x, g):
+    """Forward, dx and dq of the template apply in float64 on the card,
+    from the segment template's edges."""
+    import math
+
+    import torch
+
+    row, col = seg.row, seg.col
+    a, th = seg.a_norm.double(), seg.theta.double()
+    ang = 2 * math.pi * q * th
+    scale = 2 * math.pi * th * a
+    fa = x.shape[1] // 2
+    xd, gd = x.double(), g.double()
+
+    def apply(v_a, v_b, src, dst, table):
+        msgs = torch.cat([v_a[:, None] * table[src, :fa],
+                          v_b[:, None] * table[src, fa:]], 1)
+        return torch.zeros_like(table).index_add_(0, dst, msgs)
+
+    y = apply(-a * torch.cos(ang), a * torch.sin(ang), col, row, xd)
+    yp = apply(scale * torch.sin(ang), scale * torch.cos(ang), col, row, xd)
+    dx = apply(-a * torch.cos(ang), a * torch.sin(ang), row, col, gd)
+    return y, dx, float((gd * yp).sum())
+
+
+def template_paths_check(tmpl, tmpl_s, seg, n):
+    """Forward, dx and dq of the flat and the one-card sharded template on
+    the card, and of the segment template (autograd through its values),
+    against the float64 reference."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        template_dual_apply, template_propagators)
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    x = torch.randn(n, 64, device=DEV, generator=gen)
+    g = torch.randn(n, 64, device=DEV, generator=gen)
+    q0 = 0.25
+    y_ref, dx_ref, dq_ref = reference_apply(seg, q0, x, g)
+
+    def segment_apply(q, v):
+        P_re, P_im = template_propagators(seg, q)
+        return torch.cat([P_re(v[:, :32]), P_im(v[:, 32:])], 1)
+
+    errs = {}
+    for name, fn, dq_rtol in (
+            ("flat", lambda q, v: template_dual_apply(tmpl, q, v), 1e-4),
+            ("sharded", lambda q, v: template_dual_apply(tmpl_s, q, v), 1e-3),
+            ("segment", segment_apply, 1e-4)):
+        q = torch.tensor(q0, device=DEV, requires_grad=True)
+        xx = x.clone().requires_grad_(True)
+        y = fn(q, xx)
+        (y * g).sum().backward()
+        y = y.detach()
+        torch.testing.assert_close(y.double(), y_ref, **F32_TOL)
+        torch.testing.assert_close(xx.grad.double(), dx_ref, **F32_TOL)
+        if abs(q.grad.item() - dq_ref) > dq_rtol * abs(dq_ref) + 1e-5:
+            raise AssertionError(f"{name} dq {q.grad.item()} vs float64 "
+                                 f"{dq_ref}")
+        errs[name] = (float((y.double() - y_ref).abs().max()),
+                      float((xx.grad.double() - dx_ref).abs().max()),
+                      abs(q.grad.item() - dq_ref) / abs(dq_ref))
+    log(f"trainable_q apply at 2F=64, q=0.25 against float64 (max abs err "
+        f"of y, dx; relative err of dq = {dq_ref:.6f}): {errs}")
+
+
+def small_trainable_model_check():
+    """Forward and every gradient (q included) of the trainable-q model on
+    the card, flat and one-card sharded, against the CPU at N=3000."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        local_mesh, shard_magnet_laplacian)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnetic_template)
+
+    ei, w, x, y = slice_graph(3000, 30, seed=1)
+    outs = {}
+    for dev in (DEV, "cpu"):
+        tmpl = magnetic_template(ei, w, num_nodes=3000, mode="mxu",
+                                 device=dev)
+        laps = {dev: tmpl}
+        if dev == DEV:
+            laps["sharded"] = shard_magnet_laplacian(tmpl, local_mesh())
+        for name, lap in laps.items():
+            model = make_model(dev, seed=1, trainable_q=True)
+            xt = torch.from_numpy(x).to(dev)
+            logp = model(xt, xt, lap)
+            torch.nn.functional.nll_loss(
+                logp, torch.from_numpy(y).to(dev)).backward()
+            outs[name] = [logp.detach()] + [p.grad for p in
+                                            model.parameters()]
+    for name in (DEV, "sharded"):
+        for a, b in zip(outs[name], outs["cpu"]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    log("small trainable-q model (N=3000): card forward and all parameter "
+        "gradients, q included, agree with the CPU at 1e-4 (flat and "
+        "one-card sharded)")
+
+
+def trainable_q_phase(smi, frozen_ms):
+    """Phase 6: trainable-q MagNet, flat (K1) and one-card sharded (K1
+    forward, K3 backward); K3 and K4 against their plain versions."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops import sddmm
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        local_mesh, shard_magnet_laplacian)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnetic_template)
+
+    n = N
+    t0 = time.perf_counter()
+    ei, w, x_np, y_np = slice_graph(n, 30, seed=0)
+    e = ei.shape[1]
+    tmpl = magnetic_template(ei, w, num_nodes=n, mode="auto", device=DEV)
+    tmpl_s = shard_magnet_laplacian(tmpl, local_mesh())
+    torch.cuda.synchronize()
+    if tmpl.mode != "mxu" or tmpl.blocks or tmpl.transposed.blocks:
+        raise AssertionError("mode='auto' did not pick a flat mxu template")
+    if tmpl_s.mode != "mxu_sharded" or tmpl_s.sharded.n_devices != 1:
+        raise AssertionError("local_mesh() did not shard onto one card")
+    tt = tmpl.transposed
+    nnz = tt.col.numel()
+    log(f"trainable_q graph: N={n} E={e} template nnz={nnz} (flat and "
+        f"one-card sharded templates built in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    q = torch.tensor(0.25, device=DEV)
+
+    cases = {}
+    for width in (4, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = sddmm_kernel_case(tt, q, width, dtype, seed=width)
+            cases[("csr_dual_sddmm", width, dtype)] = r
+            log_case(f"csr_dual_sddmm 2F={width} {str(dtype)[6:]}", r)
+    for width in (8, 128):
+        r = scatter_kernel_case(tmpl.rowptr, nnz, width, torch.float32,
+                                seed=width)
+        cases[("csr_scatter_sum", width)] = r
+        log_case(f"csr_scatter_sum (pair forward) W={width} float32", r)
+
+    # K4 on a split (a quarter of the columns hot) and a streamed (five
+    # blocks) layout of the same template
+    layouts = {
+        "split": with_knobs(lambda: magnetic_template(
+            ei, w, num_nodes=n, mode="mxu", device=DEV),
+            COL_SPLIT_MIN_COLS=n // 2, GATHER_FAST_ROWS=n // 4,
+            COL_SPLIT_MIN_COVERAGE=0.0).transposed,
+        "streamed": with_knobs(lambda: magnetic_template(
+            ei, w, num_nodes=n, mode="mxu", device=DEV),
+            STREAM_THRESHOLD_EDGES=0,
+            STREAM_BLOCK_EDGES=-(-nnz // 5)).transposed,
+    }
+    if layouts["split"].hot_ids is None or layouts["split"].streamed or \
+            not layouts["streamed"].streamed:
+        raise AssertionError("the knobs did not force the split and "
+                             "streamed layouts")
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    g = torch.randn(n, 64, device=DEV, generator=gen)
+    xx = torch.randn(n, 64, device=DEV, generator=gen)
+    flat = sddmm.dual_scatter_sddmm(tt, g, *template_terms(tt, q), xx, 32)
+    for name, L, entry in (
+            ("split", layouts["split"], sddmm.split_dual_scatter_sddmm),
+            ("streamed", layouts["streamed"],
+             sddmm.streamed_dual_scatter_sddmm)):
+        got = entry(L, g, *template_terms(L, q), xx, 32)
+        for a, b in zip(got, flat):
+            torch.testing.assert_close(a, b, **F32_TOL)
+        log(f"K4 over the {name} layout ({len(L.blocks)} blocks, "
+            f"{L.hot_blocks} hot): agrees with K3 on the flat one (max abs "
+            f"err {max(float((a - b).abs().max()) for a, b in zip(got, flat)):.3g})")
+    k4 = accum_sddmm_case(layouts["split"], q, 64, seed=6)
+    log_case("csr_dual_sddmm_accum hot block 0 2F=64 float32", k4)
+    del layouts, flat, g, xx
+
+    seg = magnetic_template(ei, w, num_nodes=n, mode="segment", device=DEV)
+    template_paths_check(tmpl, tmpl_s, seg, n)
+    del seg
+    small_trainable_model_check()
+
+    x = torch.from_numpy(x_np).to(DEV)
+    y = torch.from_numpy(y_np).to(DEV)
+    runs = {}
+    # per step, flat: the pair forward is one csr_scatter_sum per apply
+    # (W=8 in layer 1, W=128 in layer 2, two each); the backward's dx is
+    # one csr_dual_spmm per apply whose input needs a gradient (layer 1's
+    # second, 2F=4, and both of layer 2, 2F=64); dq needs no kernel.
+    # sharded: one csr_dual_spmm forward and one csr_dual_sddmm backward
+    # per apply (K3 gives dx and dq together, so layer 1's first runs it
+    # too).
+    for name, lap, expected in (
+            ("flat", tmpl, {"csr_scatter_sum": 4, "csr_dual_spmm": 3}),
+            ("sharded", tmpl_s, {"csr_dual_spmm": 4, "csr_dual_sddmm": 4})):
+        model = make_model(DEV, seed=0, trainable_q=True)
+        losses, launches, step_ms, wall = train(model, x, y, lap, STEPS)
+        check_launches(launches, expected, STEPS, f"trainable_q {name}")
+        qs = [float(c.q) for c in model.convs]
+        if all(v == 0.25 for v in qs):
+            raise AssertionError(f"trainable_q {name}: q did not move")
+        ms_step = statistics.median(step_ms[1:])
+        runs[name] = (launches, ms_step)
+        log(f"trainable_q {name} train: {STEPS} steps, loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}, q per layer {qs}; "
+            f"launches {launches} ({expected} per step)")
+        log(f"trainable_q {name} speed on {smi}: median {ms_step:.3f} "
+            f"ms/step (first step {step_ms[0]:.3f} ms, mean "
+            f"{wall / STEPS * 1e3:.3f} ms by host clock), "
+            f"{e / (ms_step / 1e3):.1f} input edges/s, trainable/frozen "
+            f"step ratio {ms_step / frozen_ms:.3f} (frozen {frozen_ms:.3f} "
+            f"ms)")
+    return cases, k4, runs
+
+
 def main():
     import torch
 
@@ -863,17 +1215,22 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-5. the three paths ---------------------------------------------
+    # ---- 2-6. the four paths ---------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
-                        ("giant", giant_phase), ("bsr", bsr_phase)):
+                        ("giant", giant_phase), ("bsr", bsr_phase),
+                        ("trainable_q", lambda smi: trainable_q_phase(
+                            smi, phases["magnet_mxu"][2]))):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-    k1_cases, k1_launches = phases["magnet_mxu"]
+    k1_cases, k1_launches, _ = phases["magnet_mxu"]
     k2, k2_own, k2_launches = phases["giant"]
     k5_cases, k5_launches = phases["bsr"]
+    tq_cases, k4, tq_runs = phases["trainable_q"]
+    flat_launches = tq_runs["flat"][0]
+    sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
 
     print(smi)
@@ -890,16 +1247,26 @@ def main():
             kernel_entry("bsr_spmm", k5_cases[(32, "fwd")],
                          k5_launches["bsr_spmm"], "bsr_spmm.cu",
                          "bsr_spmm.py:119"),
-        ],
-        # the plain segment-sum entries of K1 and K2: tested, on no path
-        "off_path": [
+            # K1's own contract: the flat trainable-q pair forward
             kernel_entry("csr_scatter_sum",
-                         k1_cases[("csr_scatter_sum", 64, torch.float32)],
-                         k1_launches["csr_scatter_sum"], "scatter_csr.cu",
+                         tq_cases[("csr_scatter_sum", 128)],
+                         flat_launches["csr_scatter_sum"], "scatter_csr.cu",
                          "scatter_mxu.py:503"),
+            {**kernel_entry("csr_dual_sddmm",
+                            tq_cases[("csr_dual_sddmm", 64, torch.float32)],
+                            sharded_launches["csr_dual_sddmm"],
+                            "dual_sddmm.cu", "scatter_mxu.py:741"),
+             "library": tq_cases[("csr_dual_sddmm", 64,
+                                  torch.float32)]["library"]},
+        ],
+        # K2's own contract and K4: tested, on no path this script drives
+        "off_path": [
             kernel_entry("csr_scatter_accum", k2_own,
                          k2_launches["csr_scatter_accum"], "scatter_csr.cu",
                          "scatter_mxu.py:580"),
+            kernel_entry("csr_dual_sddmm_accum", k4,
+                         sharded_launches["csr_dual_sddmm_accum"],
+                         "dual_sddmm.cu", "scatter_mxu.py:844"),
         ],
     }))
     print(json.dumps({"ok": True, "device": {

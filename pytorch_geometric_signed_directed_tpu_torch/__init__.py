@@ -9,8 +9,11 @@ ported path is a CUDA C++ kernel written by hand for ``sm_90a``
 Layout mirrors the JAX package so a reader can find each counterpart:
 
   ops/       COO container, segment tier (``index_add_``), tiered SpMM
-             (dense / segment / mxu), the CSR scatter kernel (ops/cuda).
-  spectral/  host-side (numpy/scipy) magnetic Laplacians.
+             (dense / segment / mxu / bsr), the layouts, the CUDA
+             kernels (ops/cuda).
+  spectral/  host-side (numpy/scipy) magnetic Laplacians and the
+             trainable-q templates.
+  parallel/  the kernel tier across a device mesh.
   data/      DSBM synthetic generator.
   utils/     meta-graph generation.
   nn/        MagNet layers and models as ``torch.nn.Module``s.
@@ -29,8 +32,9 @@ from . import spectral  # noqa: F401
 from . import utils  # noqa: F401
 from . import data  # noqa: F401
 from . import nn  # noqa: F401
+from . import parallel  # noqa: F401
 from . import train  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
-__all__ = ["ops", "graph", "spectral", "utils", "data", "nn", "train",
-           "resolve_device", "__version__"]
+__all__ = ["ops", "graph", "spectral", "utils", "data", "nn", "parallel",
+           "train", "resolve_device", "__version__"]

@@ -14,11 +14,12 @@ _CONV = re.compile(r"MagNetConv_(\d+)$")
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``{'params': {'MagNetConv_i': {'weight' [K+1,in,out], 'bias'},
-    'Dense_0': {'kernel' [in,out], 'bias'}}}`` -> the state_dict of
-    ``MagNet_node_classification`` / ``MagNet_link_prediction`` (or, for
-    a bare ``{'params': {'weight', 'bias'}}``, of one ``MagNetConv``).
-    The Dense kernel is transposed into the Linear weight."""
+    """``{'params': {'MagNetConv_i': {'weight' [K+1,in,out], 'bias'[,
+    'q' [1]]}, 'Dense_0': {'kernel' [in,out], 'bias'}}}`` -> the state_dict
+    of ``MagNet_node_classification`` / ``MagNet_link_prediction`` (or,
+    for a bare ``{'params': {'weight', 'bias'[, 'q']}}``, of one
+    ``MagNetConv``).  The Dense kernel is transposed into the Linear
+    weight; a trainable-q conv's ``q`` leaf carries over as it is."""
     tree = params.get("params", params)
 
     def t(a):
@@ -29,14 +30,11 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         m = _CONV.match(name)
         if m:
             for k, v in leaf.items():
-                if k == "q":
-                    raise NotImplementedError(
-                        "trainable-q parameters are not ported yet")
                 out[f"convs.{m.group(1)}.{k}"] = t(v)
         elif name == "Dense_0":
             out["linear.weight"] = t(leaf["kernel"]).T.contiguous()
             out["linear.bias"] = t(leaf["bias"])
-        elif name in ("weight", "bias"):
+        elif name in ("weight", "bias", "q"):
             out[name] = t(leaf)
         else:
             raise KeyError(f"unexpected parameter group {name!r}")

@@ -1,7 +1,7 @@
 """MagNetConv: Chebyshev filter over the scaled magnetic Laplacian.
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/nn/directed/
-magnet_conv.py`` for frozen q.  The original layer runs four propagate
+magnet_conv.py``.  The original layer runs four propagate
 streams, two of which repeat the other two, so the math is two Chebyshev
 recurrences:
 
@@ -11,7 +11,10 @@ recurrences:
 
 On the sparse tiers both recurrences run in lockstep through the fused
 operator pair, one lane-stacked apply per order.  The K+1 weight applies
-are one float32 einsum.
+are one float32 einsum.  With ``trainable_q`` the operators come from a
+MagneticTemplate for the clipped phase: through ``template_dual_apply``
+on the kernel tier (flat, split, streamed or sharded), through
+``template_propagators`` on the dense and segment tiers.
 """
 from typing import Optional, Tuple
 
@@ -20,7 +23,12 @@ from torch import nn
 
 from ...device import DeviceLike, resolve_device
 from ...ops.spmm import DualPropagator, Propagator, dual_spmm_stacked
-from ...spectral.magnetic import MagneticPair
+from ...spectral.magnetic import (
+    MagneticPair,
+    MagneticTemplate,
+    template_dual_apply,
+    template_propagators,
+)
 from ..inits import glorot, zeros
 
 
@@ -52,7 +60,8 @@ def dual_chebyshev_stacks(D: DualPropagator, x_a: torch.Tensor,
 
 class MagNetConv(nn.Module):
     """Args mirror the original layer; the forward takes ``lap``, a
-    MagneticPair (or a (P_re, P_im) tuple) from ``magnet_propagators``.
+    MagneticPair (or a (P_re, P_im) tuple) from ``magnet_propagators``, or
+    a MagneticTemplate when ``trainable_q`` is True.
 
     ``generator`` draws the initial weights (on the CPU); ``device``
     places them (None means "cuda")."""
@@ -65,16 +74,16 @@ class MagNetConv(nn.Module):
         super().__init__()
         if K <= 0:
             raise ValueError(f"K must be positive, got {K}")
-        if trainable_q:
-            raise NotImplementedError(
-                "trainable q is not ported yet (ROADMAP.md queue A, "
-                "'Trainable q')")
         device = resolve_device(device)
         self.in_channels, self.out_channels, self.K = (in_channels,
                                                        out_channels, K)
-        self.q, self.normalization = q, normalization
+        self.trainable_q, self.normalization = trainable_q, normalization
         self.weight = nn.Parameter(
             glorot((K + 1, in_channels, out_channels), generator).to(device))
+        if trainable_q:
+            self.q = nn.Parameter(torch.full((1,), q, device=device))
+        else:
+            self.q = q
         if bias:
             self.bias = nn.Parameter(zeros((out_channels,)).to(device))
         else:
@@ -82,10 +91,29 @@ class MagNetConv(nn.Module):
 
     def forward(self, x_real: torch.Tensor, x_imag: torch.Tensor,
                 lap) -> Tuple[torch.Tensor, torch.Tensor]:
-        P_re, P_im = lap
-        dual = lap.dual if isinstance(lap, MagneticPair) else None
+        apply = dual_spmm_stacked
+        if self.trainable_q:
+            # the original clamps q each forward; min(max(.)) passes half
+            # the gradient at a bound, as jnp.clip does (torch.clamp would
+            # pass all of it, and q starts at the bound 0.25)
+            q = torch.minimum(torch.maximum(self.q, torch.zeros_like(self.q)),
+                              torch.full_like(self.q, 0.25))[0]
+            if not isinstance(lap, MagneticTemplate):
+                raise TypeError("trainable_q needs a MagneticTemplate")
+            if lap.mode in ("mxu", "mxu_sharded"):
+                dual = lap
+
+                def apply(_D, v):
+                    return template_dual_apply(lap, q, v)
+            else:
+                dual = None
+                P_re, P_im = template_propagators(lap, q)
+        else:
+            P_re, P_im = lap
+            dual = lap.dual if isinstance(lap, MagneticPair) else None
         if dual is not None:
-            s1, s2 = dual_chebyshev_stacks(dual, x_real, x_imag, self.K)
+            s1, s2 = dual_chebyshev_stacks(dual, x_real, x_imag, self.K,
+                                           apply=apply)
         else:
             s1 = chebyshev_stack(P_re, x_real, self.K)  # [K+1, N, F]
             s2 = chebyshev_stack(P_im, x_imag, self.K)

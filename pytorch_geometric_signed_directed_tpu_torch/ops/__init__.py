@@ -1,10 +1,15 @@
 """Sparse tier: COO container, segment sum, tiered SpMM, giant-graph
-layouts, BSR, CUDA kernels."""
+layouts, BSR, the fused scatter + SDDMM, CUDA kernels."""
 
 from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo
 from .layout import col_degree_split
 from .reorder import apply_permutation, block_density, rcm_permutation
+from .sddmm import (
+    dual_scatter_sddmm,
+    split_dual_scatter_sddmm,
+    streamed_dual_scatter_sddmm,
+)
 from .segment import segment_sum
 from .spmm import (
     CSR,
@@ -14,6 +19,7 @@ from .spmm import (
     dual_propagator,
     dual_spmm,
     dual_spmm_stacked,
+    dual_spmm_stacked_trainable,
     get_matmul_precision,
     get_message_dtype,
     make_propagator,
@@ -34,6 +40,9 @@ __all__ = [
     "apply_permutation",
     "block_density",
     "rcm_permutation",
+    "dual_scatter_sddmm",
+    "split_dual_scatter_sddmm",
+    "streamed_dual_scatter_sddmm",
     "segment_sum",
     "CSR",
     "DualPropagator",
@@ -42,6 +51,7 @@ __all__ = [
     "dual_propagator",
     "dual_spmm",
     "dual_spmm_stacked",
+    "dual_spmm_stacked_trainable",
     "get_matmul_precision",
     "get_message_dtype",
     "make_propagator",

@@ -1,7 +1,13 @@
 """Hand-written CUDA kernels for Hopper, built with nvcc at first use."""
 
-from . import bsr_spmm, scatter_csr
+from . import bsr_spmm, dual_sddmm, scatter_csr
 from .bsr_spmm import bsr_matmul, bsr_matmul_plain
+from .dual_sddmm import (
+    csr_dual_sddmm,
+    csr_dual_sddmm_accum,
+    csr_dual_sddmm_accum_plain,
+    csr_dual_sddmm_plain,
+)
 from .scatter_csr import (
     csr_dual_spmm,
     csr_dual_spmm_accum,
@@ -16,15 +22,19 @@ from .scatter_csr import (
 
 def launch_counts() -> dict:
     """Launches of every kernel wrapper since the last reset, by name."""
-    return {**scatter_csr.LAUNCHES, **bsr_spmm.LAUNCHES}
+    return {**scatter_csr.LAUNCHES, **bsr_spmm.LAUNCHES,
+            **dual_sddmm.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     scatter_csr.reset_launch_counts()
     bsr_spmm.reset_launch_counts()
+    dual_sddmm.reset_launch_counts()
 
 
-__all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_spmm",
+__all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_sddmm",
+           "csr_dual_sddmm_accum", "csr_dual_sddmm_accum_plain",
+           "csr_dual_sddmm_plain", "csr_dual_spmm",
            "csr_dual_spmm_accum", "csr_dual_spmm_accum_plain",
            "csr_dual_spmm_plain", "csr_scatter_accum",
            "csr_scatter_accum_plain", "csr_scatter_sum",

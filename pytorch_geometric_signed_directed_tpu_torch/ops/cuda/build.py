@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 into ``build/torch_kernels/lib<name>_<hash>.so`` at the root of the
-checkout.  The hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is loaded as it is.  ``build_all`` starts
+checkout.  The hash covers the source, the shared headers and the
+flags, so an edited source builds anew and an unchanged one is loaded as
+it is.  ``build_all`` starts
 one ``nvcc`` per source, all at once.  A failed build raises with the
 compiler's output; nothing falls back.
 """
@@ -22,7 +23,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
     "build", "torch_kernels")
-SOURCES = ("scatter_csr.cu", "bsr_spmm.cu")
+SOURCES = ("scatter_csr.cu", "bsr_spmm.cu", "dual_sddmm.cu")
+# headers the sources include: a change to one rebuilds every source
+HEADERS = ("csr_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for part in (name,) + HEADERS:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(name)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")

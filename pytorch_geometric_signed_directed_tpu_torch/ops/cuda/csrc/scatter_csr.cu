@@ -53,50 +53,11 @@
 // hub row of 10^5 edges sets a block's time on its own; load balancing by
 // degree, TMA and wgmma are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "csr_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Round a product to the message type (f32 products are already rounded:
-// __fmul_rn keeps the compiler from fusing them into the sum).
-template <typename T>
-__device__ __forceinline__ float round_msg(float v);
-template <>
-__device__ __forceinline__ float round_msg<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_msg<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// sum += v with the running compensation c.  The _rn intrinsics keep the
-// compiler from contracting or reordering the four steps.
-__device__ __forceinline__ void kahan_add(float& sum, float& c, float v) {
-  const float y = __fsub_rn(v, c);
-  const float t = __fadd_rn(sum, y);
-  c = __fsub_rn(__fsub_rn(t, sum), y);
-  sum = t;
-}
-
-// G threads (a group, G divides 32) own one output row; thread t of the
-// group owns lanes f0 + k*G, k < KS, of the feature tile blockIdx.y.
-template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  const unsigned ones = G == 32 ? 0xffffffffu : ((1u << (G % 32)) - 1u);
-  return ones << (((threadIdx.x & 31) / G) * G);
-}
+using namespace pgsd;
 
 // ACCUM: start from out[row0 + row] and leave rows without edges alone.
 template <typename T, int G, int KS, bool ACCUM>
@@ -186,14 +147,6 @@ __global__ void __launch_bounds__(kBlock) csr_scatter_sum_kernel(
   }
 }
 
-template <int G, int KS>
-dim3 grid_for(int n_rows, int width) {
-  return dim3((n_rows + kBlock / G - 1) / (kBlock / G),
-              (width + G * KS - 1) / (G * KS));
-}
-
-// Narrow widths pack several rows into a warp (G < 32); wide ones give
-// each thread up to 8 lanes and tile anything past 256 over blockIdx.y.
 template <typename T, bool ACCUM>
 void dual_dispatch(const int* rowptr, const int* col, const float* va,
                    const float* vb, const T* x, float* out, int n, int w,
@@ -202,13 +155,7 @@ void dual_dispatch(const int* rowptr, const int* col, const float* va,
   csr_dual_spmm_kernel<T, G, KS, ACCUM>                                    \
       <<<grid_for<G, KS>(n, w), kBlock, 0, s>>>(rowptr, col, va, vb, x,    \
                                                 out, n, w, fa, row0)
-  if (w <= 4) PGSD_DUAL(4, 1);
-  else if (w <= 8) PGSD_DUAL(8, 1);
-  else if (w <= 16) PGSD_DUAL(16, 1);
-  else if (w <= 32) PGSD_DUAL(32, 1);
-  else if (w <= 64) PGSD_DUAL(32, 2);
-  else if (w <= 128) PGSD_DUAL(32, 4);
-  else PGSD_DUAL(32, 8);
+  PGSD_DISPATCH_WIDTH(w, PGSD_DUAL);
 #undef PGSD_DUAL
 }
 
@@ -219,13 +166,7 @@ void scatter_dispatch(const int* rowptr, const T* msgs, float* out, int n,
   csr_scatter_sum_kernel<T, G, KS, ACCUM>                                   \
       <<<grid_for<G, KS>(n, w), kBlock, 0, s>>>(rowptr, msgs, out, n, w,    \
                                                 row0)
-  if (w <= 4) PGSD_SCATTER(4, 1);
-  else if (w <= 8) PGSD_SCATTER(8, 1);
-  else if (w <= 16) PGSD_SCATTER(16, 1);
-  else if (w <= 32) PGSD_SCATTER(32, 1);
-  else if (w <= 64) PGSD_SCATTER(32, 2);
-  else if (w <= 128) PGSD_SCATTER(32, 4);
-  else PGSD_SCATTER(32, 8);
+  PGSD_DISPATCH_WIDTH(w, PGSD_SCATTER);
 #undef PGSD_SCATTER
 }
 

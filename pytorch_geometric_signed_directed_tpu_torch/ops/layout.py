@@ -124,9 +124,12 @@ def _even_bounds(n: int, cap: int) -> np.ndarray:
 
 
 def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
-                 device):
+                 device, col_split: bool = True, stream: bool = True):
     """Lay out host edges ``(row, col)`` for the kernel tier on ``device``,
     split and streamed as this module's knobs say when it is called.
+    ``col_split=False`` or ``stream=False`` rule out the split or the
+    stream (the shards of parallel/mxu_shard.py: one CSR each, unsplit for
+    trainable values).
 
     Returns (CsrLayout, perm) with ``perm`` [nnz] int64 on ``device``
     mapping layout order to input edge order (to permute edge values).
@@ -138,7 +141,7 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
     if nnz >= 2 ** 31:
         raise ValueError(f"nnz={nnz} does not fit int32 offsets")
     r = torch.from_numpy(row).to(device)
-    split = col_degree_split(col, n_cols)
+    split = col_degree_split(col, n_cols) if col_split else None
     hot_ids, n_hot, key = None, 0, r
     if split is not None:
         grp, col, hot = split
@@ -149,7 +152,7 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
                                + row).to(device)
     perm = torch.argsort(key, stable=True)
     c = torch.from_numpy(col).to(device)[perm].to(torch.int32)
-    streamed = nnz > STREAM_THRESHOLD_EDGES
+    streamed = stream and nnz > STREAM_THRESHOLD_EDGES
     if split is None and not streamed:
         return CsrLayout(col=c, rowptr=rowptr_of(r, n_rows)), perm
 

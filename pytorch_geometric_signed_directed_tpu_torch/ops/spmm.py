@@ -17,6 +17,10 @@ mode strings are the JAX package's, so both take the same arguments:
                    (ops/cuda/bsr_spmm.cu, the port of the TPU kernel K5).
   * ``auto``     — ``dense`` up to 8192 nodes, else ``mxu``.
 
+``mxu_sharded`` operators come from parallel/ (``shard_propagator``,
+``shard_dual``): the kernel tier over an owner-computes row partition of
+a device mesh.
+
 Every tier is differentiable; on ``mxu`` the backward is the forward of
 the transposed operator, built at preparation time.
 """
@@ -31,7 +35,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo, check_indices
-from .cuda.scatter_csr import csr_dual_spmm, csr_dual_spmm_accum
+from .cuda.scatter_csr import _row_ids, csr_dual_spmm, csr_dual_spmm_accum
 from .layout import CsrBlock, CsrLayout, build_layout
 from .segment import segment_sum
 
@@ -174,13 +178,16 @@ def _csr_apply(A: CSR, x: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Propagator:
-    """A frozen linear operator ``x -> A @ x`` with a fixed tier."""
+    """A frozen linear operator ``x -> A @ x`` with a fixed tier.
+    ``sharded`` (a parallel.mxu_shard.ShardedMXU) holds the operator of
+    the ``mxu_sharded`` tier."""
 
     coo: Optional[COO]
     dense: Optional[torch.Tensor]
     mode: str
     csr: Optional[CSR] = None
     bsr: Optional[BSR] = None
+    sharded: Optional[object] = None
 
     @property
     def num_nodes(self) -> int:
@@ -188,6 +195,8 @@ class Propagator:
             return self.dense.shape[0]
         if self.mode == "mxu":
             return self.csr.num_rows
+        if self.mode == "mxu_sharded":
+            return self.sharded.num_rows
         if self.mode == "bsr":
             return self.bsr.num_rows
         return self.coo.num_nodes
@@ -197,6 +206,10 @@ class Propagator:
             return torch.matmul(self.dense, x)
         if self.mode == "mxu":
             return _CsrSpmm.apply(x, self.csr)
+        if self.mode == "mxu_sharded":
+            from ..parallel.mxu_shard import sharded_mxu_spmm
+
+            return sharded_mxu_spmm(self.sharded, x)
         if self.mode == "bsr":
             return bsr_spmm(self.bsr, x)
         return spmm_coo(self.coo, x)
@@ -251,8 +264,10 @@ class DualPropagator:
     ``mxu``: int32 ``col`` in the layout's order, with ``rowptr`` [N+1]
     int32 (flat) or ``blocks`` (column-split or streamed, as in CSR).
     ``segment``: int64 ``row`` and ``col`` sorted by (row, col).
-    ``val_a``/``val_b`` are float32 in the same order.  ``transposed`` is
-    the pair's transpose, whose forward is this pair's backward."""
+    ``val_a``/``val_b`` are float32 in the same order.  ``mxu_sharded``:
+    ``sharded`` (a parallel.mxu_shard.ShardedMXU) holds both.
+    ``transposed`` is the pair's transpose, whose forward is this pair's
+    backward."""
 
     col: torch.Tensor
     row: Optional[torch.Tensor]       # segment tier
@@ -267,6 +282,7 @@ class DualPropagator:
     hot_blocks: int = 0
     hot_ids: Optional[torch.Tensor] = None
     streamed: bool = False
+    sharded: Optional[object] = None
 
 
 def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
@@ -356,6 +372,10 @@ def _dual_forward_stacked(D: DualPropagator, x: torch.Tensor) -> torch.Tensor:
     fa = x.shape[1] // 2
     if D.mode == "mxu":
         return _layout_apply(D, D.val_a, D.val_b, D.num_nodes, x, fa)
+    if D.mode == "mxu_sharded":
+        from ..parallel.mxu_shard import sharded_forward
+
+        return sharded_forward(D.sharded, x)
     lane = torch.arange(2 * fa, device=x.device) < fa
     msgs = x[D.col] * torch.where(lane[None, :], D.val_a[:, None],
                                   D.val_b[:, None])
@@ -379,6 +399,42 @@ def dual_spmm_stacked(D: DualPropagator, x: torch.Tensor) -> torch.Tensor:
     One gather + one segment sum; the per-edge value is selected by lane.
     The backward is this function on ``D.transposed``."""
     return _DualSpmmStacked.apply(x, D)
+
+
+class _DualSpmmTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, val_a, val_b, D):
+        ctx.D = D
+        ctx.save_for_backward(x)
+        return _dual_forward_stacked(D, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        D = ctx.D
+        (x,) = ctx.saved_tensors
+        g = g.contiguous()
+        dx = (_dual_forward_stacked(D.transposed, g)
+              if ctx.needs_input_grad[0] else None)
+        fa = x.shape[1] // 2
+        rows = D.row if D.mode == "segment" else _row_ids(D.rowptr)
+        prod = g[rows] * x[D.col.long()]
+        return dx, prod[:, :fa].sum(1), prod[:, fa:].sum(1), None
+
+
+def dual_spmm_stacked_trainable(D: DualPropagator,
+                                x: torch.Tensor) -> torch.Tensor:
+    """``dual_spmm_stacked`` whose backward also gives the per-edge value
+    cotangents ``dval[e] = sum_f g[row_e, f] x[col_e, f]`` over each lane
+    half (an SDDMM): the generic path for operator values that carry
+    gradients, such as ``template_dual``'s.  Flat ``mxu`` layouts and the
+    segment tier only."""
+    if D.hot_ids is not None or D.streamed:
+        raise ValueError("trainable operator values need a flat layout or "
+                         "the segment tier; use template_dual_apply on "
+                         "split or streamed templates")
+    if D.transposed is None:
+        raise ValueError("the dual has no transpose to differentiate with")
+    return _DualSpmmTrainable.apply(x, D.val_a, D.val_b, D)
 
 
 def dual_spmm(D: DualPropagator, x_a: torch.Tensor, x_b: torch.Tensor):

@@ -1,24 +1,34 @@
 """Magnetic and signed magnetic Laplacians (host-side numpy/scipy).
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/spectral/
-magnetic.py`` for frozen q: the same arrays for the same input.  The
-scaled Chebyshev operator pair L_hat = 2L/lambda_max - I is built once
-and frozen into Propagators on a device.  Trainable q (``MagneticTemplate``)
-waits for a later slice.
+magnetic.py``: the same arrays for the same input.  For frozen q the
+scaled Chebyshev operator pair L_hat = 2L/lambda_max - I is built once and
+frozen into Propagators on a device.  For trainable q the q-independent
+structure is a ``MagneticTemplate``, whose per-edge values are rebuilt for
+each q with elementwise math; on the kernel tier ``template_dual_apply``
+applies it with its own forward (the pair forward) and backward.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.coalesce import coalesce_edges
-from ..ops.coo import build_coo
+from ..ops.coo import COO, build_coo
+from ..ops.cuda.scatter_csr import csr_scatter_accum, csr_scatter_sum
+from ..ops.layout import CsrBlock, build_layout
 from ..ops.spmm import (
+    _DENSE_AUTO_MAX_NODES,
     DualPropagator,
     Propagator,
+    _kernel_dtype,
+    _layout_apply,
+    _layout_fields,
     dual_propagator,
     propagator_from_coo,
     propagators_from_dual,
@@ -277,3 +287,268 @@ def magnet_propagators(
         im=propagator_from_coo(A_im, mode=single_mode),
         dual=dual,
     )
+
+
+# ---------------------------------------------------------------------------
+# Trainable q: the q-independent template and its applies
+
+
+@dataclass(frozen=True)
+class MagneticTemplate:
+    """q-independent structure of the sym-normalized magnetic Laplacian.
+
+    With sym normalization and lambda_max = 2 the scaled operator is purely
+    off-diagonal: L_hat_re = -A_norm . cos(2 pi q Theta) and (transposed
+    for the conv, see ``magnet_operator_arrays``) L_hat_im = A_norm .
+    sin(2 pi q Theta), so a new q only recomputes per-edge values.
+
+    ``dense`` holds ``a_norm`` and ``theta`` as [N, N] float32; ``segment``
+    as per-edge float32 with int64 ``row``/``col`` sorted by (row, col);
+    ``mxu`` in the kernel tier's layout order (the layout's ``col``,
+    ``rowptr`` or ``blocks``, hot table and stream, as in
+    ``DualPropagator``), with ``transposed`` the same per-edge values in
+    the transposed layout's order (cos is even and sin odd in theta, so the
+    formulas give the transposed operator's values unchanged).
+    ``mxu_sharded`` (parallel.build_sharded_template) holds a
+    parallel.mxu_shard.ShardedMXU in ``sharded``."""
+
+    a_norm: Optional[torch.Tensor]
+    theta: Optional[torch.Tensor]
+    row: Optional[torch.Tensor]
+    col: Optional[torch.Tensor]
+    num_nodes: int
+    mode: str
+    rowptr: Optional[torch.Tensor] = None
+    blocks: Tuple[CsrBlock, ...] = ()
+    hot_blocks: int = 0
+    hot_ids: Optional[torch.Tensor] = None
+    streamed: bool = False
+    transposed: Optional["MagneticTemplate"] = None
+    sharded: Optional[object] = None
+
+
+def _mxu_template(row, col, a_norm, theta, num_nodes: int,
+                  device) -> MagneticTemplate:
+    a = torch.from_numpy(a_norm.astype(np.float32)).to(device)
+    th = torch.from_numpy(theta.astype(np.float32)).to(device)
+    # the transposed layout carries the ORIGINAL per-edge values
+    L_t, p_t = build_layout(col, row, num_nodes, num_nodes, device)
+    L, p = build_layout(row, col, num_nodes, num_nodes, device)
+    t = MagneticTemplate(a_norm=a[p_t].contiguous(),
+                         theta=th[p_t].contiguous(), row=None,
+                         num_nodes=num_nodes, mode="mxu",
+                         **_layout_fields(L_t))
+    return MagneticTemplate(a_norm=a[p].contiguous(), theta=th[p].contiguous(),
+                            row=None, num_nodes=num_nodes, mode="mxu",
+                            transposed=t, **_layout_fields(L))
+
+
+def magnetic_template(
+    edge_index,
+    edge_weight=None,
+    num_nodes: Optional[int] = None,
+    signed: bool = False,
+    absolute_degree: bool = True,
+    mode: str = "auto",
+    device: DeviceLike = None,
+) -> MagneticTemplate:
+    """Host-side constructor of the trainable-q operator template on
+    ``device`` (None means "cuda").  ``mode`` in {'auto', 'dense',
+    'segment', 'mxu'}; 'auto' is dense up to 8192 nodes, else mxu.  The
+    mxu layouts follow ops/layout.py's knobs at call time."""
+    device = resolve_device(device)
+    num_nodes = _maybe_num_nodes(edge_index, num_nodes)
+    row, col, sym, theta, abs_sym = _symmetrize(edge_index, edge_weight,
+                                                num_nodes)
+    if not signed:
+        deg_w = sym
+    elif absolute_degree:
+        deg_w = abs_sym
+    else:
+        deg_w = np.abs(sym)
+    deg = np.zeros(num_nodes)
+    np.add.at(deg, row, deg_w)
+    deg_inv_sqrt = np.zeros_like(deg)
+    nz = deg > 0
+    deg_inv_sqrt[nz] = deg[nz] ** -0.5
+    a_norm = deg_inv_sqrt[row] * sym * deg_inv_sqrt[col]
+
+    if mode == "auto":
+        mode = "dense" if num_nodes <= _DENSE_AUTO_MAX_NODES else "mxu"
+    if mode == "dense":
+        A = np.zeros((num_nodes, num_nodes), np.float32)
+        T = np.zeros((num_nodes, num_nodes), np.float32)
+        A[row, col] = a_norm
+        T[row, col] = theta
+        return MagneticTemplate(
+            a_norm=torch.from_numpy(A).to(device),
+            theta=torch.from_numpy(T).to(device), row=None, col=None,
+            num_nodes=num_nodes, mode="dense")
+    if mode == "mxu":
+        return _mxu_template(row, col, a_norm, theta, num_nodes, device)
+    if mode != "segment":
+        raise ValueError(f"unknown template mode {mode!r}")
+    # _symmetrize's edges are unique and sorted by (row, col)
+    return MagneticTemplate(
+        a_norm=torch.from_numpy(a_norm.astype(np.float32)).to(device),
+        theta=torch.from_numpy(theta.astype(np.float32)).to(device),
+        row=torch.from_numpy(row).to(device),
+        col=torch.from_numpy(col).to(device), num_nodes=num_nodes,
+        mode="segment")
+
+
+def _template_values(tmpl: MagneticTemplate, q):
+    ang = 2.0 * math.pi * q * tmpl.theta
+    re_vals = -tmpl.a_norm * torch.cos(ang)
+    # plus: L_im's edge values are -a_norm*sin, and the conv applies L^T
+    # (antisymmetric imaginary part -> negate; see magnet_operator_arrays)
+    im_vals = tmpl.a_norm * torch.sin(ang)
+    return re_vals, im_vals
+
+
+def template_propagators(tmpl: MagneticTemplate,
+                         q) -> Tuple[Propagator, Propagator]:
+    """(L_hat_re, L_hat_im) for phase ``q`` on a dense or segment template;
+    the values carry q's gradient through autograd."""
+    re_vals, im_vals = _template_values(tmpl, q)
+    if tmpl.mode == "dense":
+        return (Propagator(coo=None, dense=re_vals, mode="dense"),
+                Propagator(coo=None, dense=im_vals, mode="dense"))
+    if tmpl.mode != "segment":
+        raise ValueError(f"template_propagators takes dense and segment "
+                         f"templates, not {tmpl.mode!r} (apply those with "
+                         f"template_dual_apply)")
+    n = tmpl.num_nodes
+
+    def one(vals):
+        return Propagator(coo=COO(row=tmpl.row, col=tmpl.col, val=vals,
+                                  num_nodes=n, num_cols=n),
+                          dense=None, mode="segment")
+
+    return one(re_vals), one(im_vals)
+
+
+def _dual_of(t: MagneticTemplate, val_a, val_b,
+             transposed=None) -> DualPropagator:
+    return DualPropagator(
+        col=t.col, row=None, rowptr=t.rowptr, val_a=val_a, val_b=val_b,
+        num_nodes=t.num_nodes, num_cols=t.num_nodes, mode="mxu",
+        transposed=transposed, blocks=t.blocks, hot_blocks=t.hot_blocks,
+        hot_ids=t.hot_ids, streamed=t.streamed)
+
+
+def template_dual(tmpl: MagneticTemplate, q) -> DualPropagator:
+    """The fused (L_hat_re, L_hat_im) DualPropagator for phase ``q`` on an
+    mxu template: the template's layout with values computed for q."""
+    if tmpl.mode != "mxu":
+        raise ValueError(f"template_dual needs an mxu template, not "
+                         f"{tmpl.mode!r}")
+    t = None
+    if tmpl.transposed is not None:
+        t = _dual_of(tmpl.transposed, *_template_values(tmpl.transposed, q))
+    return _dual_of(tmpl, *_template_values(tmpl, q), transposed=t)
+
+
+# widest message row the pair forward scatters in one pass (the TPU
+# kernels' lane limit, kept so both packages take the same passes)
+_PAIR_MAX_LANES = 256
+
+
+def _template_pair_forward(tmpl: MagneticTemplate, q, x: torch.Tensor):
+    """``(L(q) x, L'(q) x)`` through one gather and one scatter pass.
+
+    q is a scalar, so its directional derivative rides forward: each edge
+    gathers its x row once and scatters ``[va x_a | vb x_b | wa x_a |
+    wb x_b]`` (4F lanes; the TPU layout's duplicated ``[x | x]`` gather,
+    here a broadcast) with ``w = d val / d q``, through K1
+    (``csr_scatter_sum``) on a flat layout or K2 (``csr_scatter_accum``)
+    once per block of a split or streamed one.  Past _PAIR_MAX_LANES it
+    takes two passes.  Returns (y [N, 2F] in x's type, y' [N, 2F] f32)."""
+    if x.shape[1] % 2:
+        raise ValueError(f"template_dual_apply needs an even lane-stacked "
+                         f"width, got {x.shape[1]}")
+    fa = x.shape[1] // 2
+    f2 = 2 * fa
+    mdt = _kernel_dtype(x)
+    xg = x.to(mdt).contiguous()
+    x_hot = xg.index_select(0, tmpl.hot_ids) if tmpl.hot_ids is not None \
+        else None
+    two_pi_q = 2.0 * math.pi * q
+
+    def values(a, th, which):
+        ang = two_pi_q * th
+        out = []
+        if which in ("vals", "both"):
+            out += [-a * torch.cos(ang), a * torch.sin(ang)]
+        if which in ("derivs", "both"):
+            scale = 2.0 * math.pi * th * a
+            out += [scale * torch.sin(ang), scale * torch.cos(ang)]
+        return torch.stack(out, 1)
+
+    def msgs(src, e0, e1, which):
+        v = values(tmpl.a_norm[e0:e1], tmpl.theta[e0:e1], which)
+        k = v.shape[1] // 2                   # 1 or 2 halves of 2F lanes
+        g = src[tmpl.col[e0:e1].long()].float()
+        m = g.view(-1, 1, 2, fa) * v.view(-1, k, 2, 1)
+        return m.reshape(-1, k * f2).to(mdt)
+
+    def one_pass(which, width):
+        if not tmpl.blocks:
+            return csr_scatter_sum(tmpl.rowptr,
+                                   msgs(xg, 0, tmpl.col.numel(), which))
+        out = torch.zeros((tmpl.num_nodes, width), dtype=torch.float32,
+                          device=x.device)
+        for i, b in enumerate(tmpl.blocks):
+            src = x_hot if i < tmpl.hot_blocks else xg
+            csr_scatter_accum(b.rowptr, msgs(src, b.e0, b.e1, which), out,
+                              b.row0)
+        return out
+
+    if 2 * f2 <= _PAIR_MAX_LANES:
+        out = one_pass("both", 2 * f2)
+        return out[:, :f2].to(x.dtype), out[:, f2:]
+    return one_pass("vals", f2).to(x.dtype), one_pass("derivs", f2)
+
+
+class _TemplateDualApply(torch.autograd.Function):
+    """Forward: the pair forward.  Backward: ``dq = <g, y'>`` (no kernel)
+    and ``dx`` = the transposed dual apply of g (K1 or K2), skipped when
+    x needs no gradient (the first apply of a model, whose input is
+    data)."""
+
+    @staticmethod
+    def forward(ctx, x, q, tmpl):
+        y, yp = _template_pair_forward(tmpl, q, x)
+        ctx.tmpl = tmpl
+        ctx.save_for_backward(q, yp)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        q, yp = ctx.saved_tensors
+        tt = ctx.tmpl.transposed
+        dq = dx = None
+        if ctx.needs_input_grad[1]:
+            dq = (g.float() * yp).sum().to(q.dtype).reshape(q.shape)
+        if ctx.needs_input_grad[0]:
+            g = g.contiguous()
+            re_t, im_t = _template_values(tt, q)
+            dx = _layout_apply(tt, re_t, im_t, tt.num_nodes, g,
+                               g.shape[1] // 2)
+        return dx, dq, None
+
+
+def template_dual_apply(tmpl: MagneticTemplate, q,
+                        x: torch.Tensor) -> torch.Tensor:
+    """``[L_re x_a | L_im x_b]`` for phase ``q`` (a tensor that may need
+    a gradient) on an mxu template (flat, column-split or streamed) or an
+    ``mxu_sharded`` one, differentiable in q and x."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
+    if tmpl.mode == "mxu_sharded":
+        from ..parallel.mxu_shard import sharded_template_dual_apply
+
+        return sharded_template_dual_apply(tmpl.sharded, q, x)
+    if tmpl.mode != "mxu" or tmpl.transposed is None:
+        raise ValueError("template_dual_apply needs an mxu template with "
+                         "its transpose")
+    return _TemplateDualApply.apply(x, q, tmpl)

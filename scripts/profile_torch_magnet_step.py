@@ -7,14 +7,17 @@ with ``--giant`` chip_smoke.py's giant graph (the giant bench's
 power-law digraph, N=2,400,000, on the column-split and streamed layouts,
 bf16 messages and "default" matmul precision as the bench runs it), or
 with ``--bsr`` the bench's headline graph (DSBM N=8192, average degree 24)
-on the ``bsr`` tier; times
+on the ``bsr`` tier, or with ``--trainable-q`` the magnet_mxu graph with
+trainable q from 0.25 on a flat mxu template (``--sharded``: on the
+one-card sharded template, ``local_mesh()``); times
 steps with CUDA events, then traces a window of steps with torch.profiler
 and prints device time by kernel and the device's busy share of the
 window.
 
 Run from the root of the checkout:
 
-    python3 scripts/profile_torch_magnet_step.py [--steps 20] [--giant | --bsr]
+    python3 scripts/profile_torch_magnet_step.py [--steps 20]
+        [--giant | --bsr | --trainable-q [--sharded]]
 """
 import argparse
 import os
@@ -33,14 +36,16 @@ from pytorch_geometric_signed_directed_tpu_torch.graph import in_out_degree  # n
 from pytorch_geometric_signed_directed_tpu_torch.nn import (  # noqa: E402
     MagNet_node_classification)
 from pytorch_geometric_signed_directed_tpu_torch.ops import spmm  # noqa: E402
+from pytorch_geometric_signed_directed_tpu_torch.parallel import (  # noqa: E402
+    local_mesh, shard_magnet_laplacian)
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (  # noqa: E402
-    magnet_propagators)
+    magnet_propagators, magnetic_template)
 from pytorch_geometric_signed_directed_tpu_torch.train import Trainer  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.utils import (  # noqa: E402
     meta_graph_generation)
 
 
-def dsbm_setup(n, avg_deg, mode):
+def dsbm_setup(n, avg_deg, mode, template=False):
     F = meta_graph_generation("cyclic", 5, 0.05, False)
     A, labels = DSBM(n, 5, avg_deg / n * 5 / 2, F,
                      rng=np.random.default_rng(0))
@@ -49,6 +54,9 @@ def dsbm_setup(n, avg_deg, mode):
     x = in_out_degree(ei, n, edge_weight=w)
     x = torch.from_numpy((x / max(x.max(), 1.0)).astype(np.float32)).cuda()
     y = torch.from_numpy(labels).cuda()
+    if template:
+        return ei.shape[1], x, y, magnetic_template(ei, w, num_nodes=n,
+                                                    mode=mode)
     return ei.shape[1], x, y, magnet_propagators(ei, w, q=0.25, num_nodes=n,
                                                  mode=mode)
 
@@ -77,7 +85,13 @@ def main():
                             "layouts")
     which.add_argument("--bsr", action="store_true",
                        help="the N=8192 graph on the bsr tier")
+    which.add_argument("--trainable-q", action="store_true",
+                       help="trainable q on the magnet_mxu graph's template")
+    ap.add_argument("--sharded", action="store_true",
+                    help="with --trainable-q: the one-card sharded template")
     args = ap.parse_args()
+    if args.sharded and not args.trainable_q:
+        ap.error("--sharded goes with --trainable-q")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     smi = subprocess.run(
@@ -92,17 +106,25 @@ def main():
         spmm.set_matmul_precision("default")
     elif args.bsr:
         e, x, y, lap = dsbm_setup(8192, 24, "bsr")
+    elif args.trainable_q:
+        e, x, y, lap = dsbm_setup(65_536, 30, "auto", template=True)
+        if args.sharded:
+            lap = shard_magnet_laplacian(lap, local_mesh())
     else:
         e, x, y, lap = dsbm_setup(65_536, 30, "auto")
-    D = lap.dual
-    for name, d in (("forward", D), ("transposed", D and D.transposed)):
-        print(f"{name} layout: "
-              + ("two single bsr operators" if d is None
-                 else f"{len(d.blocks)} blocks ({d.hot_blocks} hot)"
-                 if d.blocks else "flat"))
+    if args.trainable_q:
+        print(f"template: {lap.mode}")
+    else:
+        D = lap.dual
+        for name, d in (("forward", D), ("transposed", D and D.transposed)):
+            print(f"{name} layout: "
+                  + ("two single bsr operators" if d is None
+                     else f"{len(d.blocks)} blocks ({d.hot_blocks} hot)"
+                     if d.blocks else "flat"))
     model = MagNet_node_classification(
         num_features=2, hidden=32, K=2, label_dim=5, activation=True,
-        layer=2, generator=torch.Generator().manual_seed(0))
+        layer=2, trainable_q=args.trainable_q, q=0.25,
+        generator=torch.Generator().manual_seed(0))
     trainer = Trainer(
         lambda m: torch.nn.functional.nll_loss(m(x, x, lap), y), lr=1e-2)
     state = trainer.init(model)

@@ -13,7 +13,7 @@ import torch
 from pytorch_geometric_signed_directed_tpu_torch.ops import (
     build_coo, layout, spmm)
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-    bsr_spmm, scatter_csr)
+    bsr_spmm, dual_sddmm, scatter_csr)
 
 # f32: the kernels sum in compensated float32, the plain versions in
 # float64 with atomics in no fixed order
@@ -281,3 +281,96 @@ def test_bsr_wrapper_rejects_bad_inputs_on_card(card):
                             x.double(), 300)
     with pytest.raises(ValueError, match="block rows"):
         bsr_spmm.bsr_matmul(B.blocks, B.block_rowptr, B.block_cols, x, 600)
+
+
+# --- K3 and K4: the fused scatter + SDDMM ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [2, 4, 38, 64, 300])
+def test_sddmm_kernels_match_plain_on_card(card, width, dtype):
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    n, m, e, row0, n_out = 1000, 2000, 20000, 700, 2500
+    rowptr, col, va, vb = (t.to(card) for t in block(n, m, e, seed=width))
+    wa, wb = torch.randn(2, e, device=card)
+    g = torch.randn(m, width, device=card).to(mdt)
+    x = torch.randn(n, width, device=card)
+    fa = width // 2
+    args = (rowptr, col, va, vb, wa, wb, g, x, fa)
+    before = dict(dual_sddmm.LAUNCHES)
+    out, acc = dual_sddmm.csr_dual_sddmm(*args)
+    want_out, want_acc = dual_sddmm.csr_dual_sddmm_plain(*args)
+    torch.testing.assert_close(out, want_out, **tol)
+    torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-4)
+    again = dual_sddmm.csr_dual_sddmm(*args)                  # no atomics
+    assert torch.equal(out, again[0]) and torch.equal(acc, again[1])
+    assert torch.all(out[1::2] == 0)                           # empty rows
+    # K4: the same block at row offset row0 of a larger output
+    x_big = torch.randn(n_out, width, device=card)
+    out0 = torch.randn(n_out, width, device=card)
+    acc0 = torch.randn(width, device=card)
+    kargs = (rowptr, col, va, vb, wa, wb, g, x_big, fa)
+    got = dual_sddmm.csr_dual_sddmm_accum(*kargs, out0.clone(), acc0.clone(),
+                                          row0)
+    want = dual_sddmm.csr_dual_sddmm_accum_plain(*kargs, out0, acc0, row0)
+    torch.testing.assert_close(got[0], want[0], **tol)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    untouched = torch.ones(n_out, dtype=torch.bool, device=card)
+    untouched[row0:row0 + n:2] = False
+    assert torch.equal(got[0][untouched], out0[untouched])
+    assert dual_sddmm.LAUNCHES["csr_dual_sddmm"] == \
+        before["csr_dual_sddmm"] + 2
+    assert dual_sddmm.LAUNCHES["csr_dual_sddmm_accum"] == \
+        before["csr_dual_sddmm_accum"] + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sddmm_hub_row_is_compensated_on_card(card):
+    e, m, w = 300_000, 5000, 64
+    gen = torch.Generator(device=card).manual_seed(1)
+    rowptr = torch.tensor([0, e], dtype=torch.int32, device=card)
+    col = torch.randint(0, m, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    va, vb, wa, wb = torch.randn(4, e, generator=gen, device=card) / e ** 0.5
+    g = torch.randn(m, w, generator=gen, device=card)
+    x = torch.randn(1, w, generator=gen, device=card)
+    args = (rowptr, col, va, vb, wa, wb, g, x, w // 2)
+    for a, b in zip(dual_sddmm.csr_dual_sddmm(*args),
+                    dual_sddmm.csr_dual_sddmm_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sharded_template_backward_runs_k3_on_card(card):
+    """The one-card mesh: the sharded template's forward (K1) and backward
+    (K3) against the flat template's (K1 pair forward, K1 dx)."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        local_mesh, shard_magnet_laplacian)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnetic_template, template_dual_apply)
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    ei = np.vstack([rng.integers(0, n, 30000), rng.integers(0, n, 30000)])
+    flat = magnetic_template(ei, None, num_nodes=n, mode="mxu", device=card)
+    sharded = shard_magnet_laplacian(flat, local_mesh())
+    x = torch.randn(n, 64, device=card)
+    g = torch.randn(n, 64, device=card)
+    res = []
+    for t in (flat, sharded):
+        reset_launch_counts()
+        q = torch.tensor(0.2, device=card, requires_grad=True)
+        xx = x.clone().requires_grad_(True)
+        y = template_dual_apply(t, q, xx)
+        (y * g).sum().backward()
+        res.append((y.detach(), q.grad, xx.grad, launch_counts()))
+    (y0, dq0, dx0, c0), (y1, dq1, dx1, c1) = res
+    torch.testing.assert_close(y1, y0, **F32_TOL)
+    torch.testing.assert_close(dx1, dx0, **F32_TOL)
+    torch.testing.assert_close(dq1, dq0, rtol=1e-4, atol=1e-5)
+    assert c0["csr_scatter_sum"] == 1 and c0["csr_dual_spmm"] == 1
+    assert c1["csr_dual_spmm"] == 1 and c1["csr_dual_sddmm"] == 1

@@ -46,19 +46,26 @@ def _entry_points():
         MagNetConv, MagNet_node_classification)
     from pytorch_geometric_signed_directed_tpu_torch.ops import (
         build_coo, dual_propagator, make_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        local_mesh, make_mesh)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
-        magnet_propagators)
+        magnet_propagators, magnetic_template)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
     ei = np.array([[0, 1, 2], [1, 2, 0]])
     one = np.ones(3)
     return {
         "magnet_propagators": lambda **kw: magnet_propagators(ei, **kw),
+        "magnetic_template": lambda **kw: magnetic_template(ei, **kw),
+        "make_mesh": lambda **kw: make_mesh(**kw),
+        "local_mesh": lambda **kw: local_mesh(**kw),
         "make_propagator": lambda **kw: make_propagator(ei[0], ei[1], **kw),
         "dual_propagator": lambda **kw: dual_propagator(
             ei[0], ei[1], one, one, mode="segment", **kw),
         "build_coo": lambda **kw: build_coo(ei[0], ei[1], **kw),
         "MagNetConv": lambda **kw: MagNetConv(2, 2, 1, **kw),
+        "MagNetConv(trainable_q)": lambda **kw: MagNetConv(
+            2, 2, 1, trainable_q=True, **kw),
         "MagNet_node_classification":
             lambda **kw: MagNet_node_classification(2, **kw),
         "Trainer": lambda **kw: Trainer(lambda m: 0, **kw),

@@ -149,11 +149,6 @@ def test_magnet_link_prediction_forward_and_grads():
     assert_grads_match(model, jgrads)
 
 
-def test_trainable_q_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MagNetConv(2, 2, 1, trainable_q=True, device="cpu")
-
-
 def test_dropout_uses_the_generator():
     n = 40
     ei, w = graph(n, 200, seed=2)
