@@ -22,9 +22,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (N=2,400,000, 10M draws, alpha 1.0, seed 0) on the column-split and
    streamed layouts, applied by K2 (``csr_dual_spmm_accum``).  Checks the
    layouts, holds the apply and K2 alone against their plain versions,
-   times the apply in the flat, split and split+streamed layouts, checks
-   the forward against the segment tier, and trains 10 steps with bf16
-   messages.
+   runs every CSR entry on a synthetic CSR with the graph's largest row
+   (324,064 edges) and rows around the piece length at which the kernels
+   cut rows, times the apply in the flat, split and split+streamed
+   layouts, checks the forward against the segment tier, and trains 10
+   steps with bf16 messages.
 5. BSR phase: the bench's headline MagNet graph (N=8192, average degree
    24) on the ``bsr`` tier, applied by K5 (``bsr_spmm``).  Holds K5 against
    its plain version at the path's widths (2 and 32), forward and
@@ -45,8 +47,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    steps on each (flat: K1 only; sharded: K1 forward, K3 backward) and
    prints the trainable/frozen step ratio against phase 3.
 
-Each training run sets the launch counters to 0 just before and reads
-them just after, and must launch exactly the kernels its layouts imply.
+Every kernel case also calls the kernel twice and requires the same
+bits (no atomics).  Each training run sets the launch counters to 0 just
+before and reads them just after, and must launch exactly the kernels its
+layouts imply (one count per wrapper call, which makes one or two device
+launches).
 Any failed phase raises, so the exit code is nonzero and no result line
 is printed.  The last lines are the card's nvidia-smi name and power
 limit, one JSON line of kernel measurements, and
@@ -238,14 +243,14 @@ def dual_kernel_case(D, width, dtype, seed):
     x = torch.randn(m, width, device=DEV, generator=gen).to(dtype)
     fa = width // 2
     args = (D.rowptr, D.col, D.val_a, D.val_b, x, fa)
-    got = scatter_csr.csr_dual_spmm(*args)
+    got = scatter_csr.csr_dual_spmm(*args, D.row_split)
     want = scatter_csr.csr_dual_spmm_plain(*args)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, want, **tol)
-    if not torch.equal(got, scatter_csr.csr_dual_spmm(*args)):
-        raise AssertionError("csr_dual_spmm is not deterministic")
+    same_bits(got, scatter_csr.csr_dual_spmm(*args, D.row_split),
+              "csr_dual_spmm")
     err = float((got - want).abs().max())
-    ms = time_ms(lambda: scatter_csr.csr_dual_spmm(*args))
+    ms = time_ms(lambda: scatter_csr.csr_dual_spmm(*args, D.row_split))
     plain_ms = time_ms(lambda: scatter_csr.csr_dual_spmm_plain(*args))
     library_ms = None
     if dtype == torch.float32:
@@ -265,7 +270,15 @@ def dual_kernel_case(D, width, dtype, seed):
                 shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
-def scatter_kernel_case(rowptr, nnz, width, dtype, seed):
+def same_bits(a, b, name):
+    """Two calls of a kernel on the same inputs gave the same bits."""
+    import torch
+
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name} is not deterministic")
+
+
+def scatter_kernel_case(rowptr, split, nnz, width, dtype, seed):
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
         scatter_csr)
@@ -273,12 +286,14 @@ def scatter_kernel_case(rowptr, nnz, width, dtype, seed):
     n = rowptr.numel() - 1
     gen = torch.Generator(device=DEV).manual_seed(seed)
     msgs = torch.randn(nnz, width, device=DEV, generator=gen).to(dtype)
-    got = scatter_csr.csr_scatter_sum(rowptr, msgs)
+    got = scatter_csr.csr_scatter_sum(rowptr, msgs, split)
     want = scatter_csr.csr_scatter_sum_plain(rowptr, msgs)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, want, **tol)
+    same_bits(got, scatter_csr.csr_scatter_sum(rowptr, msgs, split),
+              "csr_scatter_sum")
     err = float((got - want).abs().max())
-    ms = time_ms(lambda: scatter_csr.csr_scatter_sum(rowptr, msgs))
+    ms = time_ms(lambda: scatter_csr.csr_scatter_sum(rowptr, msgs, split))
     plain_ms = time_ms(lambda: scatter_csr.csr_scatter_sum_plain(rowptr,
                                                                  msgs))
     library_ms = None
@@ -386,7 +401,8 @@ def magnet_mxu_phase(smi):
                 log_case(f"csr_dual_spmm {op} W={width} {str(dtype)[6:]}", r)
     for width in (4, 64):
         for dtype in (torch.float32, torch.bfloat16):
-            r = scatter_kernel_case(D.rowptr, nnz, width, dtype, seed=width)
+            r = scatter_kernel_case(D.rowptr, D.row_split, nnz, width,
+                                    dtype, seed=width)
             cases[("csr_scatter_sum", width, dtype)] = r
             log_case(f"csr_scatter_sum W={width} {str(dtype)[6:]}", r)
 
@@ -476,13 +492,18 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed):
     out0 = torch.randn(n, width, device=DEV, generator=gen)
     args = (b.rowptr, D.col[b.e0:b.e1], D.val_a[b.e0:b.e1],
             D.val_b[b.e0:b.e1], x, fa)
-    got = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), b.row0)
+    got = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), b.row0,
+                                          b.split)
     want = scatter_csr.csr_dual_spmm_accum_plain(*args, out0, b.row0)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, want, **tol)
+    same_bits(got, scatter_csr.csr_dual_spmm_accum(*args, out0.clone(),
+                                                   b.row0, b.split),
+              "csr_dual_spmm_accum")
     err = float((got - want).abs().max())
     out = out0.clone()
-    ms = time_ms(lambda: scatter_csr.csr_dual_spmm_accum(*args, out, b.row0))
+    ms = time_ms(lambda: scatter_csr.csr_dual_spmm_accum(*args, out, b.row0,
+                                                         b.split))
     plain_ms = time_ms(
         lambda: scatter_csr.csr_dual_spmm_accum_plain(*args, out0, b.row0))
     library_ms = None
@@ -506,6 +527,8 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, bytes=nbytes,
                 shape=f"block 0 of the giant dual: rows={rows} nnz={nnz} "
+                      f"cut rows={b.split.rows.numel()} "
+                      f"pieces={b.split.pieces.shape[0]} "
                       f"table={table_rows} W={width} {str(dtype)[6:]}")
 
 
@@ -520,11 +543,16 @@ def scatter_accum_case(b, width, seed):
     rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
     msgs = torch.randn(nnz, width, device=DEV, generator=gen)
     out0 = torch.randn(rows, width, device=DEV, generator=gen)
-    got = scatter_csr.csr_scatter_accum(b.rowptr, msgs, out0.clone())
+    got = scatter_csr.csr_scatter_accum(b.rowptr, msgs, out0.clone(), 0,
+                                        b.split)
     want = scatter_csr.csr_scatter_accum_plain(b.rowptr, msgs, out0)
     torch.testing.assert_close(got, want, **F32_TOL)
+    same_bits(got, scatter_csr.csr_scatter_accum(b.rowptr, msgs,
+                                                 out0.clone(), 0, b.split),
+              "csr_scatter_accum")
     out = out0.clone()
-    ms = time_ms(lambda: scatter_csr.csr_scatter_accum(b.rowptr, msgs, out))
+    ms = time_ms(lambda: scatter_csr.csr_scatter_accum(b.rowptr, msgs, out, 0,
+                                                       b.split))
     plain_ms = time_ms(
         lambda: scatter_csr.csr_scatter_accum_plain(b.rowptr, msgs, out0))
     # yardstick only: one index_add_ in float32 (atomics)
@@ -538,6 +566,99 @@ def scatter_accum_case(b, width, seed):
                 library_ms=library_ms, bytes=nbytes,
                 shape=f"block 0 rowptr: rows={rows} nnz={nnz} W={width} "
                       f"float32")
+
+
+def hub_row_cases(table_rows, width=64):
+    """Every CSR entry on a synthetic CSR holding the giant graph's
+    largest row (324,064 edges), rows of one edge fewer than a piece, a
+    piece and one edge more, empty rows and 10^5 short rows, gathering
+    from a table the size of the giant graph's hot table; f32 and bf16,
+    the accumulate entries into a non-zero output.  Kernel vs plain, the
+    same bits twice, rows without edges untouched (or 0); the f32 times
+    beside the bound."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    L = scatter_csr.PIECE_EDGES
+    rng = np.random.default_rng(8)
+    lengths = np.concatenate([[324_064, 0, L - 1, L, L + 1, 2 * L + 5, 0],
+                              rng.integers(0, 8, 100_000)])
+    rowptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32)).to(DEV)
+    split = scatter_csr.plan_row_split(rowptr)
+    n, e = len(lengths), int(lengths.sum())
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    col = torch.randint(0, table_rows, (e,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    va, vb = torch.randn(2, e, generator=gen, device=DEV)
+    x32 = torch.randn(table_rows, width, generator=gen, device=DEV)
+    msgs32 = torch.randn(e, width, generator=gen, device=DEV)
+    out0 = torch.randn(n, width, generator=gen, device=DEV)
+    empty = torch.from_numpy(lengths == 0).to(DEV)
+    log(f"hub CSR: rows={n} edges={e} largest row={int(lengths.max())} "
+        f"cut rows={split.rows.numel()} pieces={split.pieces.shape[0]} "
+        f"(piece length {L})")
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        x, msgs = x32.to(dtype), msgs32.to(dtype)
+        dual = (rowptr, col, va, vb, x, width // 2)
+        out = out0.clone()
+        # name: (checked call, plain call, timed call (accumulates in
+        # place), bytes beyond the inputs' read of rowptr: per edge, the
+        # source, and the output read and written or written)
+        calls = {
+            "csr_dual_spmm": (
+                lambda: scatter_csr.csr_dual_spmm(*dual, split),
+                lambda: scatter_csr.csr_dual_spmm_plain(*dual),
+                lambda: scatter_csr.csr_dual_spmm(*dual, split),
+                12 * e + x.numel() * x.element_size() + 4 * n * width),
+            "csr_scatter_sum": (
+                lambda: scatter_csr.csr_scatter_sum(rowptr, msgs, split),
+                lambda: scatter_csr.csr_scatter_sum_plain(rowptr, msgs),
+                lambda: scatter_csr.csr_scatter_sum(rowptr, msgs, split),
+                msgs.numel() * msgs.element_size() + 4 * n * width),
+            "csr_dual_spmm_accum": (
+                lambda: scatter_csr.csr_dual_spmm_accum(
+                    *dual, out0.clone(), 0, split),
+                lambda: scatter_csr.csr_dual_spmm_accum_plain(*dual, out0),
+                lambda: scatter_csr.csr_dual_spmm_accum(*dual, out, 0,
+                                                        split),
+                12 * e + x.numel() * x.element_size() + 8 * n * width),
+            "csr_scatter_accum": (
+                lambda: scatter_csr.csr_scatter_accum(
+                    rowptr, msgs, out0.clone(), 0, split),
+                lambda: scatter_csr.csr_scatter_accum_plain(rowptr, msgs,
+                                                            out0),
+                lambda: scatter_csr.csr_scatter_accum(rowptr, msgs, out, 0,
+                                                      split),
+                msgs.numel() * msgs.element_size() + 8 * n * width),
+        }
+        for name, (kernel, plain, timed, nbytes) in calls.items():
+            got, want = kernel(), plain()
+            torch.testing.assert_close(got, want, **tol)
+            same_bits(got, kernel(), name)
+            if name.endswith("_accum"):
+                if not torch.equal(got[empty], out0[empty]):
+                    raise AssertionError(f"{name} wrote a row without edges")
+            elif got[empty].abs().max() != 0:
+                raise AssertionError(f"{name} did not zero a row without "
+                                     f"edges")
+            err = float((got - want).abs().max())
+            if dtype != torch.float32:
+                log(f"hub CSR {name} W={width} {str(dtype)[6:]}: agrees "
+                    f"with its plain version (max abs err {err:.3g})")
+                continue
+            nbytes += 4 * (n + 1)
+            flops = (2 if "dual" in name else 1) * e * width
+            b_ms, b_by = bound(nbytes, flops)
+            r = dict(max_abs_err=err, ms=time_ms(timed),
+                     plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, bytes=nbytes)
+            cases[name] = r
+            log_case(f"hub CSR {name} W={width} float32", r)
+    return cases
 
 
 def with_knobs(build, **knobs):
@@ -666,6 +787,7 @@ def giant_phase(smi):
         log_case(f"csr_dual_spmm_accum block 0 W=64 {str(dtype)[6:]}", r2)
     k2_own = scatter_accum_case(D.blocks[0], 64, seed=4)
     log_case("csr_scatter_accum block 0 W=64 float32", k2_own)
+    hub_row_cases(D.hot_ids.numel())
 
     # one apply at the path's widest shape, in each layout
     spmm.set_message_dtype("bf16")
@@ -685,11 +807,16 @@ def giant_phase(smi):
             bms = time_ms(lambda b=b, src=(x_hot if i < D.hot_blocks else xm):
                           scatter_csr.csr_dual_spmm_accum(
                               b.rowptr, D.col[b.e0:b.e1], D.val_a[b.e0:b.e1],
-                              D.val_b[b.e0:b.e1], src, 32, out, b.row0),
+                              D.val_b[b.e0:b.e1], src, 32, out, b.row0,
+                              b.split),
                           reps=5)
+            cut = b.split.rows.numel()
             log(f"  block {i} ({'hot' if i < D.hot_blocks else 'cold'}): "
                 f"rows={lens.numel()} edges={b.e1 - b.e0} largest row "
-                f"piece={int(lens.max())} kernel_ms={bms:.4f}")
+                f"piece={int(lens.max())} cut rows={cut} (pieces="
+                f"{b.split.pieces.shape[0]}, edges in them="
+                f"{int(lens[b.split.rows.long()].sum()) if cut else 0}) "
+                f"kernel_ms={bms:.4f}")
     finally:
         spmm.set_message_dtype(None)
     del layouts
@@ -763,12 +890,11 @@ def bsr_kernel_case(op, width, seed):
     gen = torch.Generator(device=DEV).manual_seed(seed)
     x = torch.randn(op.num_cols, width, device=DEV, generator=gen)
     args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
-    got = bsr_spmm.bsr_matmul(*args)
+    got = bsr_spmm.bsr_matmul(*args, op.split)
     want = bsr_spmm.bsr_matmul_plain(*args)
     torch.testing.assert_close(got, want, **F32_TOL)
-    if not torch.equal(got, bsr_spmm.bsr_matmul(*args)):
-        raise AssertionError("bsr_spmm is not deterministic")
-    ms = time_ms(lambda: bsr_spmm.bsr_matmul(*args))
+    same_bits(got, bsr_spmm.bsr_matmul(*args, op.split), "bsr_spmm")
+    ms = time_ms(lambda: bsr_spmm.bsr_matmul(*args, op.split))
     plain_ms = time_ms(lambda: bsr_spmm.bsr_matmul_plain(*args))
     # yardsticks only: the dense operator, and cuSPARSE's BSR product
     dense = dense_of(op)
@@ -800,7 +926,9 @@ def bsr_kernel_case(op, width, seed):
                 library_ms=bsr_ms if bsr_ms is not None else dense_ms,
                 dense_ms=dense_ms, bsr_ms=bsr_ms, bsr_note=bsr_note,
                 bytes=nbytes,
-                shape=f"N={op.num_rows} blocks={nb} W={width} float32")
+                shape=f"N={op.num_rows} blocks={nb} pieces="
+                      f"{op.split.pieces.shape[0]} of <= "
+                      f"{op.split.piece_len} blocks W={width} float32")
 
 
 def bsr_phase(smi):
@@ -971,10 +1099,21 @@ def accum_sddmm_case(L, q, width, seed):
     plain_ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_accum_plain(
         *args, out0, acc0, b.row0))
     rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
+    # yardstick only: K3's composite on the block (no single PyTorch call
+    # computes it), checked once with the priors added
+    run = composite_sddmm(b.rowptr, args[1], args[2:6], g_hot,
+                          x[b.row0:b.row0 + rows], fa, L.hot_ids.numel())
+    lib_out, lib_acc = run()
+    out_lib = out0.clone()
+    out_lib[b.row0:b.row0 + rows] += lib_out
+    torch.testing.assert_close(out_lib, want[0], **LIBRARY_TOL)
+    torch.testing.assert_close(acc0 + lib_acc, want[1], **LIBRARY_TOL)
+    library_ms = time_ms(run)
     nbytes = sddmm_bytes(rows, nnz, g_hot, width)
     b_ms, b_by = bound(nbytes, 4 * nnz * width + 2 * rows * width)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, bytes=nbytes,
+                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+                library="composite: 4x torch.sparse.mm + (x*m).sum(0)",
                 shape=f"hot block 0 of the split transposed template: "
                       f"rows={rows} nnz={nnz} table={L.hot_ids.numel()} "
                       f"2F={width} float32")
@@ -1113,8 +1252,8 @@ def trainable_q_phase(smi, frozen_ms):
             cases[("csr_dual_sddmm", width, dtype)] = r
             log_case(f"csr_dual_sddmm 2F={width} {str(dtype)[6:]}", r)
     for width in (8, 128):
-        r = scatter_kernel_case(tmpl.rowptr, nnz, width, torch.float32,
-                                seed=width)
+        r = scatter_kernel_case(tmpl.rowptr, tmpl.row_split, nnz, width,
+                                torch.float32, seed=width)
         cases[("csr_scatter_sum", width)] = r
         log_case(f"csr_scatter_sum (pair forward) W={width} float32", r)
 
@@ -1264,9 +1403,10 @@ def main():
             kernel_entry("csr_scatter_accum", k2_own,
                          k2_launches["csr_scatter_accum"], "scatter_csr.cu",
                          "scatter_mxu.py:580"),
-            kernel_entry("csr_dual_sddmm_accum", k4,
-                         sharded_launches["csr_dual_sddmm_accum"],
-                         "dual_sddmm.cu", "scatter_mxu.py:844"),
+            {**kernel_entry("csr_dual_sddmm_accum", k4,
+                            sharded_launches["csr_dual_sddmm_accum"],
+                            "dual_sddmm.cu", "scatter_mxu.py:844"),
+             "library": k4["library"]},
         ],
     }))
     print(json.dumps({"ok": True, "device": {

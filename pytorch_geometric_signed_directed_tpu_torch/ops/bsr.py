@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from .coo import COO
-from .cuda.bsr_spmm import BLOCK, bsr_matmul
+from .cuda.bsr_spmm import BLOCK, bsr_matmul, plan_block_split, sm_count
+from .cuda.scatter_csr import RowSplit
 
 # The JAX package caps the block count for the TPU's scalar memory and
 # HBM; the cap is kept so that both packages take the same graphs (100k
@@ -45,6 +46,8 @@ class BSR:
         num_rows / num_cols: logical (unpadded) matrix dims.
         transposed: the same matrix in transposed BSR form (the backward;
             None on the transpose itself).
+        split: the kernel's plan of the block rows' pieces
+            (``plan_block_split``), made once here.
     """
 
     blocks: torch.Tensor
@@ -54,6 +57,7 @@ class BSR:
     num_rows: int
     num_cols: int
     transposed: Optional["BSR"] = None
+    split: Optional[RowSplit] = None
 
 
 def _bsr_arrays(row, col, val, num_rows, num_cols):
@@ -80,11 +84,13 @@ def _to_device(blocks, brows, bcols, num_rows, num_cols, device, t=None):
     rb = _round_up(max(num_rows, 1), BLOCK) // BLOCK
     rowptr = np.concatenate(
         [[0], np.cumsum(np.bincount(brows, minlength=rb))]).astype(np.int32)
+    rowptr = torch.from_numpy(rowptr).to(device)
     return BSR(blocks=torch.from_numpy(blocks).to(device),
                block_rows=torch.from_numpy(brows).to(device),
                block_cols=torch.from_numpy(bcols).to(device),
-               block_rowptr=torch.from_numpy(rowptr).to(device),
-               num_rows=num_rows, num_cols=num_cols, transposed=t)
+               block_rowptr=rowptr, num_rows=num_rows, num_cols=num_cols,
+               transposed=t,
+               split=plan_block_split(rowptr, len(blocks), sm_count(device)))
 
 
 def bsr_from_coo(A: COO) -> BSR:
@@ -113,7 +119,7 @@ def bsr_from_coo(A: COO) -> BSR:
 
 def _bsr_forward(A: BSR, x: torch.Tensor) -> torch.Tensor:
     out = bsr_matmul(A.blocks, A.block_rowptr, A.block_cols,
-                     x.to(torch.float32).contiguous(), A.num_rows)
+                     x.to(torch.float32).contiguous(), A.num_rows, A.split)
     return out.to(x.dtype)
 
 

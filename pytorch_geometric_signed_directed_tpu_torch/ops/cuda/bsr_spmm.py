@@ -2,26 +2,36 @@
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/ops/pallas/
 bsr_spmm.py`` (``_kernel`` / ``_bsr_matmul`` behind ``bsr_spmm``).  The
-operator is 128×128 dense float32 blocks sorted by block row; the kernel
-in ``csrc/bsr_spmm.cu`` gives one CTA to each (block row, feature tile).
-Unlike the TPU launcher, x is not padded to 128 lanes: the kernel masks
-its ragged feature tile and the padded columns of the last block.
+operator is 128×128 dense float32 blocks sorted by block row.  The kernel
+in ``csrc/bsr_spmm.cu`` gives one CTA to each piece of a block row (a run
+of consecutive blocks, ``plan_block_split``) and feature tile, streams the
+piece's blocks through shared memory, and a second launch adds each block
+row's piece partials in a fixed order.  Unlike the TPU launcher, x is not
+padded to 128 lanes: the kernel masks its ragged feature tile and the
+padded columns of the last block.
 
 ``bsr_matmul`` takes its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
-counts kernel launches.
+counts calls that launched (one per call; each call makes two device
+launches).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import build
-from .scatter_csr import _check, _row_ids, _stream_ptr
+from .scatter_csr import (RowSplit, _check, _check_split, _row_ids,
+                          _stream_ptr, plan_row_split)
 
 BLOCK = 128
+# The split aims at this many CTAs per SM, so that the grid fills the
+# card several times over and pieces of unequal rows even out.
+CTAS_PER_SM = 4
+# The H100's SM count, for plans made away from a card.
+H100_SMS = 132
 
 LAUNCHES: Dict[str, int] = {"bsr_spmm": 0}
 
@@ -34,15 +44,38 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signature on a loaded build of the source."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pgsd_bsr_spmm.restype = i
+    lib.pgsd_bsr_spmm.argtypes = [p] * 7 + [i] * 4 + [p]
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = build.load(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pgsd_bsr_spmm.restype = i
-        lib.pgsd_bsr_spmm.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        _lib = lib
+        _lib = bind(build.load(_SOURCE))
     return _lib
+
+
+def sm_count(device) -> int:
+    """SMs of ``device``'s card, or the H100's for a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_block_split(block_rowptr: torch.Tensor, n_blocks: int,
+                     n_sms: int) -> RowSplit:
+    """K5's plan: every block row cut into pieces of ``chunk`` consecutive
+    blocks, ``chunk = ceil(n_blocks / (CTAS_PER_SM * n_sms))``, so that
+    the pieces (one CTA each per feature tile) number about CTAS_PER_SM
+    per SM whatever the rows' lengths.  Every block row is listed; one
+    without blocks has no piece."""
+    chunk = max(1, -(-n_blocks // (CTAS_PER_SM * n_sms)))
+    return plan_row_split(block_rowptr, chunk, min_len=-1)
 
 
 def bsr_matmul_plain(blocks, block_rowptr, block_cols, x, num_rows: int):
@@ -61,12 +94,14 @@ def bsr_matmul_plain(blocks, block_rowptr, block_cols, x, num_rows: int):
 
 
 def bsr_matmul(blocks: torch.Tensor, block_rowptr: torch.Tensor,
-               block_cols: torch.Tensor, x: torch.Tensor,
-               num_rows: int) -> torch.Tensor:
+               block_cols: torch.Tensor, x: torch.Tensor, num_rows: int,
+               split: Optional[RowSplit] = None) -> torch.Tensor:
     """``A @ x`` for A in BSR form: ``blocks`` [NB, 128, 128] float32
     sorted by block row, ``block_rowptr`` [ceil(num_rows/128)+1] int32,
-    ``block_cols`` [NB] int32; ``x`` [num_cols, F] float32.  Returns
-    float32 [num_rows, F]; a block row without blocks comes out 0."""
+    ``block_cols`` [NB] int32; ``x`` [num_cols, F] float32.  ``split`` is
+    block_rowptr's plan (``plan_block_split``; made here, with a host
+    sync, when None).  Returns float32 [num_rows, F]; a block row without
+    blocks comes out 0."""
     if x.device.type == "cpu":
         return bsr_matmul_plain(blocks, block_rowptr, block_cols, x,
                                 num_rows)
@@ -87,15 +122,24 @@ def bsr_matmul(blocks: torch.Tensor, block_rowptr: torch.Tensor,
     if n_br != -(-num_rows // BLOCK):
         raise ValueError(f"block_rowptr has {n_br} block rows, expected "
                          f"{-(-num_rows // BLOCK)} for {num_rows} rows")
+    if split is None:
+        split = plan_block_split(block_rowptr, blocks.shape[0], sm_count(dev))
+    _check_split(split, dev)
+    if split.ptr.numel() != n_br + 1:
+        raise ValueError("split must list every block row (plan_block_split)")
     w = x.shape[1]
     out = torch.empty((num_rows, w), dtype=torch.float32, device=dev)
     if num_rows == 0 or w == 0:
         return out
+    n_pieces = split.pieces.shape[0]
+    partial = torch.empty((n_pieces, BLOCK, w), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         err = _library().pgsd_bsr_spmm(
-            blocks.data_ptr(), block_rowptr.data_ptr(),
-            block_cols.data_ptr(), x.data_ptr(), out.data_ptr(), n_br,
-            num_rows, x.shape[0], w, _stream_ptr(dev))
+            blocks.data_ptr(), block_cols.data_ptr(), x.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), split.pieces.data_ptr(),
+            split.ptr.data_ptr(), n_pieces, num_rows, x.shape[0], w,
+            _stream_ptr(dev))
     if err:
         raise RuntimeError(f"bsr_spmm launch failed: CUDA error {err}")
     LAUNCHES["bsr_spmm"] += 1

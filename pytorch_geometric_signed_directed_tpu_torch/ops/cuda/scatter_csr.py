@@ -10,15 +10,24 @@ and the kernels in ``csrc/scatter_csr.cu`` are a row-sorted
 gather-multiply-reduce.  The ``*_accum`` entries (K2) add into ``out``
 in place, at rows ``row0 + r``, and leave rows without edges alone.
 
+Rows longer than ``PIECE_EDGES`` edges are cut into pieces that run in
+parallel, and a second launch adds each cut row's pieces in a fixed
+order.  Which rows are cut, and where, is a ``RowSplit`` plan of the
+rowptr (``plan_row_split``): ``ops/layout.py`` builds it once per CSR,
+beside the rowptr, and every entry takes it as ``split``.  Given none, an
+entry plans the rowptr itself, which costs a host sync per call.
+
 Each entry has its plain PyTorch version beside it.  A wrapper takes the
-plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.  ``LAUNCHES`` counts kernel launches, one per call
-that launched.
+plain version only for tensors on the CPU (which need no plan); for CUDA
+tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that
+launched, one per call, whether the call made one device launch or two
+(the second when a row is cut).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 
@@ -27,6 +36,12 @@ from . import build
 LAUNCHES: Dict[str, int] = {"csr_dual_spmm": 0, "csr_scatter_sum": 0,
                             "csr_dual_spmm_accum": 0,
                             "csr_scatter_accum": 0}
+
+# Longest row that one thread group sums alone; longer rows are cut into
+# pieces of this many edges.  A piece's chain of dependent loads is about
+# PIECE_EDGES / 8 memory latencies (the kernels keep 8 gathers in flight),
+# some 60 us from device memory.
+PIECE_EDGES = 1024
 
 _SOURCE = "scatter_csr.cu"
 _lib = None
@@ -37,21 +52,21 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a loaded build of the source."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    plan = [p, i, p, p, i, i, p]
+    lib.pgsd_csr_dual_spmm.restype = i
+    lib.pgsd_csr_dual_spmm.argtypes = [p] * 6 + [i] * 6 + plan + [p]
+    lib.pgsd_csr_scatter.restype = i
+    lib.pgsd_csr_scatter.argtypes = [p, p, p] + [i] * 5 + plan + [p]
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = build.load(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pgsd_csr_dual_spmm.restype = i
-        lib.pgsd_csr_dual_spmm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        lib.pgsd_csr_scatter_sum.restype = i
-        lib.pgsd_csr_scatter_sum.argtypes = [p, p, p, i, i, i, p]
-        lib.pgsd_csr_dual_spmm_accum.restype = i
-        lib.pgsd_csr_dual_spmm_accum.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                 i, i, p]
-        lib.pgsd_csr_scatter_accum.restype = i
-        lib.pgsd_csr_scatter_accum.argtypes = [p, p, p, i, i, i, i, p]
-        _lib = lib
+        _lib = bind(build.load(_SOURCE))
     return _lib
 
 
@@ -60,6 +75,85 @@ def _row_ids(rowptr: torch.Tensor) -> torch.Tensor:
     counts = (rowptr[1:] - rowptr[:-1]).long()
     return torch.repeat_interleave(
         torch.arange(n, device=rowptr.device), counts)
+
+
+# ---------------------------------------------------------------------------
+# The plan of the cut rows
+
+
+@dataclass(frozen=True)
+class RowSplit:
+    """Rows of one CSR cut into pieces.
+
+    ``rows`` [R] int32 are the cut rows in order; the pieces of ``rows[j]``
+    are ``pieces[ptr[j]:ptr[j+1]]`` ([P, 2] int32 of (first edge, end
+    edge), offsets of the rowptr the plan was made from), in edge order,
+    each of at most ``piece_len`` edges.  Only the row's last piece may be
+    shorter."""
+
+    piece_len: int
+    rows: torch.Tensor
+    ptr: torch.Tensor
+    pieces: torch.Tensor
+
+    def __post_init__(self):
+        # checked once here, so that a launch only checks the device
+        for name in ("rows", "ptr", "pieces"):
+            t = getattr(self, name)
+            if t.dtype != torch.int32 or not t.is_contiguous():
+                raise TypeError(f"RowSplit.{name} must be contiguous int32")
+            if t.device != self.rows.device:
+                raise ValueError("RowSplit tensors must share a device")
+        if self.rows.dim() != 1 or \
+                self.ptr.shape != (self.rows.numel() + 1,) or \
+                self.pieces.dim() != 2 or self.pieces.shape[1] != 2:
+            raise ValueError("RowSplit needs rows [R], ptr [R+1] and "
+                             "pieces [P, 2]")
+        if self.piece_len < 1:
+            raise ValueError(f"piece_len={self.piece_len} must be positive")
+
+    def launch_args(self, width: int):
+        """The C arguments of the plan, and the float64 partials' scratch
+        they point at (None when no row is cut); the caller keeps the
+        scratch alive until the launch is enqueued."""
+        n_pieces = self.pieces.shape[0]
+        partial = None
+        if n_pieces:
+            partial = torch.empty((n_pieces, width), dtype=torch.float64,
+                                  device=self.pieces.device)
+        return [self.pieces.data_ptr(), n_pieces, self.rows.data_ptr(),
+                self.ptr.data_ptr(), self.rows.numel(), self.piece_len,
+                0 if partial is None else partial.data_ptr()], partial
+
+
+def plan_row_split(rowptr: torch.Tensor, piece_len: int = PIECE_EDGES,
+                   min_len: Optional[int] = None) -> RowSplit:
+    """Cut the rows of ``rowptr`` longer than ``min_len`` edges (by
+    default ``piece_len``, the CSR kernels' rule) into pieces of
+    ``piece_len`` edges.  ``min_len=-1`` lists every row, an empty one
+    with no pieces (the BSR kernel's rule).  Tensor ops on rowptr's
+    device, with one host sync for the piece count."""
+    if piece_len < 1:
+        raise ValueError(f"piece_len={piece_len} must be positive")
+    min_len = piece_len if min_len is None else min_len
+    rp = rowptr.long()
+    length = rp[1:] - rp[:-1]
+    rows = torch.nonzero(length > min_len).flatten()
+    counts = (length[rows] + piece_len - 1) // piece_len
+    ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    owner = torch.repeat_interleave(
+        torch.arange(rows.numel(), device=rp.device), counts)
+    first = (rp[rows][owner]
+             + (torch.arange(owner.numel(), device=rp.device) - ptr[owner])
+             * piece_len)
+    end = torch.minimum(first + piece_len, rp[rows + 1][owner])
+    return RowSplit(piece_len=piece_len, rows=rows.to(torch.int32),
+                    ptr=ptr.to(torch.int32),
+                    pieces=torch.stack([first, end], 1).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Checks and launch arguments
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
@@ -85,6 +179,21 @@ def _check_rowptr(rowptr: torch.Tensor, nnz: int, device) -> int:
     return rowptr.numel() - 1
 
 
+def _check_split(split: RowSplit, device) -> None:
+    if split.rows.device != device:
+        raise ValueError(f"split is on {split.rows.device}, expected "
+                         f"{device}")
+
+
+def _plan_args(rowptr, split: Optional[RowSplit], width: int, device):
+    """The plan's launch arguments and their scratch (see
+    RowSplit.launch_args), planning rowptr when ``split`` is None."""
+    if split is None:
+        split = plan_row_split(rowptr)
+    _check_split(split, device)
+    return split.launch_args(width)
+
+
 def _stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -95,6 +204,21 @@ def _add_rows_(out, rowptr, msgs, row0: int = 0) -> torch.Tensor:
     compensated float32 sums approach to a few ulp."""
     acc = out.double().index_add_(0, _row_ids(rowptr) + row0, msgs.double())
     return out.copy_(acc)
+
+
+def _check_out(out: torch.Tensor, row0: int, n: int, w: int, device):
+    _check("out", out, (torch.float32,), 2, device)
+    if out.shape[1] != w:
+        raise ValueError(f"out has width {out.shape[1]}, expected {w}")
+    if row0 < 0 or row0 + n > out.shape[0]:
+        raise ValueError(f"rows [{row0}, {row0 + n}) outside out's "
+                         f"{out.shape[0]} rows")
+
+
+def _cuda_device(name: str, t: torch.Tensor):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {t.device}")
+    return t.device
 
 
 # ---------------------------------------------------------------------------
@@ -117,22 +241,10 @@ def csr_dual_spmm_plain(rowptr, col, val_a, val_b, x, fa: int):
     return _add_rows_(out, rowptr, _dual_msgs(col, val_a, val_b, x, fa))
 
 
-def csr_dual_spmm(rowptr: torch.Tensor, col: torch.Tensor,
-                  val_a: torch.Tensor, val_b: torch.Tensor, x: torch.Tensor,
-                  fa: int) -> torch.Tensor:
-    """``out[r, l] = sum_{e in [rowptr[r], rowptr[r+1])} m[e, l]`` with
-    ``m[e, l] = round((l < fa ? val_a[e] : val_b[e]) * x[col[e], l])``.
-
-    ``x`` [M, W] is float32 or bfloat16; messages round to x's type and
-    sum in float32.  Returns float32 [N, W]; rows without edges are 0.
-    ``col`` must index rows of ``x`` (the builders check it once).  The
-    kernel is deterministic: each row sums its edges in order."""
-    if x.device.type == "cpu":
-        return csr_dual_spmm_plain(rowptr, col, val_a, val_b, x, fa)
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_dual_spmm takes CPU or CUDA tensors, got "
-                         f"{x.device}")
-    dev = x.device
+def _dual_launch(name, rowptr, col, val_a, val_b, x, fa, out, row0, split):
+    """Launch ``pgsd_csr_dual_spmm`` (``out`` None: the plain mode, into a
+    new output); returns the output."""
+    dev = _cuda_device(name, x)
     _check("x", x, (torch.float32, torch.bfloat16), 2, dev)
     _check("col", col, (torch.int32,), 1, dev)
     _check("val_a", val_a, (torch.float32,), 1, dev)
@@ -144,68 +256,42 @@ def csr_dual_spmm(rowptr: torch.Tensor, col: torch.Tensor,
     w = x.shape[1]
     if not 0 <= fa <= w:
         raise ValueError(f"fa={fa} outside [0, {w}]")
+    accum = out is not None
+    if accum:
+        _check_out(out, row0, n, w, dev)
     if n == 0 or w == 0:
-        return torch.zeros((n, w), dtype=torch.float32, device=dev)
-    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+        return out if accum else torch.zeros((n, w), dtype=torch.float32,
+                                             device=dev)
+    if not accum:
+        out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    plan, _partial = _plan_args(rowptr, split, w, dev)
     with torch.cuda.device(dev):
         err = _library().pgsd_csr_dual_spmm(
             rowptr.data_ptr(), col.data_ptr(), val_a.data_ptr(),
             val_b.data_ptr(), x.data_ptr(), out.data_ptr(), n, w, fa,
-            int(x.dtype == torch.bfloat16), _stream_ptr(dev))
+            int(x.dtype == torch.bfloat16), int(accum), row0, *plan,
+            _stream_ptr(dev))
     if err:
-        raise RuntimeError(f"csr_dual_spmm launch failed: CUDA error {err}")
-    LAUNCHES["csr_dual_spmm"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
 
 
-# ---------------------------------------------------------------------------
-# csr_scatter_sum: K1's own contract, segment sum of row-ordered messages
+def csr_dual_spmm(rowptr: torch.Tensor, col: torch.Tensor,
+                  val_a: torch.Tensor, val_b: torch.Tensor, x: torch.Tensor,
+                  fa: int, split: Optional[RowSplit] = None) -> torch.Tensor:
+    """``out[r, l] = sum_{e in [rowptr[r], rowptr[r+1])} m[e, l]`` with
+    ``m[e, l] = round((l < fa ? val_a[e] : val_b[e]) * x[col[e], l])``.
 
-
-def csr_scatter_sum_plain(rowptr, msgs):
-    """Plain PyTorch version of ``csr_scatter_sum`` (``index_add_``)."""
-    n = rowptr.numel() - 1
-    out = torch.zeros((n, msgs.shape[1]), dtype=torch.float32,
-                      device=msgs.device)
-    return _add_rows_(out, rowptr, msgs)
-
-
-def csr_scatter_sum(rowptr: torch.Tensor, msgs: torch.Tensor) -> torch.Tensor:
-    """Segment sum of row-ordered messages ``msgs [E, F]`` (float32 or
-    bfloat16) into float32 ``[N, F]``; rows without edges are 0."""
-    if msgs.device.type == "cpu":
-        return csr_scatter_sum_plain(rowptr, msgs)
-    if msgs.device.type != "cuda":
-        raise ValueError(f"csr_scatter_sum takes CPU or CUDA tensors, got "
-                         f"{msgs.device}")
-    dev = msgs.device
-    _check("msgs", msgs, (torch.float32, torch.bfloat16), 2, dev)
-    n = _check_rowptr(rowptr, msgs.shape[0], dev)
-    w = msgs.shape[1]
-    if n == 0 or w == 0:
-        return torch.zeros((n, w), dtype=torch.float32, device=dev)
-    out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _library().pgsd_csr_scatter_sum(
-            rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
-            int(msgs.dtype == torch.bfloat16), _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"csr_scatter_sum launch failed: CUDA error {err}")
-    LAUNCHES["csr_scatter_sum"] += 1
-    return out
-
-
-# ---------------------------------------------------------------------------
-# The accumulate entries (K2): out[row0 + r] += the row's sum, in place
-
-
-def _check_out(out: torch.Tensor, row0: int, n: int, w: int, device):
-    _check("out", out, (torch.float32,), 2, device)
-    if out.shape[1] != w:
-        raise ValueError(f"out has width {out.shape[1]}, expected {w}")
-    if row0 < 0 or row0 + n > out.shape[0]:
-        raise ValueError(f"rows [{row0}, {row0 + n}) outside out's "
-                         f"{out.shape[0]} rows")
+    ``x`` [M, W] is float32 or bfloat16; messages round to x's type and
+    sum in float32.  Returns float32 [N, W]; rows without edges are 0.
+    ``col`` must index rows of ``x`` (the builders check it once);
+    ``split`` is rowptr's plan (``plan_row_split``).  The kernel is
+    deterministic: each row sums its edges, or its pieces, in order."""
+    if x.device.type == "cpu":
+        return csr_dual_spmm_plain(rowptr, col, val_a, val_b, x, fa)
+    return _dual_launch("csr_dual_spmm", rowptr, col, val_a, val_b, x, fa,
+                        None, 0, split)
 
 
 def csr_dual_spmm_accum_plain(rowptr, col, val_a, val_b, x, fa: int, out,
@@ -219,44 +305,65 @@ def csr_dual_spmm_accum_plain(rowptr, col, val_a, val_b, x, fa: int, out,
 def csr_dual_spmm_accum(rowptr: torch.Tensor, col: torch.Tensor,
                         val_a: torch.Tensor, val_b: torch.Tensor,
                         x: torch.Tensor, fa: int, out: torch.Tensor,
-                        row0: int = 0) -> torch.Tensor:
+                        row0: int = 0,
+                        split: Optional[RowSplit] = None) -> torch.Tensor:
     """``out[row0 + r, l] += sum_{e in [rowptr[r], rowptr[r+1])} m[e, l]``
     in place, with ``m`` as in ``csr_dual_spmm``; returns ``out``.
 
     One block of a split or streamed layout: ``rowptr`` is local to the
-    block's edges.  Each row sums in edge order from its prior value, and
-    rows without edges are not written."""
+    block's edges (and ``split`` its plan).  Each row sums from its prior
+    value, and rows without edges are not written."""
     if x.device.type == "cpu":
         return _add_rows_(out, rowptr,
                           _dual_msgs(col, val_a, val_b, x, fa), row0)
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_dual_spmm_accum takes CPU or CUDA tensors, "
-                         f"got {x.device}")
-    dev = x.device
-    _check("x", x, (torch.float32, torch.bfloat16), 2, dev)
-    _check("col", col, (torch.int32,), 1, dev)
-    _check("val_a", val_a, (torch.float32,), 1, dev)
-    _check("val_b", val_b, (torch.float32,), 1, dev)
-    nnz = col.numel()
-    if val_a.numel() != nnz or val_b.numel() != nnz:
-        raise ValueError("col, val_a and val_b must have one entry per edge")
-    n = _check_rowptr(rowptr, nnz, dev)
-    w = x.shape[1]
-    if not 0 <= fa <= w:
-        raise ValueError(f"fa={fa} outside [0, {w}]")
-    _check_out(out, row0, n, w, dev)
+    return _dual_launch("csr_dual_spmm_accum", rowptr, col, val_a, val_b, x,
+                        fa, out, row0, split)
+
+
+# ---------------------------------------------------------------------------
+# csr_scatter_sum / csr_scatter_accum: segment sums of row-ordered messages
+
+
+def _scatter_launch(name, rowptr, msgs, out, row0, split):
+    dev = _cuda_device(name, msgs)
+    _check("msgs", msgs, (torch.float32, torch.bfloat16), 2, dev)
+    n = _check_rowptr(rowptr, msgs.shape[0], dev)
+    w = msgs.shape[1]
+    accum = out is not None
+    if accum:
+        _check_out(out, row0, n, w, dev)
     if n == 0 or w == 0:
-        return out
+        return out if accum else torch.zeros((n, w), dtype=torch.float32,
+                                             device=dev)
+    if not accum:
+        out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    plan, _partial = _plan_args(rowptr, split, w, dev)
     with torch.cuda.device(dev):
-        err = _library().pgsd_csr_dual_spmm_accum(
-            rowptr.data_ptr(), col.data_ptr(), val_a.data_ptr(),
-            val_b.data_ptr(), x.data_ptr(), out.data_ptr(), n, w, fa,
-            int(x.dtype == torch.bfloat16), row0, _stream_ptr(dev))
+        err = _library().pgsd_csr_scatter(
+            rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
+            int(msgs.dtype == torch.bfloat16), int(accum), row0, *plan,
+            _stream_ptr(dev))
     if err:
-        raise RuntimeError(f"csr_dual_spmm_accum launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["csr_dual_spmm_accum"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
+
+
+def csr_scatter_sum_plain(rowptr, msgs):
+    """Plain PyTorch version of ``csr_scatter_sum`` (``index_add_``)."""
+    n = rowptr.numel() - 1
+    out = torch.zeros((n, msgs.shape[1]), dtype=torch.float32,
+                      device=msgs.device)
+    return _add_rows_(out, rowptr, msgs)
+
+
+def csr_scatter_sum(rowptr: torch.Tensor, msgs: torch.Tensor,
+                    split: Optional[RowSplit] = None) -> torch.Tensor:
+    """Segment sum of row-ordered messages ``msgs [E, F]`` (float32 or
+    bfloat16) into float32 ``[N, F]``; rows without edges are 0."""
+    if msgs.device.type == "cpu":
+        return csr_scatter_sum_plain(rowptr, msgs)
+    return _scatter_launch("csr_scatter_sum", rowptr, msgs, None, 0, split)
 
 
 def csr_scatter_accum_plain(rowptr, msgs, out, row0: int = 0):
@@ -266,28 +373,12 @@ def csr_scatter_accum_plain(rowptr, msgs, out, row0: int = 0):
 
 
 def csr_scatter_accum(rowptr: torch.Tensor, msgs: torch.Tensor,
-                      out: torch.Tensor, row0: int = 0) -> torch.Tensor:
+                      out: torch.Tensor, row0: int = 0,
+                      split: Optional[RowSplit] = None) -> torch.Tensor:
     """K2's own contract: ``out[row0 + r] += sum of the row-ordered
     messages of row r`` in place (float32 ``out``; ``msgs`` float32 or
     bfloat16); rows without messages are not written.  Returns ``out``."""
     if msgs.device.type == "cpu":
         return _add_rows_(out, rowptr, msgs, row0)
-    if msgs.device.type != "cuda":
-        raise ValueError(f"csr_scatter_accum takes CPU or CUDA tensors, got "
-                         f"{msgs.device}")
-    dev = msgs.device
-    _check("msgs", msgs, (torch.float32, torch.bfloat16), 2, dev)
-    n = _check_rowptr(rowptr, msgs.shape[0], dev)
-    w = msgs.shape[1]
-    _check_out(out, row0, n, w, dev)
-    if n == 0 or w == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = _library().pgsd_csr_scatter_accum(
-            rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
-            int(msgs.dtype == torch.bfloat16), row0, _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"csr_scatter_accum launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["csr_scatter_accum"] += 1
-    return out
+    return _scatter_launch("csr_scatter_accum", rowptr, msgs, out, row0,
+                           split)

@@ -18,12 +18,18 @@ for one-hot matmuls; here every layout is plain CSR:
               ``rowptr`` of the rows it touches, and a row's edges may
               straddle blocks, which K2 sums in order.
 
+Every rowptr (the flat one, each block's local one) comes with its plan of
+cut rows (``scatter_csr.plan_row_split``, rows longer than
+``scatter_csr.PIECE_EDGES`` edges cut into pieces that the kernels sum in
+parallel), made here once so that an apply adds no host sync.
+
 Why the split is kept on the card: the TPU split answers a gather cliff
 (about 192k table rows on v5e).  On the H100 the analogue is the 50 MB
 L2: at the giant graph's 2.4M rows x is 307 MB in bf16 at width 64, the
-131,072-row hot table 16.8 MB, so the hot section's gathers hit L2.  On
-an H100 80GB HBM3 a hub row's serial gathers cost about 195 ns an edge
-from the hot table against 310 ns from x in device memory (PERF.md).
+131,072-row hot table 16.8 MB, so the hot section's gathers hit L2.  The
+layouts are chosen as the JAX package chooses them; since the kernels cut
+hub rows, the flat layout applies the giant graph faster than the split
+and streamed ones on an H100 (PERF.md, ROADMAP.md).
 
 The module knobs are read at call time, so a caller (or a test) may set
 them on this module before building an operator.
@@ -35,6 +41,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .cuda.scatter_csr import RowSplit, plan_row_split
 
 # The column split: operators with more than COL_SPLIT_MIN_COLS columns
 # gather the edges of their GATHER_FAST_ROWS highest-degree columns from
@@ -83,12 +91,13 @@ def col_degree_split(col, num_cols: int):
 class CsrBlock:
     """Edges ``[e0, e1)`` of an operator's layout-ordered edge arrays, in
     row order.  ``rowptr`` [rows+1] int32 holds offsets local to the block
-    for rows ``row0 .. row0 + rows - 1``."""
+    for rows ``row0 .. row0 + rows - 1``, ``split`` its plan of cut rows."""
 
     row0: int
     rowptr: torch.Tensor
     e0: int
     e1: int
+    split: Optional[RowSplit] = None
 
 
 @dataclass(frozen=True)
@@ -96,9 +105,10 @@ class CsrLayout:
     """One direction of an operator on the kernel tier.
 
     ``col`` [nnz] int32 in layout order (hot columns remapped into
-    ``x[hot_ids]``).  Flat layouts have ``rowptr`` [N+1] and no blocks;
-    split or streamed ones have ``blocks``, of which the first
-    ``hot_blocks`` gather from ``x[hot_ids]``."""
+    ``x[hot_ids]``).  Flat layouts have ``rowptr`` [N+1] (and its plan
+    of cut rows ``row_split``) and no blocks; split or streamed ones have
+    ``blocks``, of which the first ``hot_blocks`` gather from
+    ``x[hot_ids]``."""
 
     col: torch.Tensor
     rowptr: Optional[torch.Tensor]
@@ -106,6 +116,7 @@ class CsrLayout:
     hot_blocks: int = 0
     hot_ids: Optional[torch.Tensor] = None
     streamed: bool = False
+    row_split: Optional[RowSplit] = None
 
 
 def rowptr_of(row: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -154,7 +165,9 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
     c = torch.from_numpy(col).to(device)[perm].to(torch.int32)
     streamed = stream and nnz > STREAM_THRESHOLD_EDGES
     if split is None and not streamed:
-        return CsrLayout(col=c, rowptr=rowptr_of(r, n_rows)), perm
+        rp = rowptr_of(r, n_rows)
+        return CsrLayout(col=c, rowptr=rp, row_split=plan_row_split(rp)), \
+            perm
 
     rows = r[perm]
     sections = ((0, n_hot), (n_hot, nnz)) if split is not None else \
@@ -165,7 +178,7 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
             continue
         rp = rowptr_of(rows[s0:s1], n_rows)
         if not streamed:
-            new = [CsrBlock(0, rp, s0, s1)]
+            new = [CsrBlock(0, rp, s0, s1, plan_row_split(rp))]
         else:
             b = _even_bounds(s1 - s0, STREAM_BLOCK_EDGES)
             # the rows of each block's first and last edge, in one fetch
@@ -174,8 +187,9 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
             new = []
             for (a, z), (r0, r1) in zip(zip(b[:-1], b[1:]), first_last):
                 local = (rp[r0:r1 + 2] - int(a)).clamp_(0, int(z - a))
-                new.append(CsrBlock(int(r0), local.to(torch.int32),
-                                    s0 + int(a), s0 + int(z)))
+                local = local.to(torch.int32)
+                new.append(CsrBlock(int(r0), local, s0 + int(a), s0 + int(z),
+                                    plan_row_split(local)))
         if split is not None and k == 0:
             hot_blocks = len(new)
         blocks += new

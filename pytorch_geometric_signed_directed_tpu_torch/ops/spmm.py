@@ -36,6 +36,7 @@ from ..device import DeviceLike, resolve_device
 from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo, check_indices
 from .cuda.scatter_csr import _row_ids, csr_dual_spmm, csr_dual_spmm_accum
+from .cuda.scatter_csr import RowSplit
 from .layout import CsrBlock, CsrLayout, build_layout
 from .segment import segment_sum
 
@@ -96,7 +97,8 @@ class CSR:
     """One operator in the kernel tier's layout, plus its transpose.
 
     ``col`` [nnz] int32 and ``val`` [nnz] float32 in layout order.  Flat
-    layouts have ``rowptr`` [num_rows+1] int32; column-split or streamed
+    layouts have ``rowptr`` [num_rows+1] int32 and its plan of cut rows
+    ``row_split``; column-split or streamed
     ones (ops/layout.py) have ``blocks`` instead, of which the first
     ``hot_blocks`` gather from ``x[hot_ids]``.  ``transposed`` is the
     same operator in column order, with its own split and stream."""
@@ -111,12 +113,13 @@ class CSR:
     hot_blocks: int = 0
     hot_ids: Optional[torch.Tensor] = None
     streamed: bool = False
+    row_split: Optional[RowSplit] = None
 
 
 def _layout_fields(L: CsrLayout) -> dict:
     return dict(rowptr=L.rowptr, col=L.col, blocks=L.blocks,
                 hot_blocks=L.hot_blocks, hot_ids=L.hot_ids,
-                streamed=L.streamed)
+                streamed=L.streamed, row_split=L.row_split)
 
 
 def _csr_from_coo(A: COO) -> CSR:
@@ -137,12 +140,14 @@ def _layout_apply(d, val_a, val_b, n_rows: int, x: torch.Tensor,
     """Apply one direction of a kernel-tier operator (a CSR or a
     DualPropagator) to x; lanes below ``fa`` take ``val_a``.
 
-    Flat layouts are one K1 launch.  Split or streamed layouts gather the
-    hot table ``x[hot_ids]`` once, then launch K2 for each block, in
-    order, into one float32 output; rows no block touches stay 0."""
+    Flat layouts are one K1 call.  Split or streamed layouts gather the
+    hot table ``x[hot_ids]`` once, then call K2 for each block, in order,
+    into one float32 output; rows no block touches stay 0.  Each call
+    takes its rowptr's plan of cut rows."""
     xm = x.to(_kernel_dtype(x)).contiguous()
     if not d.blocks:
-        out = csr_dual_spmm(d.rowptr, d.col, val_a, val_b, xm, fa)
+        out = csr_dual_spmm(d.rowptr, d.col, val_a, val_b, xm, fa,
+                            d.row_split)
         return out.to(x.dtype)
     x_hot = xm.index_select(0, d.hot_ids) if d.hot_ids is not None else None
     out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
@@ -150,7 +155,7 @@ def _layout_apply(d, val_a, val_b, n_rows: int, x: torch.Tensor,
     for i, b in enumerate(d.blocks):
         csr_dual_spmm_accum(b.rowptr, d.col[b.e0:b.e1], val_a[b.e0:b.e1],
                             val_b[b.e0:b.e1], x_hot if i < d.hot_blocks
-                            else xm, fa, out, b.row0)
+                            else xm, fa, out, b.row0, b.split)
     return out.to(x.dtype)
 
 
@@ -262,7 +267,8 @@ class DualPropagator:
     one segment sum to a lane-stacked ``[x_a | x_b]``.
 
     ``mxu``: int32 ``col`` in the layout's order, with ``rowptr`` [N+1]
-    int32 (flat) or ``blocks`` (column-split or streamed, as in CSR).
+    int32 and its plan ``row_split`` (flat) or ``blocks`` (column-split or
+    streamed, as in CSR).
     ``segment``: int64 ``row`` and ``col`` sorted by (row, col).
     ``val_a``/``val_b`` are float32 in the same order.  ``mxu_sharded``:
     ``sharded`` (a parallel.mxu_shard.ShardedMXU) holds both.
@@ -283,6 +289,7 @@ class DualPropagator:
     hot_ids: Optional[torch.Tensor] = None
     streamed: bool = False
     sharded: Optional[object] = None
+    row_split: Optional[RowSplit] = None
 
 
 def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
@@ -350,7 +357,7 @@ def propagators_from_dual(D: DualPropagator) -> Tuple[Propagator, Propagator]:
                        num_rows=d.num_nodes, num_cols=d.num_cols,
                        transposed=t, blocks=d.blocks,
                        hot_blocks=d.hot_blocks, hot_ids=d.hot_ids,
-                       streamed=d.streamed)
+                       streamed=d.streamed, row_split=d.row_split)
 
         return (Propagator(coo=None, dense=None, mode="mxu", csr=one(D, "a")),
                 Propagator(coo=None, dense=None, mode="mxu", csr=one(D, "b")))

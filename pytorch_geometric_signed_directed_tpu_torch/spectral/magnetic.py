@@ -20,7 +20,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.coalesce import coalesce_edges
 from ..ops.coo import COO, build_coo
-from ..ops.cuda.scatter_csr import csr_scatter_accum, csr_scatter_sum
+from ..ops.cuda.scatter_csr import (RowSplit, csr_scatter_accum,
+                                     csr_scatter_sum)
 from ..ops.layout import CsrBlock, build_layout
 from ..ops.spmm import (
     _DENSE_AUTO_MAX_NODES,
@@ -305,7 +306,8 @@ class MagneticTemplate:
     ``dense`` holds ``a_norm`` and ``theta`` as [N, N] float32; ``segment``
     as per-edge float32 with int64 ``row``/``col`` sorted by (row, col);
     ``mxu`` in the kernel tier's layout order (the layout's ``col``,
-    ``rowptr`` or ``blocks``, hot table and stream, as in
+    ``rowptr`` and its plan ``row_split`` or ``blocks``, hot table and
+    stream, as in
     ``DualPropagator``), with ``transposed`` the same per-edge values in
     the transposed layout's order (cos is even and sin odd in theta, so the
     formulas give the transposed operator's values unchanged).
@@ -325,6 +327,7 @@ class MagneticTemplate:
     streamed: bool = False
     transposed: Optional["MagneticTemplate"] = None
     sharded: Optional[object] = None
+    row_split: Optional[RowSplit] = None
 
 
 def _mxu_template(row, col, a_norm, theta, num_nodes: int,
@@ -434,7 +437,7 @@ def _dual_of(t: MagneticTemplate, val_a, val_b,
         col=t.col, row=None, rowptr=t.rowptr, val_a=val_a, val_b=val_b,
         num_nodes=t.num_nodes, num_cols=t.num_nodes, mode="mxu",
         transposed=transposed, blocks=t.blocks, hot_blocks=t.hot_blocks,
-        hot_ids=t.hot_ids, streamed=t.streamed)
+        hot_ids=t.hot_ids, streamed=t.streamed, row_split=t.row_split)
 
 
 def template_dual(tmpl: MagneticTemplate, q) -> DualPropagator:
@@ -495,13 +498,14 @@ def _template_pair_forward(tmpl: MagneticTemplate, q, x: torch.Tensor):
     def one_pass(which, width):
         if not tmpl.blocks:
             return csr_scatter_sum(tmpl.rowptr,
-                                   msgs(xg, 0, tmpl.col.numel(), which))
+                                   msgs(xg, 0, tmpl.col.numel(), which),
+                                   tmpl.row_split)
         out = torch.zeros((tmpl.num_nodes, width), dtype=torch.float32,
                           device=x.device)
         for i, b in enumerate(tmpl.blocks):
             src = x_hot if i < tmpl.hot_blocks else xg
             csr_scatter_accum(b.rowptr, msgs(src, b.e0, b.e1, which), out,
-                              b.row0)
+                              b.row0, b.split)
         return out
 
     if 2 * f2 <= _PAIR_MAX_LANES:

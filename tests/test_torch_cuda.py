@@ -218,6 +218,70 @@ def test_layouts_match_flat_layout_on_card(card, kind, monkeypatch):
     assert scatter_csr.LAUNCHES["csr_dual_spmm"] == 0
 
 
+# --- the cut rows of K1/K2 ---------------------------------------------------
+
+def hub_csr(device, seed=0):
+    """A CSR with the giant graph's largest row (324,064 edges), rows one
+    edge shorter than, as long as and one edge longer than a piece, a row
+    of two pieces and a bit, empty rows, and short rows."""
+    L = scatter_csr.PIECE_EDGES
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([[0, 324_064, 0, L - 1, L, L + 1, 2 * L + 5, 0],
+                              rng.integers(0, 40, 500), [0, L + 1]])
+    rowptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    return torch.from_numpy(rowptr).to(device), lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("entry", ["csr_dual_spmm", "csr_scatter_sum",
+                                   "csr_dual_spmm_accum",
+                                   "csr_scatter_accum"])
+def test_cut_rows_match_plain_and_repeat_bit_for_bit_on_card(card, entry,
+                                                             dtype):
+    """Every CSR entry on a hub row and rows around the piece length,
+    accumulating into a non-zero output: against its plain version, and
+    bit-equal across two calls (no atomics)."""
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    rowptr, lengths = hub_csr(card)
+    split = scatter_csr.plan_row_split(rowptr)
+    assert split.rows.numel() == int((lengths > scatter_csr.PIECE_EDGES).sum())
+    n, e, m, w, row0 = len(lengths), int(lengths.sum()), 5000, 64, 3
+    gen = torch.Generator(device=card).manual_seed(len(entry))
+    if "dual" in entry:
+        col = torch.randint(0, m, (e,), generator=gen, device=card,
+                            dtype=torch.int32)
+        va, vb = torch.randn(2, e, generator=gen, device=card)
+        x = torch.randn(m, w, generator=gen, device=card).to(mdt)
+        args = (rowptr, col, va, vb, x, w // 2)
+    else:
+        args = (rowptr, torch.randn(e, w, generator=gen,
+                                    device=card).to(mdt))
+    fn = getattr(scatter_csr, entry)
+    plain = getattr(scatter_csr, entry + "_plain")
+    out0 = torch.randn(n + 2 * row0, w, generator=gen, device=card)
+    if entry.endswith("_accum"):
+        got = fn(*args, out0.clone(), row0, split=split)
+        again = fn(*args, out0.clone(), row0, split=split)
+        unplanned = fn(*args, out0.clone(), row0)
+        want = plain(*args, out0, row0)
+        # rows without edges, and rows outside the block, keep their bits
+        keep = torch.ones(len(out0), dtype=torch.bool, device=card)
+        keep[row0:row0 + n] = torch.from_numpy(lengths == 0).to(card)
+        assert torch.equal(got[keep], out0[keep])
+    else:
+        got = fn(*args, split=split)
+        again = fn(*args, split=split)
+        unplanned = fn(*args)
+        want = plain(*args)
+        assert torch.all(got[torch.from_numpy(lengths == 0).to(card)] == 0)
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, again)
+    assert torch.equal(got, unplanned)
+    torch.cuda.synchronize()
+
+
 # --- K5: the block-sparse kernel -------------------------------------------
 
 def bsr_operator(n_rows, n_cols, e, seed, device):
@@ -250,6 +314,40 @@ def test_bsr_kernel_matches_plain_on_card(card, width):
     # the forward's empty block rows
     assert torch.all(outs[0][128:256] == 0)
     assert torch.all(outs[0][384:512] == 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 32])
+def test_bsr_kernel_on_few_unequal_block_rows_on_card(card, width):
+    """Ten block rows (fewer than the card's SMs), one of 200 blocks and
+    others of one or two, under the planned split and a coarser one:
+    against the plain version, bit-equal across two calls."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.bsr import (
+        bsr_from_coo)
+
+    rng = np.random.default_rng(width)
+    n_rows, n_cols = 1280, 200 * 128
+    per_row = [200, 1, 0, 50, 2, 2, 1, 2, 1, 2]      # blocks per block row
+    row, col = [], []
+    for br, k in enumerate(per_row):
+        for bc in rng.choice(200, k, replace=False):
+            row.append(br * 128 + rng.integers(0, 128, 20))
+            col.append(bc * 128 + rng.integers(0, 128, 20))
+    row, col = np.concatenate(row), np.concatenate(col)
+    val = rng.standard_normal(len(row)).astype(np.float32)
+    B = bsr_from_coo(build_coo(row, col, val, n_rows, num_cols=n_cols,
+                               device=card))
+    for op in (B, B.transposed):
+        x = torch.randn(op.num_cols, width, device=card)
+        args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
+        want = bsr_spmm.bsr_matmul_plain(*args)
+        coarse = bsr_spmm.plan_block_split(op.block_rowptr,
+                                           op.blocks.shape[0], n_sms=2)
+        for split in (op.split, coarse):
+            got = bsr_spmm.bsr_matmul(*args, split=split)
+            torch.testing.assert_close(got, want, **F32_TOL)
+            assert torch.equal(got, bsr_spmm.bsr_matmul(*args, split=split))
     torch.cuda.synchronize()
 
 

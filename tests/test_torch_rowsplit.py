@@ -1,0 +1,345 @@
+"""The plans that cut long rows for the CSR kernels (K1/K2) and block rows
+for the BSR kernel (K5), and the kernels' pass structure emulated in plain
+PyTorch on them.
+
+The kernels themselves run only on the card (tests/test_torch_cuda.py);
+here the plans (``scatter_csr.plan_row_split``, ``bsr_spmm.plan_block_
+split``) are checked edge by edge, and a float64 emulation of what the
+kernels do with them (sum each short row and each piece, then add a cut
+row's pieces in piece order to its prior value) is held against the plain
+versions and against the JAX package's Pallas K2 and K5 in interpret mode.
+"""
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_geometric_signed_directed_tpu.ops import build_coo as jx_build_coo
+from pytorch_geometric_signed_directed_tpu.ops.pallas import scatter_mxu
+from pytorch_geometric_signed_directed_tpu.ops.pallas.bsr_spmm import (
+    bsr_from_coo as jx_bsr_from_coo, bsr_spmm as jx_bsr_spmm)
+
+from pytorch_geometric_signed_directed_tpu_torch.ops import (
+    bsr as bsr_mod, build_coo, layout)
+from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+    bsr_spmm, scatter_csr)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+L = scatter_csr.PIECE_EDGES
+# float64 sums in another order, each rounded once to float32
+EMU_TOL = dict(rtol=1e-6, atol=1e-6)
+# against the TPU kernels: one-hot matmul order at HIGHEST
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def rowptr_of(lengths):
+    return torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32))
+
+
+def check_plan(rowptr, split, piece_len, min_len=None):
+    """``split`` cuts exactly the rows longer than ``min_len`` (default
+    ``piece_len``) into pieces of ``piece_len`` edges, in edge order; with
+    the rows it leaves whole, it covers every edge once."""
+    min_len = piece_len if min_len is None else min_len
+    rp = rowptr.numpy().astype(np.int64)
+    length = np.diff(rp)
+    rows = split.rows.numpy()
+    ptr = split.ptr.numpy()
+    pieces = split.pieces.numpy().astype(np.int64)
+    assert split.piece_len == piece_len
+    assert split.rows.dtype == split.ptr.dtype == split.pieces.dtype == \
+        torch.int32
+    np.testing.assert_array_equal(rows, np.flatnonzero(length > min_len))
+    assert ptr[0] == 0 and len(ptr) == len(rows) + 1
+    assert pieces.shape == (ptr[-1], 2)
+    covered = np.zeros(rp[-1], np.int64)
+    for j, r in enumerate(rows):
+        mine = pieces[ptr[j]:ptr[j + 1]]
+        assert len(mine) == -(-length[r] // piece_len)
+        if length[r] == 0:
+            continue
+        assert mine[0, 0] == rp[r] and mine[-1, 1] == rp[r + 1]
+        np.testing.assert_array_equal(mine[1:, 0], mine[:-1, 1])  # in order
+        sizes = mine[:, 1] - mine[:, 0]
+        assert np.all(sizes[:-1] == piece_len)
+        assert 0 < sizes[-1] <= piece_len
+        for a, b in mine:
+            covered[a:b] += 1
+    for r in np.flatnonzero(length <= min_len):
+        covered[rp[r]:rp[r + 1]] += 1
+    assert np.all(covered == 1)
+
+
+# --- the CSR plan ------------------------------------------------------------
+
+LENGTHS = {
+    "around_the_piece": [L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 0, 3],
+    "empty_rows": [0, 0, 0, 0],
+    "no_rows": [],
+    "hub": [5, 324_064, 7],
+}
+
+
+@pytest.mark.parametrize("case", sorted(LENGTHS))
+def test_plan_covers_every_edge_once_with_short_rows_whole(case):
+    rowptr = rowptr_of(np.array(LENGTHS[case], np.int64))
+    split = scatter_csr.plan_row_split(rowptr)
+    check_plan(rowptr, split, L)
+
+
+@pytest.mark.parametrize("piece_len", [1, 2, 3, 7, 64])
+def test_plan_at_small_piece_lengths(piece_len):
+    lengths = np.array([piece_len - 1, piece_len, piece_len + 1, 0,
+                        5 * piece_len + 2, 1, 0, 3 * piece_len], np.int64)
+    lengths = np.maximum(lengths, 0)
+    rowptr = rowptr_of(lengths)
+    check_plan(rowptr, scatter_csr.plan_row_split(rowptr, piece_len),
+               piece_len)
+
+
+def test_plan_leaves_rows_at_most_a_piece_long_whole():
+    rowptr = rowptr_of(np.array([L - 1, L, 1, 0], np.int64))
+    split = scatter_csr.plan_row_split(rowptr)
+    assert split.rows.numel() == 0 and split.pieces.shape == (0, 2)
+    np.testing.assert_array_equal(split.ptr.numpy(), [0])
+
+
+def test_plan_rejects_a_piece_length_below_one():
+    with pytest.raises(ValueError, match="positive"):
+        scatter_csr.plan_row_split(rowptr_of(np.array([3])), 0)
+
+
+def load_script(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("direction", ["rows", "cols"])
+def test_plan_of_a_power_law_graph(direction):
+    """The giant bench's generator at small N: its hub rows (and hub
+    columns, the transposed operator's rows) are cut, all else whole."""
+    smoke = load_script("chip_smoke", ROOT / "chip_smoke.py")
+    row, col = smoke.powerlaw_digraph(20_000, 200_000, 1.0, seed=0)
+    key = row if direction == "rows" else col
+    length = np.bincount(key, minlength=20_000)
+    assert length.max() > 4 * L                     # hubs to cut
+    rowptr = rowptr_of(length)
+    split = scatter_csr.plan_row_split(rowptr)
+    check_plan(rowptr, split, L)
+    assert split.rows.numel() == int((length > L).sum())
+
+
+def test_layouts_carry_the_plan_of_every_rowptr(monkeypatch):
+    """build_layout plans the flat rowptr and every block's local one; a
+    hub row straddles streamed blocks, so blocks start and end inside it,
+    and each block's plan covers the block's own edges."""
+    rng = np.random.default_rng(0)
+    n, hub = 400, 5000
+    row = np.concatenate([rng.integers(0, n, 3000), np.full(hub, 17),
+                          np.full(2 * L + 3, 240)])
+    col = rng.integers(0, n, len(row))
+    flat, _ = layout.build_layout(row, col, n, n, "cpu")
+    check_plan(flat.rowptr, flat.row_split, L)
+    assert flat.row_split.rows.numel() == 2
+    monkeypatch.setattr(layout, "STREAM_THRESHOLD_EDGES", 1000)
+    monkeypatch.setattr(layout, "STREAM_BLOCK_EDGES", 1500)
+    S, _ = layout.build_layout(row, col, n, n, "cpu")
+    assert S.streamed and S.rowptr is None and len(S.blocks) > 4
+    straddled = 0
+    for b in S.blocks:
+        check_plan(b.rowptr, b.split, L)
+        assert int(b.rowptr[-1]) == b.e1 - b.e0
+        lens = (b.rowptr[1:] - b.rowptr[:-1]).numpy()
+        rows = b.row0 + np.arange(len(lens))
+        straddled += int(rows[0] == 17 or rows[-1] == 17)
+    assert straddled >= 3        # first or last row of several blocks
+
+
+# --- the kernels' pass structure, emulated -----------------------------------
+
+def emulate(rowptr, msgs, split, out=None, row0=0):
+    """What the CSR kernels do with ``split``: one sum per row of at most
+    ``piece_len`` edges (from its prior value in the accumulate mode, and
+    only if it has edges), one float64 partial per piece, then each cut
+    row's partials added in piece order to its prior value (0 in the plain
+    mode) and rounded once.  float64 here where the kernels keep
+    compensated float32 sums."""
+    rp = rowptr.long()
+    n = rp.numel() - 1
+    accum = out is not None
+    out = out.clone() if accum else torch.zeros((n, msgs.shape[1]))
+    m = msgs.double()
+    for r in range(n):
+        a, b = int(rp[r]), int(rp[r + 1])
+        if b - a > split.piece_len or (accum and a == b):
+            continue
+        prior = out[row0 + r].double() if accum else 0.0
+        out[row0 + r] = (prior + m[a:b].sum(0)).float()
+    partial = [m[a:b].sum(0) for a, b in split.pieces.long().tolist()]
+    for j, r in enumerate(split.rows.tolist()):
+        s = out[row0 + r].double() if accum else torch.zeros(m.shape[1],
+                                                             dtype=torch.double)
+        for p in range(int(split.ptr[j]), int(split.ptr[j + 1])):
+            s = s + partial[p]
+        out[row0 + r] = s.float()
+    return out
+
+
+def cut_block(seed, piece_len, width):
+    """A block of rows around ``piece_len`` (and a long one, and empty
+    ones), its edges' (col, val_a, val_b) and an x."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([piece_len - 1, piece_len, piece_len + 1, 0,
+                        7 * piece_len + 3, 2, 0, 1], np.int64)
+    rowptr = rowptr_of(lengths)
+    e, m = int(lengths.sum()), 50
+    col = torch.from_numpy(rng.integers(0, m, e).astype(np.int32))
+    va, vb = (torch.from_numpy(rng.standard_normal(e).astype(np.float32))
+              for _ in range(2))
+    x = torch.from_numpy(rng.standard_normal((m, width)).astype(np.float32))
+    return rowptr, lengths, col, va, vb, x
+
+
+@pytest.mark.parametrize("entry", ["dual", "scatter"])
+@pytest.mark.parametrize("accum", [False, True])
+@pytest.mark.parametrize("piece_len", [4, 16])
+def test_emulated_passes_match_the_plain_versions(entry, accum, piece_len):
+    rowptr, lengths, col, va, vb, x = cut_block(piece_len, piece_len, 6)
+    split = scatter_csr.plan_row_split(rowptr, piece_len)
+    assert split.rows.numel() == 2
+    rng = np.random.default_rng(1)
+    if entry == "dual":
+        msgs = scatter_csr._dual_msgs(col, va, vb, x, 3)
+    else:
+        msgs = torch.from_numpy(
+            rng.standard_normal((int(lengths.sum()), 6)).astype(np.float32))
+    row0, n = 2, len(lengths)
+    out0 = torch.from_numpy(rng.standard_normal((n + 4, 6))
+                            .astype(np.float32))
+    if accum:
+        got = emulate(rowptr, msgs, split, out0, row0)
+        want = (scatter_csr.csr_dual_spmm_accum_plain(
+            rowptr, col, va, vb, x, 3, out0, row0) if entry == "dual"
+            else scatter_csr.csr_scatter_accum_plain(rowptr, msgs, out0,
+                                                     row0))
+        keep = torch.ones(n + 4, dtype=torch.bool)
+        keep[row0:row0 + n] = torch.from_numpy(lengths == 0)
+        assert torch.equal(got[keep], out0[keep])    # untouched, bit for bit
+    else:
+        got = emulate(rowptr, msgs, split)
+        want = (scatter_csr.csr_dual_spmm_plain(rowptr, col, va, vb, x, 3)
+                if entry == "dual"
+                else scatter_csr.csr_scatter_sum_plain(rowptr, msgs))
+        assert torch.all(got[torch.from_numpy(lengths == 0)] == 0)
+    torch.testing.assert_close(got, want, **EMU_TOL)
+
+
+@pytest.mark.parametrize("width", [4, 64])
+def test_emulated_passes_match_jax_scatter_accum(width):
+    """The pass structure on cut rows against the Pallas K2 (interpret
+    mode), accumulating into the same prior output."""
+    rng = np.random.default_rng(width)
+    piece_len = 16
+    lengths = np.array([0, 5 * piece_len + 1, 3, piece_len, 0,
+                        piece_len + 1, 2 * piece_len], np.int64)
+    n, e = len(lengths), int(lengths.sum())
+    row = np.repeat(np.arange(n), lengths)
+    msgs = rng.standard_normal((e, width)).astype(np.float32)
+    plan, perm = scatter_mxu.build_scatter_plan(row, n)
+    (msgs_plan,) = scatter_mxu.permute_edge_data(perm, msgs)
+    out0 = rng.standard_normal((plan.num_windows * plan.window,
+                                width)).astype(np.float32)
+    want = scatter_mxu._scatter_accum(
+        plan.win, plan.local_rows, jnp.asarray(msgs_plan),
+        jnp.asarray(out0), window=plan.window, interpret=True,
+        precision=jax.lax.Precision.HIGHEST)
+    rowptr = rowptr_of(lengths)
+    split = scatter_csr.plan_row_split(rowptr, piece_len)
+    got = emulate(rowptr, torch.from_numpy(msgs), split,
+                  torch.from_numpy(out0[:n].copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], **F32_TOL)
+
+
+# --- the BSR plan ------------------------------------------------------------
+
+@pytest.mark.parametrize("n_blocks,n_sms,chunk", [(4096, 132, 8),
+                                                  (4096, 1, 1024),
+                                                  (100, 132, 1),
+                                                  (529, 1, 133)])
+def test_block_plan_lists_every_block_row(n_blocks, n_sms, chunk):
+    """Every block row in order, cut into pieces of ceil(blocks / (4 *
+    SMs)) blocks; a block row without blocks has no piece."""
+    rng = np.random.default_rng(n_blocks)
+    per_row = rng.multinomial(n_blocks, rng.dirichlet(np.ones(40) * 0.3))
+    per_row[[3, 11]] = 0
+    per_row[0] += n_blocks - per_row.sum()
+    rowptr = rowptr_of(per_row)
+    split = bsr_spmm.plan_block_split(rowptr, n_blocks, n_sms)
+    assert split.piece_len == chunk
+    check_plan(rowptr, split, chunk, min_len=-1)
+    np.testing.assert_array_equal(split.rows.numpy(), np.arange(40))
+    assert split.ptr[4] == split.ptr[3] and split.ptr[12] == split.ptr[11]
+
+
+def unequal_bsr_case(seed, width):
+    """Ten block rows of very unequal length (one of 60 blocks, others of
+    one to three), with the JAX package's BSR of the same edges."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols = 1280, 60 * 128
+    row, col = [], []
+    for br, k in enumerate([60, 1, 3, 20, 2, 1, 1, 2, 3, 1]):
+        for bc in rng.choice(60, k, replace=False):
+            row.append(br * 128 + rng.integers(0, 128, 10))
+            col.append(bc * 128 + rng.integers(0, 128, 10))
+    row, col = np.concatenate(row), np.concatenate(col)
+    val = rng.standard_normal(len(row)).astype(np.float32)
+    x = rng.standard_normal((n_cols, width)).astype(np.float32)
+    B = bsr_mod.bsr_from_coo(build_coo(row, col, val, n_rows,
+                                       num_cols=n_cols, device="cpu"))
+    J = jx_bsr_from_coo(jx_build_coo(row, col, val, n_rows, num_cols=n_cols))
+    return B, J, x
+
+
+def emulate_bsr(B, x, split):
+    """What K5 does with ``split``: one float32 product per piece (its
+    blocks times their x tiles, summed), then each block row's pieces
+    added in piece order."""
+    f = x.shape[1]
+    n_br = B.block_rowptr.numel() - 1
+    x_pad = torch.zeros((-(-x.shape[0] // 128) * 128, f))
+    x_pad[:x.shape[0]] = x
+    tiles = x_pad.view(-1, 128, f)[B.block_cols.long()]
+    prods = torch.bmm(B.blocks, tiles)
+    partial = [prods[a:b].sum(0) for a, b in split.pieces.long().tolist()]
+    out = torch.zeros((n_br, 128, f))
+    for br in range(n_br):
+        for p in range(int(split.ptr[br]), int(split.ptr[br + 1])):
+            out[br] += partial[p]
+    return out.view(-1, f)[:B.num_rows]
+
+
+@pytest.mark.parametrize("n_sms", [132, 2])
+def test_emulated_bsr_pieces_match_plain_and_jax(n_sms):
+    B, J, x = unequal_bsr_case(0, 8)
+    assert B.split is not None
+    check_plan(B.block_rowptr, B.split, B.split.piece_len, min_len=-1)
+    split = bsr_spmm.plan_block_split(B.block_rowptr, B.blocks.shape[0],
+                                      n_sms)
+    if n_sms == 2:
+        assert split.piece_len == 12          # the 60-block row in 5 pieces
+    xt = torch.from_numpy(x)
+    got = emulate_bsr(B, xt, split)
+    torch.testing.assert_close(
+        got, bsr_spmm.bsr_matmul_plain(B.blocks, B.block_rowptr,
+                                       B.block_cols, xt, B.num_rows),
+        **F32_TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jx_bsr_spmm(J, jnp.asarray(x))),
+                               **F32_TOL)
