@@ -22,9 +22,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (N=2,400,000, 10M draws, alpha 1.0, seed 0) on the column-split and
    streamed layouts, applied by K2 (``csr_dual_spmm_accum``).  Checks the
    layouts, holds the apply and K2 alone against their plain versions,
-   runs every CSR entry on a synthetic CSR with the graph's largest row
-   (324,064 edges) and rows around the piece length at which the kernels
-   cut rows, times the apply in the flat, split and split+streamed
+   runs every CSR entry (K1/K2, the pair entries, K3 and K4) on a
+   synthetic CSR with the graph's largest row (324,064 edges) and rows
+   around the piece length at which the kernels cut rows, times the apply
+   in the flat, split and split+streamed
    layouts, checks the forward against the segment tier, and trains 10
    steps with bf16 messages.
 5. BSR phase: the bench's headline MagNet graph (N=8192, average degree
@@ -36,16 +37,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
 6. Trainable-q phase: the bench's trainable-q configuration
    (``magnet_trainable_q_step_ratio``): the magnet_mxu graph, a
    ``magnetic_template`` (mxu), MagNet with ``trainable_q=True`` from
-   q=0.25.  Holds K3 (``csr_dual_sddmm``) against its plain version on the
-   transposed template at the widths the path applies (4 and 64, f32 and
-   bf16), K4 (``csr_dual_sddmm_accum``) on a split and a streamed layout
-   of the template, and K1's ``csr_scatter_sum`` at the pair forward's
-   widths (8 and 128); times each beside its bound and a PyTorch
+   q=0.25.  Holds K1's ``csr_pair_spmm`` (the pair forward, which gathers
+   x itself) against its plain version on the template at the widths the
+   path applies (2F = 4 and 64, f32 and bf16), K3 (``csr_dual_sddmm``) on
+   the transposed template at the same widths, K4
+   (``csr_dual_sddmm_accum``) on a split and a streamed layout of the
+   template, and, off the path, K1's own contract ``csr_scatter_sum`` at
+   the widths of the TPU pair forward's messages (8 and 128) against
+   ``torch.segment_reduce``; times each beside its bound and a PyTorch
    composite; checks forward, dx and dq of the flat template and of the
    one-card sharded template (``local_mesh()``) against a float64
    reference, and the model's gradients against the CPU; then trains 30
-   steps on each (flat: K1 only; sharded: K1 forward, K3 backward) and
-   prints the trainable/frozen step ratio against phase 3.
+   steps on each (flat: ``csr_pair_spmm`` forward, ``csr_dual_spmm`` dx;
+   sharded: ``csr_dual_spmm`` forward, K3 backward) and prints the
+   trainable/frozen step ratio against phase 3.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -86,6 +91,8 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # cuSPARSE yardsticks sum in plain float32 in their own order: a hub row
 # of 10^5 terms drifts by about 1e-5 of its value
 LIBRARY_TOL = dict(rtol=1e-4, atol=1e-4)
+# K3's acc sums a product over every row, so larger terms cancel
+ACC_TOL = dict(rtol=1e-4, atol=1e-4)
 SRC = "pytorch_geometric_signed_directed_tpu_torch/ops/cuda/csrc/"
 TPU = "pytorch_geometric_signed_directed_tpu/ops/pallas/"
 
@@ -591,10 +598,11 @@ def hub_row_cases(table_rows, width=64):
     gen = torch.Generator(device=DEV).manual_seed(9)
     col = torch.randint(0, table_rows, (e,), generator=gen, device=DEV,
                         dtype=torch.int32)
-    va, vb = torch.randn(2, e, generator=gen, device=DEV)
+    va, vb, wa, wb = torch.randn(4, e, generator=gen, device=DEV)
     x32 = torch.randn(table_rows, width, generator=gen, device=DEV)
     msgs32 = torch.randn(e, width, generator=gen, device=DEV)
     out0 = torch.randn(n, width, generator=gen, device=DEV)
+    out0_pair = torch.randn(n, 2 * width, generator=gen, device=DEV)
     empty = torch.from_numpy(lengths == 0).to(DEV)
     log(f"hub CSR: rows={n} edges={e} largest row={int(lengths.max())} "
         f"cut rows={split.rows.numel()} pieces={split.pieces.shape[0]} "
@@ -604,7 +612,9 @@ def hub_row_cases(table_rows, width=64):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         x, msgs = x32.to(dtype), msgs32.to(dtype)
         dual = (rowptr, col, va, vb, x, width // 2)
+        pair = (rowptr, col, va, vb, wa, wb, x, width // 2)
         out = out0.clone()
+        out_pair = out0_pair.clone()
         # name: (checked call, plain call, timed call (accumulates in
         # place), bytes beyond the inputs' read of rowptr: per edge, the
         # source, and the output read and written or written)
@@ -634,13 +644,27 @@ def hub_row_cases(table_rows, width=64):
                 lambda: scatter_csr.csr_scatter_accum(rowptr, msgs, out, 0,
                                                       split),
                 msgs.numel() * msgs.element_size() + 8 * n * width),
+            "csr_pair_spmm": (
+                lambda: scatter_csr.csr_pair_spmm(*pair, split),
+                lambda: scatter_csr.csr_pair_spmm_plain(*pair),
+                lambda: scatter_csr.csr_pair_spmm(*pair, split),
+                20 * e + x.numel() * x.element_size() + 8 * n * width),
+            "csr_pair_spmm_accum": (
+                lambda: scatter_csr.csr_pair_spmm_accum(
+                    *pair, out0_pair.clone(), 0, split),
+                lambda: scatter_csr.csr_pair_spmm_accum_plain(*pair,
+                                                              out0_pair),
+                lambda: scatter_csr.csr_pair_spmm_accum(*pair, out_pair, 0,
+                                                        split),
+                20 * e + x.numel() * x.element_size() + 16 * n * width),
         }
         for name, (kernel, plain, timed, nbytes) in calls.items():
             got, want = kernel(), plain()
             torch.testing.assert_close(got, want, **tol)
             same_bits(got, kernel(), name)
+            prior = out0_pair if "pair" in name else out0
             if name.endswith("_accum"):
-                if not torch.equal(got[empty], out0[empty]):
+                if not torch.equal(got[empty], prior[empty]):
                     raise AssertionError(f"{name} wrote a row without edges")
             elif got[empty].abs().max() != 0:
                 raise AssertionError(f"{name} did not zero a row without "
@@ -651,13 +675,72 @@ def hub_row_cases(table_rows, width=64):
                     f"with its plain version (max abs err {err:.3g})")
                 continue
             nbytes += 4 * (n + 1)
-            flops = (2 if "dual" in name else 1) * e * width
+            flops = {"dual": 2, "pair": 4}.get(name.split("_")[1], 1) \
+                * e * width
             b_ms, b_by = bound(nbytes, flops)
             r = dict(max_abs_err=err, ms=time_ms(timed),
                      plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
                      library_ms=None, bytes=nbytes)
             cases[name] = r
             log_case(f"hub CSR {name} W={width} float32", r)
+        cases.update(hub_sddmm_cases(rowptr, split, col, (va, vb, wa, wb), x,
+                                     out0, empty, dtype))
+    return cases
+
+
+def hub_sddmm_cases(rowptr, split, col, terms, g, out0, empty, dtype):
+    """K3 and K4 on the hub CSR: against the plain version, the same bits
+    twice, rows without edges 0 (K3) or untouched (K4); f32 times."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        dual_sddmm)
+
+    n, width = out0.shape
+    e, fa = col.numel(), width // 2
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    x = torch.randn(n, width, generator=gen, device=DEV)
+    acc0 = torch.randn(width, generator=gen, device=DEV)
+    args = (rowptr, col, *terms, g, x, fa)
+    out, acc = out0.clone(), acc0.clone()
+    calls = {
+        "csr_dual_sddmm": (
+            lambda: dual_sddmm.csr_dual_sddmm(*args, split),
+            lambda: dual_sddmm.csr_dual_sddmm_plain(*args),
+            lambda: dual_sddmm.csr_dual_sddmm(*args, split)),
+        "csr_dual_sddmm_accum": (
+            lambda: dual_sddmm.csr_dual_sddmm_accum(
+                *args, out0.clone(), acc0.clone(), 0, split),
+            lambda: dual_sddmm.csr_dual_sddmm_accum_plain(*args, out0, acc0),
+            lambda: dual_sddmm.csr_dual_sddmm_accum(*args, out, acc, 0,
+                                                    split)),
+    }
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    cases = {}
+    for name, (kernel, plain, timed) in calls.items():
+        got, want = kernel(), plain()
+        torch.testing.assert_close(got[0], want[0], **tol)
+        torch.testing.assert_close(got[1], want[1], **ACC_TOL)
+        again = kernel()
+        if not (torch.equal(got[0], again[0]) and
+                torch.equal(got[1], again[1])):
+            raise AssertionError(f"{name} is not deterministic")
+        if name.endswith("_accum"):
+            if not torch.equal(got[0][empty], out0[empty]):
+                raise AssertionError(f"{name} wrote a row without edges")
+        elif got[0][empty].abs().max() != 0:
+            raise AssertionError(f"{name} did not zero a row without edges")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        if dtype != torch.float32:
+            log(f"hub CSR {name} 2F={width} {str(dtype)[6:]}: agrees with "
+                f"its plain version (max abs err {err:.3g})")
+            continue
+        nbytes = sddmm_bytes(n, e, g, width)
+        b_ms, b_by = bound(nbytes, 4 * e * width + 2 * n * width)
+        r = dict(max_abs_err=err, ms=time_ms(timed),
+                 plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, bytes=nbytes)
+        cases[name] = r
+        log_case(f"hub CSR {name} 2F={width} float32", r)
     return cases
 
 
@@ -994,7 +1077,7 @@ def bsr_phase(smi):
 
 def template_terms(t, q):
     """(va, vb, wa, wb) of template direction ``t`` at phase ``q``."""
-    from pytorch_geometric_signed_directed_tpu_torch.parallel.mxu_shard \
+    from pytorch_geometric_signed_directed_tpu_torch.spectral.magnetic \
         import _template_terms
 
     return _template_terms(t.a_norm, t.theta, q)
@@ -1008,24 +1091,34 @@ def sddmm_bytes(rows, nnz, g, width):
             + 8 * rows * width + 4 * width)
 
 
-def composite_sddmm(rowptr, col, terms, g, x, fa, n_cols):
-    """The yardstick: four cuSPARSE products and a sum, the same function
-    as K3 in plain float32 (a composite of library calls, not one)."""
+def four_products(rowptr, col, terms, g, fa, n_cols):
+    """``[A_va g_a | A_vb g_b | A_wa g_a | A_wb g_b]`` by four cuSPARSE
+    products in plain float32: the pair forward's function, and the half
+    of K3's."""
     import torch
 
-    va, vb, wa, wb = terms
     rows = rowptr.numel() - 1
     rp, cl = rowptr.long(), col.long()
     mats = [torch.sparse_csr_tensor(rp, cl, v, size=(rows, n_cols))
-            for v in (va, vb, wa, wb)]
+            for v in terms]
     ga, gb = g[:, :fa].contiguous(), g[:, fa:].contiguous()
 
     def run():
-        out = torch.cat([torch.sparse.mm(mats[0], ga),
-                         torch.sparse.mm(mats[1], gb)], 1)
-        m = torch.cat([torch.sparse.mm(mats[2], ga),
-                       torch.sparse.mm(mats[3], gb)], 1)
-        return out, (x[:rows] * m).sum(0)
+        return torch.cat([torch.sparse.mm(a, h) for a, h in
+                          zip(mats, (ga, gb, ga, gb))], 1)
+
+    return run
+
+
+def composite_sddmm(rowptr, col, terms, g, x, fa, n_cols):
+    """The yardstick: four cuSPARSE products and a sum, the same function
+    as K3 in plain float32 (a composite of library calls, not one)."""
+    products = four_products(rowptr, col, terms, g, fa, n_cols)
+    rows, w = rowptr.numel() - 1, g.shape[1]
+
+    def run():
+        both = products()
+        return both[:, :w], (x[:rows] * both[:, w:]).sum(0)
 
     return run
 
@@ -1044,16 +1137,16 @@ def sddmm_kernel_case(t, q, width, dtype, seed):
     fa = width // 2
     terms = template_terms(t, q)
     args = (t.rowptr, t.col, *terms, g, x, fa)
-    got = dual_sddmm.csr_dual_sddmm(*args)
+    got = dual_sddmm.csr_dual_sddmm(*args, t.row_split)
     want = dual_sddmm.csr_dual_sddmm_plain(*args)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **tol)
-    again = dual_sddmm.csr_dual_sddmm(*args)
+    again = dual_sddmm.csr_dual_sddmm(*args, t.row_split)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("csr_dual_sddmm is not deterministic")
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm(*args))
+    ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm(*args, t.row_split))
     plain_ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_plain(*args))
     library_ms = None
     if dtype == torch.float32:
@@ -1067,6 +1160,45 @@ def sddmm_kernel_case(t, q, width, dtype, seed):
                 bound_by=b_by, library_ms=library_ms, bytes=nbytes,
                 library="composite: 4x torch.sparse.mm + (x*m).sum(0)",
                 shape=f"transposed template N={n} nnz={nnz} 2F={width} "
+                      f"{str(dtype)[6:]}")
+
+
+def pair_kernel_case(t, q, width, dtype, seed):
+    """K1's ``csr_pair_spmm`` alone on the flat template ``t``: kernel vs
+    plain vs the composite of four cuSPARSE products."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    n, nnz = t.num_nodes, t.col.numel()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(n, width, device=DEV, generator=gen).to(dtype)
+    fa = width // 2
+    terms = template_terms(t, q)
+    args = (t.rowptr, t.col, *terms, x, fa)
+    got = scatter_csr.csr_pair_spmm(*args, t.row_split)
+    want = scatter_csr.csr_pair_spmm_plain(*args)
+    torch.testing.assert_close(
+        got, want, **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+    same_bits(got, scatter_csr.csr_pair_spmm(*args, t.row_split),
+              "csr_pair_spmm")
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: scatter_csr.csr_pair_spmm(*args, t.row_split))
+    plain_ms = time_ms(lambda: scatter_csr.csr_pair_spmm_plain(*args))
+    library_ms = None
+    if dtype == torch.float32:
+        run = four_products(t.rowptr, t.col, terms, x, fa, n)
+        torch.testing.assert_close(run(), want, **LIBRARY_TOL)
+        library_ms = time_ms(run)
+    # rowptr, col and four values per edge, the x table once, the [N, 2W]
+    # float32 output once
+    nbytes = (4 * (n + 1) + 20 * nnz + x.numel() * x.element_size()
+              + 8 * n * width)
+    b_ms, b_by = bound(nbytes, 4 * nnz * width)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+                library="composite: 4x torch.sparse.mm",
+                shape=f"template N={n} nnz={nnz} 2F={width} "
                       f"{str(dtype)[6:]}")
 
 
@@ -1088,14 +1220,18 @@ def accum_sddmm_case(L, q, width, seed):
     args = (b.rowptr, L.col[s], *(v[s] for v in template_terms(L, q)),
             g_hot, x, fa)
     got = dual_sddmm.csr_dual_sddmm_accum(*args, out0.clone(), acc0.clone(),
-                                          b.row0)
+                                          b.row0, b.split)
     want = dual_sddmm.csr_dual_sddmm_accum_plain(*args, out0, acc0, b.row0)
     for a, c in zip(got, want):
         torch.testing.assert_close(a, c, **F32_TOL)
+    again = dual_sddmm.csr_dual_sddmm_accum(*args, out0.clone(),
+                                            acc0.clone(), b.row0, b.split)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("csr_dual_sddmm_accum is not deterministic")
     err = max(float((a - c).abs().max()) for a, c in zip(got, want))
     out, acc = out0.clone(), acc0.clone()
     ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_accum(*args, out, acc,
-                                                         b.row0))
+                                                         b.row0, b.split))
     plain_ms = time_ms(lambda: dual_sddmm.csr_dual_sddmm_accum_plain(
         *args, out0, acc0, b.row0))
     rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
@@ -1248,14 +1384,19 @@ def trainable_q_phase(smi, frozen_ms):
     cases = {}
     for width in (4, 64):
         for dtype in (torch.float32, torch.bfloat16):
+            r = pair_kernel_case(tmpl, q, width, dtype, seed=width)
+            cases[("csr_pair_spmm", width, dtype)] = r
+            log_case(f"csr_pair_spmm 2F={width} {str(dtype)[6:]}", r)
             r = sddmm_kernel_case(tt, q, width, dtype, seed=width)
             cases[("csr_dual_sddmm", width, dtype)] = r
             log_case(f"csr_dual_sddmm 2F={width} {str(dtype)[6:]}", r)
+    # off the path: K1's own contract at the widths of the [E, 4F]
+    # messages the TPU's pair forward scatters, beside torch.segment_reduce
     for width in (8, 128):
         r = scatter_kernel_case(tmpl.rowptr, tmpl.row_split, nnz, width,
                                 torch.float32, seed=width)
         cases[("csr_scatter_sum", width)] = r
-        log_case(f"csr_scatter_sum (pair forward) W={width} float32", r)
+        log_case(f"csr_scatter_sum (template rowptr) W={width} float32", r)
 
     # K4 on a split (a quarter of the columns hot) and a streamed (five
     # blocks) layout of the same template
@@ -1299,15 +1440,15 @@ def trainable_q_phase(smi, frozen_ms):
     x = torch.from_numpy(x_np).to(DEV)
     y = torch.from_numpy(y_np).to(DEV)
     runs = {}
-    # per step, flat: the pair forward is one csr_scatter_sum per apply
-    # (W=8 in layer 1, W=128 in layer 2, two each); the backward's dx is
+    # per step, flat: the pair forward is one csr_pair_spmm per apply
+    # (2F=4 in layer 1, 2F=64 in layer 2, two each); the backward's dx is
     # one csr_dual_spmm per apply whose input needs a gradient (layer 1's
     # second, 2F=4, and both of layer 2, 2F=64); dq needs no kernel.
     # sharded: one csr_dual_spmm forward and one csr_dual_sddmm backward
     # per apply (K3 gives dx and dq together, so layer 1's first runs it
     # too).
     for name, lap, expected in (
-            ("flat", tmpl, {"csr_scatter_sum": 4, "csr_dual_spmm": 3}),
+            ("flat", tmpl, {"csr_pair_spmm": 4, "csr_dual_spmm": 3}),
             ("sharded", tmpl_s, {"csr_dual_spmm": 4, "csr_dual_sddmm": 4})):
         model = make_model(DEV, seed=0, trainable_q=True)
         losses, launches, step_ms, wall = train(model, x, y, lap, STEPS)
@@ -1386,11 +1527,13 @@ def main():
             kernel_entry("bsr_spmm", k5_cases[(32, "fwd")],
                          k5_launches["bsr_spmm"], "bsr_spmm.cu",
                          "bsr_spmm.py:119"),
-            # K1's own contract: the flat trainable-q pair forward
-            kernel_entry("csr_scatter_sum",
-                         tq_cases[("csr_scatter_sum", 128)],
-                         flat_launches["csr_scatter_sum"], "scatter_csr.cu",
-                         "scatter_mxu.py:503"),
+            # K1 on the flat trainable-q pair forward
+            {**kernel_entry("csr_pair_spmm",
+                            tq_cases[("csr_pair_spmm", 64, torch.float32)],
+                            flat_launches["csr_pair_spmm"],
+                            "scatter_csr.cu", "scatter_mxu.py:503"),
+             "library": tq_cases[("csr_pair_spmm", 64,
+                                  torch.float32)]["library"]},
             {**kernel_entry("csr_dual_sddmm",
                             tq_cases[("csr_dual_sddmm", 64, torch.float32)],
                             sharded_launches["csr_dual_sddmm"],
@@ -1398,8 +1541,14 @@ def main():
              "library": tq_cases[("csr_dual_sddmm", 64,
                                   torch.float32)]["library"]},
         ],
-        # K2's own contract and K4: tested, on no path this script drives
+        # K1's and K2's own contracts and K4: tested, on no path this
+        # script drives
         "off_path": [
+            {**kernel_entry("csr_scatter_sum",
+                            tq_cases[("csr_scatter_sum", 128)],
+                            flat_launches["csr_scatter_sum"],
+                            "scatter_csr.cu", "scatter_mxu.py:503"),
+             "library": "torch.segment_reduce"},
             kernel_entry("csr_scatter_accum", k2_own,
                          k2_launches["csr_scatter_accum"], "scatter_csr.cu",
                          "scatter_mxu.py:580"),

@@ -13,6 +13,10 @@ from .scatter_csr import (
     csr_dual_spmm_accum,
     csr_dual_spmm_accum_plain,
     csr_dual_spmm_plain,
+    csr_pair_spmm,
+    csr_pair_spmm_accum,
+    csr_pair_spmm_accum_plain,
+    csr_pair_spmm_plain,
     csr_scatter_accum,
     csr_scatter_accum_plain,
     csr_scatter_sum,
@@ -36,6 +40,8 @@ __all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_sddmm",
            "csr_dual_sddmm_accum", "csr_dual_sddmm_accum_plain",
            "csr_dual_sddmm_plain", "csr_dual_spmm",
            "csr_dual_spmm_accum", "csr_dual_spmm_accum_plain",
-           "csr_dual_spmm_plain", "csr_scatter_accum",
+           "csr_dual_spmm_plain", "csr_pair_spmm", "csr_pair_spmm_accum",
+           "csr_pair_spmm_accum_plain", "csr_pair_spmm_plain",
+           "csr_scatter_accum",
            "csr_scatter_accum_plain", "csr_scatter_sum",
            "csr_scatter_sum_plain", "launch_counts", "reset_launch_counts"]

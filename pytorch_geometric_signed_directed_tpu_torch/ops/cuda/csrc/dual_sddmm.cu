@@ -10,7 +10,7 @@
 //       aliased prior (out, acc), for the blocks of a split or streamed
 //       layout.
 // The TPU kernels take a pre-gathered [E2, 2F] cotangent and contract it
-// with one-hot matmuls; here one group of threads walks each row's edges,
+// with one-hot matmuls; here a group of threads walks each row's edges,
 // gathers g[col[e]] itself and keeps both sums in registers.
 //
 // For every row r of the operator (edges e in [rowptr[r], rowptr[r+1])):
@@ -38,13 +38,24 @@
 // What bounds it: bytes.  Per call the work reads rowptr, the 20 bytes of
 // (col, va, vb, wa, wb) per edge, the g table and x once, and writes out
 // once; the arithmetic (4 flops per edge and lane) is far below the f32
-// rate.  The design keeps the traffic near the least, as K1 does: one
-// coalesced load of an edge's five words per thread, passed to the group
-// by shuffles; g rows read by neighbouring threads from neighbouring
-// addresses; out written once; x read once, by the row's own group.  It
-// cannot avoid gathering a g row once per edge (L2 serves most of those
-// re-reads at the path's sizes), and one group walks a hub row serially;
-// load balancing by degree is left for later work, as in K1.
+// rate.  It cannot avoid gathering a g row once per edge (L2 serves most
+// of those re-reads at the path's sizes).
+//
+// What held it back, and the design against it (as for K1/K2 in
+// scatter_csr.cu):
+//   * The edge walk is csr_common.cuh's PairSource, shared with the pair
+//     forward: each chunk's five words are staged in shared memory by
+//     coalesced loads and read back with broadcast loads (five warp
+//     shuffles an edge made the first version issue-bound), and 8 gathers
+//     of g (4 at 8 lanes a thread) are issued before any is added, then
+//     added in edge order.
+//   * Rows longer than piece_len edges (hubs) are cut into pieces by the
+//     rowptr's RowSplit plan.  The first CTAs give one piece to each group:
+//     the piece writes its out sum as one float64 partial, which the
+//     fixed-order combine of the cut rows finishes, and adds its dq term
+//     x[r] * m_piece into its CTA's slot as a row does.  That term is
+//     linear in m, so the sum is the same in exact arithmetic, and the
+//     fixed grid order keeps the bits the same from call to call.
 
 #include "csr_common.cuh"
 
@@ -55,80 +66,79 @@ using namespace pgsd;
 constexpr int kReduceBlock = 256;
 
 template <typename T, int G, int KS, bool ACCUM>
-__global__ void __launch_bounds__(kBlock) csr_dual_sddmm_kernel(
-    const int* __restrict__ rowptr, const int* __restrict__ col,
-    const float* __restrict__ va, const float* __restrict__ vb,
-    const float* __restrict__ wa, const float* __restrict__ wb,
-    const T* __restrict__ g, const float* __restrict__ x,
-    float* __restrict__ out, double* __restrict__ partial, int n_rows,
-    int width, int fa, int row0) {
-  // [row of this CTA][lane of this feature tile]
+__global__ void __launch_bounds__(
+    kBlock, (PairSource<T, G, KS, false>::MIN_CTAS)) csr_dual_sddmm_kernel(
+    PairSource<T, G, KS, false> src, const int* __restrict__ rowptr, Split sp,
+    const float* __restrict__ x, float* __restrict__ out,
+    double* __restrict__ partial, int n_rows, int width, int row0) {
+  constexpr int kSlots = kBlock / G;  // groups of a CTA
+  // [group of this CTA][lane of this feature tile]
   __shared__ double part[kBlock * KS];
   const int t = threadIdx.x % G;
   const int slot = threadIdx.x / G;
-  const int row = blockIdx.x * (kBlock / G) + slot;
+  const int piece_ctas = (sp.n_pieces + kSlots - 1) / kSlots;
   const int f0 = blockIdx.y * (G * KS) + t;
-  int start = 0, end = 0;
-  if (row < n_rows) {  // groups past the last row still join the CTA sum
-    start = rowptr[row];
-    end = rowptr[row + 1];
-  }
-  const int64_t orow = ((int64_t)row0 + row) * width;
-  float d[KS], dc[KS], m[KS], mc[KS];
+  float acc[2 * KS], cmp[2 * KS];
 #pragma unroll
-  for (int k = 0; k < KS; ++k) {
-    const int f = f0 + k * G;
-    d[k] = (ACCUM && start < end && f < width) ? out[orow + f] : 0.f;
-    dc[k] = m[k] = mc[k] = 0.f;
-  }
-  const unsigned mask = group_mask<G>();
-  for (int base = start; base < end; base += G) {
-    const int e = base + t;
-    int c = 0;
-    float a = 0.f, b = 0.f, p = 0.f, q = 0.f;
-    if (e < end) {
-      c = col[e];
-      a = va[e];
-      b = vb[e];
-      p = wa[e];
-      q = wb[e];
-    }
-    const int n = min(G, end - base);
-    for (int j = 0; j < n; ++j) {
-      const int cj = __shfl_sync(mask, c, j, G);
-      const float aj = __shfl_sync(mask, a, j, G);
-      const float bj = __shfl_sync(mask, b, j, G);
-      const float pj = __shfl_sync(mask, p, j, G);
-      const float qj = __shfl_sync(mask, q, j, G);
-      const T* gr = g + (int64_t)cj * width;
+  for (int k = 0; k < 2 * KS; ++k) acc[k] = cmp[k] = 0.f;
+  int xrow = -1;  // the row whose x multiplies this group's m (-1: none)
+  if ((int)blockIdx.x < piece_ctas) {
+    const int p = blockIdx.x * kSlots + slot;
+    if (p < sp.n_pieces) {
+      const int2 pc = sp.pieces[p];
+      src.sum(pc.x, pc.y, width, f0, acc, cmp);
 #pragma unroll
       for (int k = 0; k < KS; ++k) {
         const int f = f0 + k * G;
-        if (f < width) {
-          const float gv = to_f32(gr[f]);
-          const bool lo = f < fa;
-          kahan_add(d[k], dc[k], round_msg<T>(__fmul_rn(lo ? aj : bj, gv)));
-          kahan_add(m[k], mc[k], __fmul_rn(lo ? pj : qj, gv));
+        // kahan_add leaves the sum's lost low part in -cmp
+        if (f < width)
+          sp.partial[(int64_t)p * width + f] =
+              (double)acc[k] - (double)cmp[k];
+      }
+      xrow = sp.rows[piece_owner(sp, p)];
+    }
+  } else {
+    const int row = (blockIdx.x - piece_ctas) * kSlots + slot;
+    int start = 0, end = 0;
+    if (row < n_rows) {
+      start = rowptr[row];
+      end = rowptr[row + 1];
+    }
+    if (row < n_rows && end - start <= sp.piece_len) {
+      float* o = out + ((int64_t)row0 + row) * width;
+      if (ACCUM && start < end) {
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          const int f = f0 + k * G;
+          if (f < width) acc[k] = o[f];
         }
       }
+      src.sum(start, end, width, f0, acc, cmp);
+      if (!ACCUM || start < end) {
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          const int f = f0 + k * G;
+          if (f < width) o[f] = acc[k];
+        }
+      }
+      xrow = row;
     }
   }
-  const bool write = row < n_rows && (!ACCUM || start < end);
+  // every group, idle or not, fills its slot before the CTA's sum
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
     const int f = f0 + k * G;
-    const bool live = row < n_rows && f < width;
-    if (write && f < width) out[orow + f] = d[k];
-    // kahan_add leaves the sum's lost low part in -mc
+    const bool live = xrow >= 0 && f < width;
     part[slot * (G * KS) + k * G + t] =
-        live ? (double)x[orow + f] * ((double)m[k] - (double)mc[k]) : 0.0;
+        live ? (double)x[((int64_t)row0 + xrow) * width + f] *
+                   ((double)acc[KS + k] - (double)cmp[KS + k])
+             : 0.0;
   }
   __syncthreads();
   if (threadIdx.x < G * KS) {
     const int f = blockIdx.y * (G * KS) + threadIdx.x;
     double s = 0.0;
-    for (int r = 0; r < kBlock / G; ++r)
-      s += part[r * (G * KS) + threadIdx.x];
+    for (int r = 0; r < kSlots; ++r) s += part[r * (G * KS) + threadIdx.x];
     if (f < width) partial[(int64_t)blockIdx.x * width + f] = s;
   }
 }
@@ -154,13 +164,15 @@ __global__ void __launch_bounds__(kReduceBlock) reduce_partials_kernel(
     acc[f] = (float)(accumulate ? (double)acc[f] + s[0] : s[0]);
 }
 
+// CTAs of the row kernel: the piece CTAs, then the row CTAs.
 template <int G, int KS>
-int parts_for(int n_rows) {
-  return (n_rows + kBlock / G - 1) / (kBlock / G);
+int parts_for(int n_rows, int n_pieces) {
+  constexpr int kSlots = kBlock / G;
+  return (n_pieces + kSlots - 1) / kSlots + (n_rows + kSlots - 1) / kSlots;
 }
 
-int n_parts(int n_rows, int w) {
-#define PGSD_PARTS(G, KS) return parts_for<G, KS>(n_rows)
+int n_parts(int n_rows, int w, int n_pieces) {
+#define PGSD_PARTS(G, KS) return parts_for<G, KS>(n_rows, n_pieces)
   PGSD_DISPATCH_WIDTH(w, PGSD_PARTS);
 #undef PGSD_PARTS
 }
@@ -168,13 +180,15 @@ int n_parts(int n_rows, int w) {
 template <typename T, bool ACCUM>
 void sddmm_dispatch(const int* rowptr, const int* col, const float* va,
                     const float* vb, const float* wa, const float* wb,
-                    const T* g, const float* x, float* out, double* partial,
-                    int n, int w, int fa, int row0, cudaStream_t s) {
-#define PGSD_SDDMM(G, KS)                                                  \
-  csr_dual_sddmm_kernel<T, G, KS, ACCUM>                                   \
-      <<<grid_for<G, KS>(n, w), kBlock, 0, s>>>(rowptr, col, va, vb, wa,   \
-                                                wb, g, x, out, partial, n, \
-                                                w, fa, row0)
+                    const T* g, const float* x, const Split& sp, float* out,
+                    double* partial, int n, int w, int fa, int row0,
+                    cudaStream_t s) {
+#define PGSD_SDDMM(G, KS)                                                     \
+  csr_dual_sddmm_kernel<T, G, KS, ACCUM>                                      \
+      <<<dim3(parts_for<G, KS>(n, sp.n_pieces), (w + G * KS - 1) / (G * KS)), \
+         kBlock, 0, s>>>(PairSource<T, G, KS, false>{col, va, vb, wa, wb, g,  \
+                                                     fa},                     \
+                         rowptr, sp, x, out, partial, n, w, row0)
   PGSD_DISPATCH_WIDTH(w, PGSD_SDDMM);
 #undef PGSD_SDDMM
 }
@@ -184,7 +198,7 @@ int sddmm_entry(const void* rowptr, const void* col, const void* va,
                 const void* vb, const void* wa, const void* wb, const void* g,
                 const void* x, void* out, void* acc, void* partial,
                 int n_rows, int width, int fa, int g_is_bf16, int row0,
-                void* stream) {
+                const Split& sp, void* stream) {
   if (n_rows > 0 && width > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int* rp = static_cast<const int*>(rowptr);
@@ -198,17 +212,18 @@ int sddmm_entry(const void* rowptr, const void* col, const void* va,
     double* part = static_cast<double*>(partial);
     if (g_is_bf16)
       sddmm_dispatch<__nv_bfloat16, ACCUM>(
-          rp, c, a, b, p, q, static_cast<const __nv_bfloat16*>(g), xr, o,
+          rp, c, a, b, p, q, static_cast<const __nv_bfloat16*>(g), xr, sp, o,
           part, n_rows, width, fa, row0, s);
     else
       sddmm_dispatch<float, ACCUM>(rp, c, a, b, p, q,
-                                   static_cast<const float*>(g), xr, o, part,
-                                   n_rows, width, fa, row0, s);
+                                   static_cast<const float*>(g), xr, sp, o,
+                                   part, n_rows, width, fa, row0, s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     reduce_partials_kernel<<<width, kReduceBlock, 0, s>>>(
-        part, n_parts(n_rows, width), width, static_cast<float*>(acc),
-        ACCUM ? 1 : 0);
+        part, n_parts(n_rows, width, sp.n_pieces), width,
+        static_cast<float*>(acc), ACCUM ? 1 : 0);
+    return combine(sp, o, width, row0, ACCUM, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -217,12 +232,15 @@ int sddmm_entry(const void* rowptr, const void* col, const void* va,
 
 // Plain C interface for ctypes.  Pointers are device pointers; `stream`
 // is a cudaStream_t.  `partial` is scratch of
-// pgsd_csr_dual_sddmm_parts(n_rows, width) * width doubles.  The sddmm
-// entries launch the row kernel and the partials' sum and return
-// cudaGetLastError().
+// pgsd_csr_dual_sddmm_parts(n_rows, width, n_pieces) * width doubles; the
+// plan (pieces, rows, ptr, counts, piece_len, piece scratch of n_pieces *
+// width doubles) is scatter_csr.py's RowSplit of this rowptr.  The sddmm
+// entries launch the row kernel, the partials' sum and, if any row is cut,
+// the combine, and return cudaGetLastError().
 
-extern "C" int pgsd_csr_dual_sddmm_parts(int n_rows, int width) {
-  return n_rows > 0 && width > 0 ? n_parts(n_rows, width) : 0;
+extern "C" int pgsd_csr_dual_sddmm_parts(int n_rows, int width,
+                                         int n_pieces) {
+  return n_rows > 0 && width > 0 ? n_parts(n_rows, width, n_pieces) : 0;
 }
 
 extern "C" int pgsd_csr_dual_sddmm(const void* rowptr, const void* col,
@@ -231,20 +249,27 @@ extern "C" int pgsd_csr_dual_sddmm(const void* rowptr, const void* col,
                                    const void* g, const void* x, void* out,
                                    void* acc, void* partial, int n_rows,
                                    int width, int fa, int g_is_bf16,
-                                   void* stream) {
-  return sddmm_entry<false>(rowptr, col, va, vb, wa, wb, g, x, out, acc,
-                            partial, n_rows, width, fa, g_is_bf16, 0, stream);
+                                   const void* pieces, int n_pieces,
+                                   const void* rows, const void* ptr,
+                                   int n_long, int piece_len,
+                                   void* piece_partial, void* stream) {
+  return sddmm_entry<false>(
+      rowptr, col, va, vb, wa, wb, g, x, out, acc, partial, n_rows, width, fa,
+      g_is_bf16, 0,
+      split_of(pieces, n_pieces, rows, ptr, n_long, piece_len, piece_partial),
+      stream);
 }
 
-extern "C" int pgsd_csr_dual_sddmm_accum(const void* rowptr, const void* col,
-                                         const void* va, const void* vb,
-                                         const void* wa, const void* wb,
-                                         const void* g, const void* x,
-                                         void* out, void* acc, void* partial,
-                                         int n_rows, int width, int fa,
-                                         int g_is_bf16, int row0,
-                                         void* stream) {
-  return sddmm_entry<true>(rowptr, col, va, vb, wa, wb, g, x, out, acc,
-                           partial, n_rows, width, fa, g_is_bf16, row0,
-                           stream);
+extern "C" int pgsd_csr_dual_sddmm_accum(
+    const void* rowptr, const void* col, const void* va, const void* vb,
+    const void* wa, const void* wb, const void* g, const void* x, void* out,
+    void* acc, void* partial, int n_rows, int width, int fa, int g_is_bf16,
+    int row0, const void* pieces, int n_pieces, const void* rows,
+    const void* ptr, int n_long, int piece_len, void* piece_partial,
+    void* stream) {
+  return sddmm_entry<true>(
+      rowptr, col, va, vb, wa, wb, g, x, out, acc, partial, n_rows, width, fa,
+      g_is_bf16, row0,
+      split_of(pieces, n_pieces, rows, ptr, n_long, piece_len, piece_partial),
+      stream);
 }

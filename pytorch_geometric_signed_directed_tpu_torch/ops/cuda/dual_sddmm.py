@@ -17,6 +17,10 @@ gather it themselves.  The ``*_accum`` entry (K4) adds into ``out`` at rows
 ``row0 + r`` and into ``acc``, in place, and leaves rows without edges
 alone.
 
+Rows longer than ``scatter_csr.PIECE_EDGES`` edges are cut into pieces by
+the rowptr's ``RowSplit`` plan (``split``; given none, the wrapper plans
+the rowptr itself at the cost of a host sync), as in K1 and K2.
+
 Each entry has its plain PyTorch version beside it, summing in float64.  A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that
@@ -25,12 +29,13 @@ launched.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build
-from .scatter_csr import _check, _check_rowptr, _row_ids, _stream_ptr
+from .scatter_csr import (RowSplit, _check, _check_rowptr, _plan_args,
+                          _row_ids, _stream_ptr)
 
 LAUNCHES: Dict[str, int] = {"csr_dual_sddmm": 0, "csr_dual_sddmm_accum": 0}
 
@@ -43,19 +48,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a loaded build of the source."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    plan = [p, i, p, p, i, i, p]
+    lib.pgsd_csr_dual_sddmm_parts.restype = i
+    lib.pgsd_csr_dual_sddmm_parts.argtypes = [i, i, i]
+    lib.pgsd_csr_dual_sddmm.restype = i
+    lib.pgsd_csr_dual_sddmm.argtypes = [p] * 11 + [i] * 4 + plan + [p]
+    lib.pgsd_csr_dual_sddmm_accum.restype = i
+    lib.pgsd_csr_dual_sddmm_accum.argtypes = [p] * 11 + [i] * 5 + plan + [p]
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = build.load(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pgsd_csr_dual_sddmm_parts.restype = i
-        lib.pgsd_csr_dual_sddmm_parts.argtypes = [i, i]
-        lib.pgsd_csr_dual_sddmm.restype = i
-        lib.pgsd_csr_dual_sddmm.argtypes = [p] * 11 + [i, i, i, i, p]
-        lib.pgsd_csr_dual_sddmm_accum.restype = i
-        lib.pgsd_csr_dual_sddmm_accum.argtypes = [p] * 11 + [i, i, i, i, i,
-                                                             p]
-        _lib = lib
+        _lib = bind(build.load(_SOURCE))
     return _lib
 
 
@@ -123,17 +132,18 @@ def _check_args(rowptr, col, va, vb, wa, wb, g, x, fa: int, row0: int):
     return dev, n, w
 
 
-def _launch(entry: str, args, dev, n: int, w: int, *tail) -> None:
+def _launch(entry: str, args, dev, n: int, w: int, split, *tail) -> None:
     lib = _library()
-    parts = torch.empty((lib.pgsd_csr_dual_sddmm_parts(n, w), w),
-                        dtype=torch.float64, device=dev)
     rowptr, col, va, vb, wa, wb, g, x, out, acc = args
+    plan, _partial = _plan_args(rowptr, split, w, dev)
+    parts = torch.empty((lib.pgsd_csr_dual_sddmm_parts(n, w, plan[1]), w),
+                        dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, "pgsd_" + entry)(
             rowptr.data_ptr(), col.data_ptr(), va.data_ptr(), vb.data_ptr(),
             wa.data_ptr(), wb.data_ptr(), g.data_ptr(), x.data_ptr(),
             out.data_ptr(), acc.data_ptr(), parts.data_ptr(), n, w, *tail,
-            _stream_ptr(dev))
+            *plan, _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     LAUNCHES[entry] += 1
@@ -142,14 +152,16 @@ def _launch(entry: str, args, dev, n: int, w: int, *tail) -> None:
 def csr_dual_sddmm(rowptr: torch.Tensor, col: torch.Tensor,
                    va: torch.Tensor, vb: torch.Tensor, wa: torch.Tensor,
                    wb: torch.Tensor, g: torch.Tensor, x: torch.Tensor,
-                   fa: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   fa: int, split: Optional[RowSplit] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [N, W] float32, acc [W] float32)`` of the module docstring
     over the ``N = rowptr.numel() - 1`` rows.
 
     ``g`` [M, W] is float32 or bfloat16 (apply messages round to its type,
     sums are float32); ``x`` [>= N, W] float32, row r read for row r;
-    ``col`` indexes rows of ``g`` (the builders check it once).  Rows
-    without edges give 0.  Deterministic: no float atomics."""
+    ``col`` indexes rows of ``g`` (the builders check it once); ``split``
+    is rowptr's plan of cut rows.  Rows without edges give 0.
+    Deterministic: no float atomics."""
     if g.device.type == "cpu":
         return csr_dual_sddmm_plain(rowptr, col, va, vb, wa, wb, g, x, fa)
     if g.device.type != "cuda":
@@ -161,7 +173,7 @@ def csr_dual_sddmm(rowptr: torch.Tensor, col: torch.Tensor,
     if n == 0 or w == 0:
         return out.zero_(), acc
     _launch("csr_dual_sddmm", (rowptr, col, va, vb, wa, wb, g, x, out, acc),
-            dev, n, w, fa, int(g.dtype == torch.bfloat16))
+            dev, n, w, split, fa, int(g.dtype == torch.bfloat16))
     return out, acc
 
 
@@ -169,12 +181,14 @@ def csr_dual_sddmm_accum(rowptr: torch.Tensor, col: torch.Tensor,
                          va: torch.Tensor, vb: torch.Tensor,
                          wa: torch.Tensor, wb: torch.Tensor, g: torch.Tensor,
                          x: torch.Tensor, fa: int, out: torch.Tensor,
-                         acc: torch.Tensor, row0: int = 0
+                         acc: torch.Tensor, row0: int = 0,
+                         split: Optional[RowSplit] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: ``csr_dual_sddmm`` of one block of a split or streamed layout,
     added in place into ``out`` at rows ``row0 + r`` (rows without edges
     are not written) and into ``acc``; returns ``(out, acc)``.  ``rowptr``
-    is local to the block; ``x`` is indexed by the same rows as ``out``."""
+    is local to the block (and ``split`` its plan); ``x`` is indexed by the
+    same rows as ``out``."""
     if g.device.type == "cpu":
         new_out, new_acc = csr_dual_sddmm_accum_plain(
             rowptr, col, va, vb, wa, wb, g, x, fa, out, acc, row0)
@@ -191,6 +205,6 @@ def csr_dual_sddmm_accum(rowptr: torch.Tensor, col: torch.Tensor,
     if n == 0 or w == 0:
         return out, acc
     _launch("csr_dual_sddmm_accum",
-            (rowptr, col, va, vb, wa, wb, g, x, out, acc), dev, n, w, fa,
-            int(g.dtype == torch.bfloat16), row0)
+            (rowptr, col, va, vb, wa, wb, g, x, out, acc), dev, n, w, split,
+            fa, int(g.dtype == torch.bfloat16), row0)
     return out, acc

@@ -10,6 +10,11 @@ and the kernels in ``csrc/scatter_csr.cu`` are a row-sorted
 gather-multiply-reduce.  The ``*_accum`` entries (K2) add into ``out``
 in place, at rows ``row0 + r``, and leave rows without edges alone.
 
+``csr_pair_spmm`` is K1 on the trainable-q pair forward: the TPU builds
+``[E, 4F]`` messages outside its kernel (its row gather is row-rate-bound)
+and scatters them with K1; here one kernel gathers ``x`` itself and keeps
+both sums of a lane, so no message tensor is written.
+
 Rows longer than ``PIECE_EDGES`` edges are cut into pieces that run in
 parallel, and a second launch adds each cut row's pieces in a fixed
 order.  Which rows are cut, and where, is a ``RowSplit`` plan of the
@@ -35,7 +40,8 @@ from . import build
 
 LAUNCHES: Dict[str, int] = {"csr_dual_spmm": 0, "csr_scatter_sum": 0,
                             "csr_dual_spmm_accum": 0,
-                            "csr_scatter_accum": 0}
+                            "csr_scatter_accum": 0, "csr_pair_spmm": 0,
+                            "csr_pair_spmm_accum": 0}
 
 # Longest row that one thread group sums alone; longer rows are cut into
 # pieces of this many edges.  A piece's chain of dependent loads is about
@@ -58,8 +64,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     plan = [p, i, p, p, i, i, p]
     lib.pgsd_csr_dual_spmm.restype = i
     lib.pgsd_csr_dual_spmm.argtypes = [p] * 6 + [i] * 6 + plan + [p]
+    lib.pgsd_csr_pair_spmm.restype = i
+    lib.pgsd_csr_pair_spmm.argtypes = [p] * 8 + [i] * 6 + plan + [p]
     lib.pgsd_csr_scatter.restype = i
-    lib.pgsd_csr_scatter.argtypes = [p, p, p] + [i] * 5 + plan + [p]
+    lib.pgsd_csr_scatter.argtypes = [p, p, p] + [i] * 7 + plan + [p]
     return lib
 
 
@@ -241,34 +249,40 @@ def csr_dual_spmm_plain(rowptr, col, val_a, val_b, x, fa: int):
     return _add_rows_(out, rowptr, _dual_msgs(col, val_a, val_b, x, fa))
 
 
-def _dual_launch(name, rowptr, col, val_a, val_b, x, fa, out, row0, split):
-    """Launch ``pgsd_csr_dual_spmm`` (``out`` None: the plain mode, into a
-    new output); returns the output."""
+_VALUE_NAMES = ("val_a", "val_b", "w_a", "w_b")
+
+
+def _edge_launch(name, entry, rowptr, col, vals, x, fa, out, row0, split):
+    """Launch ``pgsd_<entry>`` with per-edge ``vals`` (two for the dual, four
+    for the pair; ``out`` None: the plain mode, into a new output); returns
+    the output, ``len(vals) // 2`` times x's width wide."""
     dev = _cuda_device(name, x)
     _check("x", x, (torch.float32, torch.bfloat16), 2, dev)
     _check("col", col, (torch.int32,), 1, dev)
-    _check("val_a", val_a, (torch.float32,), 1, dev)
-    _check("val_b", val_b, (torch.float32,), 1, dev)
+    for k, v in zip(_VALUE_NAMES, vals):
+        _check(k, v, (torch.float32,), 1, dev)
     nnz = col.numel()
-    if val_a.numel() != nnz or val_b.numel() != nnz:
-        raise ValueError("col, val_a and val_b must have one entry per edge")
+    if any(v.numel() != nnz for v in vals):
+        raise ValueError("col and the per-edge values must have one entry "
+                         "per edge")
     n = _check_rowptr(rowptr, nnz, dev)
     w = x.shape[1]
+    wo = len(vals) // 2 * w
     if not 0 <= fa <= w:
         raise ValueError(f"fa={fa} outside [0, {w}]")
     accum = out is not None
     if accum:
-        _check_out(out, row0, n, w, dev)
+        _check_out(out, row0, n, wo, dev)
     if n == 0 or w == 0:
-        return out if accum else torch.zeros((n, w), dtype=torch.float32,
+        return out if accum else torch.zeros((n, wo), dtype=torch.float32,
                                              device=dev)
     if not accum:
-        out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    plan, _partial = _plan_args(rowptr, split, w, dev)
+        out = torch.empty((n, wo), dtype=torch.float32, device=dev)
+    plan, _partial = _plan_args(rowptr, split, wo, dev)
     with torch.cuda.device(dev):
-        err = _library().pgsd_csr_dual_spmm(
-            rowptr.data_ptr(), col.data_ptr(), val_a.data_ptr(),
-            val_b.data_ptr(), x.data_ptr(), out.data_ptr(), n, w, fa,
+        err = getattr(_library(), "pgsd_" + entry)(
+            rowptr.data_ptr(), col.data_ptr(), *(v.data_ptr() for v in vals),
+            x.data_ptr(), out.data_ptr(), n, w, fa,
             int(x.dtype == torch.bfloat16), int(accum), row0, *plan,
             _stream_ptr(dev))
     if err:
@@ -290,8 +304,8 @@ def csr_dual_spmm(rowptr: torch.Tensor, col: torch.Tensor,
     deterministic: each row sums its edges, or its pieces, in order."""
     if x.device.type == "cpu":
         return csr_dual_spmm_plain(rowptr, col, val_a, val_b, x, fa)
-    return _dual_launch("csr_dual_spmm", rowptr, col, val_a, val_b, x, fa,
-                        None, 0, split)
+    return _edge_launch("csr_dual_spmm", "csr_dual_spmm", rowptr, col,
+                        (val_a, val_b), x, fa, None, 0, split)
 
 
 def csr_dual_spmm_accum_plain(rowptr, col, val_a, val_b, x, fa: int, out,
@@ -316,12 +330,96 @@ def csr_dual_spmm_accum(rowptr: torch.Tensor, col: torch.Tensor,
     if x.device.type == "cpu":
         return _add_rows_(out, rowptr,
                           _dual_msgs(col, val_a, val_b, x, fa), row0)
-    return _dual_launch("csr_dual_spmm_accum", rowptr, col, val_a, val_b, x,
-                        fa, out, row0, split)
+    return _edge_launch("csr_dual_spmm_accum", "csr_dual_spmm", rowptr, col,
+                        (val_a, val_b), x, fa, out, row0, split)
+
+
+# ---------------------------------------------------------------------------
+# csr_pair_spmm: the trainable-q pair forward, two value pairs and two sums
+
+
+def _pair_msgs(col, val_a, val_b, w_a, w_b, x, fa: int) -> torch.Tensor:
+    """``[round(val_sel * x[col]) | round(w_sel * x[col])]`` in float32,
+    [E, 2W]."""
+    return torch.cat([_dual_msgs(col, val_a, val_b, x, fa),
+                      _dual_msgs(col, w_a, w_b, x, fa)], 1)
+
+
+def csr_pair_spmm_plain(rowptr, col, val_a, val_b, w_a, w_b, x, fa: int):
+    """Plain PyTorch version of ``csr_pair_spmm``: ``index_add_`` over the
+    [E, 2W] messages with the kernel's rounding."""
+    out = torch.zeros((rowptr.numel() - 1, 2 * x.shape[1]),
+                      dtype=torch.float32, device=x.device)
+    return _add_rows_(out, rowptr,
+                      _pair_msgs(col, val_a, val_b, w_a, w_b, x, fa))
+
+
+def csr_pair_spmm(rowptr: torch.Tensor, col: torch.Tensor,
+                  val_a: torch.Tensor, val_b: torch.Tensor,
+                  w_a: torch.Tensor, w_b: torch.Tensor, x: torch.Tensor,
+                  fa: int, split: Optional[RowSplit] = None) -> torch.Tensor:
+    """Two segment sums of one gather: float32 ``[N, 2W]`` with
+
+        out[r, l]     = sum_e round((l < fa ? val_a : val_b)[e] * x[col[e], l])
+        out[r, W + l] = sum_e round((l < fa ? w_a : w_b)[e] * x[col[e], l])
+
+    for ``l < W``, the width of ``x`` (float32 or bfloat16; both products
+    round to its type and sum in float32).  It is ``csr_scatter_sum`` over
+    the [E, 2W] messages ``[val_sel * x[col] | w_sel * x[col]]`` without
+    the messages.  Rows without edges are 0; ``split`` is rowptr's plan.
+    Deterministic, as ``csr_dual_spmm``."""
+    if x.device.type == "cpu":
+        return csr_pair_spmm_plain(rowptr, col, val_a, val_b, w_a, w_b, x, fa)
+    return _edge_launch("csr_pair_spmm", "csr_pair_spmm", rowptr, col,
+                        (val_a, val_b, w_a, w_b), x, fa, None, 0, split)
+
+
+def csr_pair_spmm_accum_plain(rowptr, col, val_a, val_b, w_a, w_b, x,
+                              fa: int, out, row0: int = 0):
+    """Plain PyTorch version of ``csr_pair_spmm_accum``: ``index_add_``
+    into a clone of ``out``."""
+    return _add_rows_(out.clone(), rowptr,
+                      _pair_msgs(col, val_a, val_b, w_a, w_b, x, fa), row0)
+
+
+def csr_pair_spmm_accum(rowptr: torch.Tensor, col: torch.Tensor,
+                        val_a: torch.Tensor, val_b: torch.Tensor,
+                        w_a: torch.Tensor, w_b: torch.Tensor, x: torch.Tensor,
+                        fa: int, out: torch.Tensor, row0: int = 0,
+                        split: Optional[RowSplit] = None) -> torch.Tensor:
+    """``csr_pair_spmm`` of one block of a split or streamed layout, added
+    in place into the float32 ``[*, 2W]`` ``out`` at rows ``row0 + r``
+    (rows without edges are not written); returns ``out``."""
+    if x.device.type == "cpu":
+        return _add_rows_(out, rowptr,
+                          _pair_msgs(col, val_a, val_b, w_a, w_b, x, fa),
+                          row0)
+    return _edge_launch("csr_pair_spmm_accum", "csr_pair_spmm", rowptr, col,
+                        (val_a, val_b, w_a, w_b), x, fa, out, row0, split)
 
 
 # ---------------------------------------------------------------------------
 # csr_scatter_sum / csr_scatter_accum: segment sums of row-ordered messages
+
+
+# The most edge slots a row gets in pgsd_csr_scatter (the kernel's
+# msg_slots): a row takes TL * min(32 / TL, MSG_SLOTS) threads of a warp.
+MSG_SLOTS = 8
+
+
+def _msg_geometry(msgs: torch.Tensor):
+    """``(V, TL)`` of ``pgsd_csr_scatter`` for these messages: each thread
+    sums V neighbouring lanes of every P-th edge of a row, P = min(32 / TL,
+    MSG_SLOTS), with TL threads across a lane tile of TL * V lanes (tiles
+    past it go to blockIdx.y).  V is 16 bytes of the message type (4
+    float32, 8 bfloat16) when every message row starts 16-byte aligned,
+    else 1."""
+    w = msgs.shape[1]
+    v = 16 // msgs.element_size()
+    if w % v or msgs.data_ptr() % 16:
+        v = 1
+    chunks = -(-w // v)
+    return v, min(32, 1 << (chunks - 1).bit_length())
 
 
 def _scatter_launch(name, rowptr, msgs, out, row0, split):
@@ -341,8 +439,8 @@ def _scatter_launch(name, rowptr, msgs, out, row0, split):
     with torch.cuda.device(dev):
         err = _library().pgsd_csr_scatter(
             rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
-            int(msgs.dtype == torch.bfloat16), int(accum), row0, *plan,
-            _stream_ptr(dev))
+            int(msgs.dtype == torch.bfloat16), int(accum), row0,
+            *_msg_geometry(msgs), *plan, _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

@@ -16,7 +16,8 @@ is that derivative), ``sel`` taking the a-value for lanes below ``fa``.
 gather table (float32 or bfloat16) and ``x`` the float32 [N, W] table of
 the operator's rows.  The TPU entries take the gathered ``g[col]``; the
 kernels here gather it themselves, from ``g[hot_ids]`` in the hot blocks
-of a column-split layout.
+of a column-split layout, and cut hub rows by each rowptr's plan
+(``row_split``, ``CsrBlock.split``), which every layout carries.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ def dual_scatter_sddmm(L, g, va, vb, wa, wb, x, fa: int) -> Result:
         raise ValueError("dual_scatter_sddmm takes a flat layout; use "
                          "split_dual_scatter_sddmm or "
                          "streamed_dual_scatter_sddmm")
-    return csr_dual_sddmm(L.rowptr, L.col, va, vb, wa, wb, g, x, fa)
+    return csr_dual_sddmm(L.rowptr, L.col, va, vb, wa, wb, g, x, fa,
+                          L.row_split)
 
 
 def _blocks(L, g, va, vb, wa, wb, x, fa: int) -> Result:
@@ -48,7 +50,7 @@ def _blocks(L, g, va, vb, wa, wb, x, fa: int) -> Result:
         s = slice(b.e0, b.e1)
         csr_dual_sddmm_accum(b.rowptr, L.col[s], va[s], vb[s], wa[s], wb[s],
                              g_hot if i < L.hot_blocks else g, x, fa, out,
-                             acc, b.row0)
+                             acc, b.row0, b.split)
     return out, acc
 
 

@@ -22,7 +22,6 @@ result stays float32.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -34,6 +33,7 @@ from ..ops.cuda.scatter_csr import _row_ids
 from ..ops.layout import CsrLayout, build_layout
 from ..ops.sddmm import dual_scatter_sddmm
 from ..ops.spmm import _kernel_dtype, _layout_apply
+from ..spectral.magnetic import _template_terms
 from .mesh import Mesh, all_gather, psum
 
 
@@ -196,17 +196,6 @@ def build_sharded_template(tmpl, mesh: Mesh):
     return MagneticTemplate(a_norm=None, theta=None, row=None, col=None,
                             num_nodes=tmpl.num_nodes, mode="mxu_sharded",
                             sharded=S)
-
-
-def _template_terms(a, th, q):
-    """Per-edge operator values and their derivatives by q: the formulas of
-    spectral.magnetic._template_values and the pair forward (the conv's
-    transpose baked into the imaginary part's sign).  cos is even and sin
-    odd in theta, so they hold in the transposed partition's order."""
-    ang = (2.0 * math.pi) * q * th
-    scale = (2.0 * math.pi) * th * a
-    return (-a * torch.cos(ang), a * torch.sin(ang),
-            scale * torch.sin(ang), scale * torch.cos(ang))
 
 
 def _sharded_template_forward(S: ShardedMXU, q, x: torch.Tensor):

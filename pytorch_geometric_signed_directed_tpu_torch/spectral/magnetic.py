@@ -20,8 +20,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.coalesce import coalesce_edges
 from ..ops.coo import COO, build_coo
-from ..ops.cuda.scatter_csr import (RowSplit, csr_scatter_accum,
-                                     csr_scatter_sum)
+from ..ops.cuda.scatter_csr import (RowSplit, csr_pair_spmm,
+                                     csr_pair_spmm_accum)
 from ..ops.layout import CsrBlock, build_layout
 from ..ops.spmm import (
     _DENSE_AUTO_MAX_NODES,
@@ -452,66 +452,48 @@ def template_dual(tmpl: MagneticTemplate, q) -> DualPropagator:
     return _dual_of(tmpl, *_template_values(tmpl, q), transposed=t)
 
 
-# widest message row the pair forward scatters in one pass (the TPU
-# kernels' lane limit, kept so both packages take the same passes)
-_PAIR_MAX_LANES = 256
+def _template_terms(a, th, q):
+    """Per-edge operator values and their derivatives by q, ``(va, vb, wa,
+    wb)``: the formulas of ``_template_values`` (the conv's transpose baked
+    into the imaginary part's sign) and ``w = d val / d q``.  cos is even
+    and sin odd in theta, so they hold in a transposed layout's order."""
+    ang = (2.0 * math.pi) * q * th
+    scale = (2.0 * math.pi) * th * a
+    return (-a * torch.cos(ang), a * torch.sin(ang),
+            scale * torch.sin(ang), scale * torch.cos(ang))
 
 
 def _template_pair_forward(tmpl: MagneticTemplate, q, x: torch.Tensor):
-    """``(L(q) x, L'(q) x)`` through one gather and one scatter pass.
+    """``(L(q) x, L'(q) x)`` through one pass over the edges.
 
     q is a scalar, so its directional derivative rides forward: each edge
-    gathers its x row once and scatters ``[va x_a | vb x_b | wa x_a |
-    wb x_b]`` (4F lanes; the TPU layout's duplicated ``[x | x]`` gather,
-    here a broadcast) with ``w = d val / d q``, through K1
-    (``csr_scatter_sum``) on a flat layout or K2 (``csr_scatter_accum``)
-    once per block of a split or streamed one.  Past _PAIR_MAX_LANES it
-    takes two passes.  Returns (y [N, 2F] in x's type, y' [N, 2F] f32)."""
+    gathers its x row once and adds ``[va x_a | vb x_b]`` and ``[wa x_a |
+    wb x_b]`` (``w = d val / d q``) to its row's two sums, through K1
+    (``csr_pair_spmm``, which gathers x itself) on a flat layout or its
+    accumulate mode once per block of a split or streamed one.  The kernel
+    tiles any width, so every width takes one pass.  Returns (y [N, 2F] in
+    x's type, y' [N, 2F] f32)."""
     if x.shape[1] % 2:
         raise ValueError(f"template_dual_apply needs an even lane-stacked "
                          f"width, got {x.shape[1]}")
     fa = x.shape[1] // 2
     f2 = 2 * fa
-    mdt = _kernel_dtype(x)
-    xg = x.to(mdt).contiguous()
-    x_hot = xg.index_select(0, tmpl.hot_ids) if tmpl.hot_ids is not None \
-        else None
-    two_pi_q = 2.0 * math.pi * q
-
-    def values(a, th, which):
-        ang = two_pi_q * th
-        out = []
-        if which in ("vals", "both"):
-            out += [-a * torch.cos(ang), a * torch.sin(ang)]
-        if which in ("derivs", "both"):
-            scale = 2.0 * math.pi * th * a
-            out += [scale * torch.sin(ang), scale * torch.cos(ang)]
-        return torch.stack(out, 1)
-
-    def msgs(src, e0, e1, which):
-        v = values(tmpl.a_norm[e0:e1], tmpl.theta[e0:e1], which)
-        k = v.shape[1] // 2                   # 1 or 2 halves of 2F lanes
-        g = src[tmpl.col[e0:e1].long()].float()
-        m = g.view(-1, 1, 2, fa) * v.view(-1, k, 2, 1)
-        return m.reshape(-1, k * f2).to(mdt)
-
-    def one_pass(which, width):
-        if not tmpl.blocks:
-            return csr_scatter_sum(tmpl.rowptr,
-                                   msgs(xg, 0, tmpl.col.numel(), which),
-                                   tmpl.row_split)
-        out = torch.zeros((tmpl.num_nodes, width), dtype=torch.float32,
+    xg = x.to(_kernel_dtype(x)).contiguous()
+    terms = _template_terms(tmpl.a_norm, tmpl.theta, q)
+    if not tmpl.blocks:
+        out = csr_pair_spmm(tmpl.rowptr, tmpl.col, *terms, xg, fa,
+                            tmpl.row_split)
+    else:
+        x_hot = xg.index_select(0, tmpl.hot_ids) \
+            if tmpl.hot_ids is not None else None
+        out = torch.zeros((tmpl.num_nodes, 2 * f2), dtype=torch.float32,
                           device=x.device)
         for i, b in enumerate(tmpl.blocks):
-            src = x_hot if i < tmpl.hot_blocks else xg
-            csr_scatter_accum(b.rowptr, msgs(src, b.e0, b.e1, which), out,
-                              b.row0, b.split)
-        return out
-
-    if 2 * f2 <= _PAIR_MAX_LANES:
-        out = one_pass("both", 2 * f2)
-        return out[:, :f2].to(x.dtype), out[:, f2:]
-    return one_pass("vals", f2).to(x.dtype), one_pass("derivs", f2)
+            s = slice(b.e0, b.e1)
+            csr_pair_spmm_accum(b.rowptr, tmpl.col[s], *(v[s] for v in terms),
+                                x_hot if i < tmpl.hot_blocks else xg, fa, out,
+                                b.row0, b.split)
+    return out[:, :f2].to(x.dtype), out[:, f2:]
 
 
 class _TemplateDualApply(torch.autograd.Function):

@@ -11,8 +11,8 @@ on the ``bsr`` tier, or with ``--trainable-q`` the magnet_mxu graph with
 trainable q from 0.25 on a flat mxu template (``--sharded``: on the
 one-card sharded template, ``local_mesh()``); times
 steps with CUDA events, then traces a window of steps with torch.profiler
-and prints device time by kernel and the device's busy share of the
-window.
+and prints device time by kernel, each of the port's kernels named by the
+wrapper that launches it, and the device's busy share of the window.
 
 Run from the root of the checkout:
 
@@ -43,6 +43,26 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.train import Trainer  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.utils import (  # noqa: E402
     meta_graph_generation)
+
+
+# substrings of the port's device kernel names -> the wrapper (and TPU
+# kernel) they belong to; the first match wins
+PORT_KERNELS = (
+    ("csr_dual_sddmm_kernel", "csr_dual_sddmm (K3/K4)"),
+    ("PairSource", "csr_pair_spmm (K1/K2)"),
+    ("DualSource", "csr_dual_spmm (K1/K2)"),
+    ("csr_msgs_kernel", "csr_scatter_sum (K1/K2)"),
+    ("reduce_partials_kernel", "csr_dual_sddmm dq sum (K3/K4)"),
+    ("combine_pieces_kernel", "cut-row combine (K1-K4)"),
+    ("bsr_", "bsr_spmm (K5)"),
+)
+
+
+def label(name: str) -> str:
+    for key, wrapper in PORT_KERNELS:
+        if key in name:
+            return f"[{wrapper}] {name}"
+    return name
 
 
 def dsbm_setup(n, avg_deg, mode, template=False):
@@ -182,7 +202,7 @@ def main():
         if t / args.steps < 0.005:
             continue
         print(f"  {t / args.steps:8.4f} ms  {c / args.steps:5.1f}x  "
-              f"{name[:110]}")
+              f"{label(name)[:140]}")
 
 
 if __name__ == "__main__":

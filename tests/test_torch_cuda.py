@@ -65,6 +65,13 @@ def test_kernels_match_plain_on_card(card, width, dtype):
         scatter_csr.csr_scatter_sum(D.rowptr, msgs),
         scatter_csr.csr_scatter_sum_plain(D.rowptr, msgs), **tol)
     assert scatter_csr.LAUNCHES["csr_scatter_sum"] == before + 1
+    # message rows that do not start 16-byte aligned take scalar loads
+    shifted = torch.randn(e * width + 1, device=card).to(mdt)[1:].view(
+        e, width)
+    assert scatter_csr._msg_geometry(shifted)[0] == 1
+    torch.testing.assert_close(
+        scatter_csr.csr_scatter_sum(D.rowptr, shifted),
+        scatter_csr.csr_scatter_sum_plain(D.rowptr, shifted), **tol)
     torch.cuda.synchronize()
 
 
@@ -236,7 +243,8 @@ def hub_csr(device, seed=0):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("entry", ["csr_dual_spmm", "csr_scatter_sum",
                                    "csr_dual_spmm_accum",
-                                   "csr_scatter_accum"])
+                                   "csr_scatter_accum", "csr_pair_spmm",
+                                   "csr_pair_spmm_accum"])
 def test_cut_rows_match_plain_and_repeat_bit_for_bit_on_card(card, entry,
                                                              dtype):
     """Every CSR entry on a hub row and rows around the piece length,
@@ -249,18 +257,20 @@ def test_cut_rows_match_plain_and_repeat_bit_for_bit_on_card(card, entry,
     assert split.rows.numel() == int((lengths > scatter_csr.PIECE_EDGES).sum())
     n, e, m, w, row0 = len(lengths), int(lengths.sum()), 5000, 64, 3
     gen = torch.Generator(device=card).manual_seed(len(entry))
-    if "dual" in entry:
+    if "scatter" not in entry:
         col = torch.randint(0, m, (e,), generator=gen, device=card,
                             dtype=torch.int32)
-        va, vb = torch.randn(2, e, generator=gen, device=card)
+        vals = torch.randn(4 if "pair" in entry else 2, e, generator=gen,
+                           device=card)
         x = torch.randn(m, w, generator=gen, device=card).to(mdt)
-        args = (rowptr, col, va, vb, x, w // 2)
+        args = (rowptr, col, *vals, x, w // 2)
     else:
         args = (rowptr, torch.randn(e, w, generator=gen,
                                     device=card).to(mdt))
     fn = getattr(scatter_csr, entry)
     plain = getattr(scatter_csr, entry + "_plain")
-    out0 = torch.randn(n + 2 * row0, w, generator=gen, device=card)
+    out0 = torch.randn(n + 2 * row0, (2 if "pair" in entry else 1) * w,
+                       generator=gen, device=card)
     if entry.endswith("_accum"):
         got = fn(*args, out0.clone(), row0, split=split)
         again = fn(*args, out0.clone(), row0, split=split)
@@ -470,5 +480,86 @@ def test_sharded_template_backward_runs_k3_on_card(card):
     torch.testing.assert_close(y1, y0, **F32_TOL)
     torch.testing.assert_close(dx1, dx0, **F32_TOL)
     torch.testing.assert_close(dq1, dq0, rtol=1e-4, atol=1e-5)
-    assert c0["csr_scatter_sum"] == 1 and c0["csr_dual_spmm"] == 1
+    assert c0["csr_pair_spmm"] == 1 and c0["csr_dual_spmm"] == 1
+    assert c0["csr_scatter_sum"] == 0
     assert c1["csr_dual_spmm"] == 1 and c1["csr_dual_sddmm"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [False, True])
+def test_sddmm_cut_rows_match_plain_and_repeat_bit_for_bit_on_card(card,
+                                                                   accum):
+    """K3 and K4 on the hub CSR: pieces' out partials through the combine,
+    their dq terms through the CTA slots; against the plain version, the
+    same bits twice and unplanned, rows without edges untouched (K4)."""
+    rowptr, lengths = hub_csr(card, seed=1)
+    split = scatter_csr.plan_row_split(rowptr)
+    n, e, m, w, row0 = len(lengths), int(lengths.sum()), 5000, 64, 3
+    gen = torch.Generator(device=card).manual_seed(11)
+    col = torch.randint(0, m, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    va, vb, wa, wb = torch.randn(4, e, generator=gen, device=card)
+    g = torch.randn(m, w, generator=gen, device=card)
+    x = torch.randn(n + 2 * row0, w, generator=gen, device=card)
+    out0 = torch.randn(n + 2 * row0, w, generator=gen, device=card)
+    acc0 = torch.randn(w, generator=gen, device=card)
+    args = (rowptr, col, va, vb, wa, wb, g)
+    if accum:
+        def run(**kw):
+            return dual_sddmm.csr_dual_sddmm_accum(
+                *args, x, w // 2, out0.clone(), acc0.clone(), row0, **kw)
+        want = dual_sddmm.csr_dual_sddmm_accum_plain(*args, x, w // 2, out0,
+                                                     acc0, row0)
+    else:
+        def run(**kw):
+            return dual_sddmm.csr_dual_sddmm(*args, x[row0:row0 + n], w // 2,
+                                             **kw)
+        want = dual_sddmm.csr_dual_sddmm_plain(*args, x[row0:row0 + n],
+                                               w // 2)
+    got, again, unplanned = run(split=split), run(split=split), run()
+    torch.testing.assert_close(got[0], want[0], **F32_TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+    for other in (again, unplanned):
+        assert torch.equal(got[0], other[0]) and torch.equal(got[1], other[1])
+    empty = torch.from_numpy(lengths == 0).to(card)
+    if accum:
+        keep = torch.ones(n + 2 * row0, dtype=torch.bool, device=card)
+        keep[row0:row0 + n] = empty
+        assert torch.equal(got[0][keep], out0[keep])
+    else:
+        assert torch.all(got[0][empty] == 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [2, 4, 38, 64, 300])
+def test_pair_kernels_match_plain_on_card(card, width, dtype):
+    """csr_pair_spmm and its accumulate mode against their plain versions,
+    duplicate edges and empty rows included; the same bits twice."""
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    n, m, e, row0, n_out = 1000, 2000, 20000, 700, 2500
+    rowptr, col, va, vb = (t.to(card) for t in block(n, m, e, seed=width))
+    wa, wb = torch.randn(2, e, device=card)
+    x = torch.randn(m, width, device=card).to(mdt)
+    args = (rowptr, col, va, vb, wa, wb, x, width // 2)
+    before = dict(scatter_csr.LAUNCHES)
+    got = scatter_csr.csr_pair_spmm(*args)
+    assert got.shape == (n, 2 * width)
+    torch.testing.assert_close(got, scatter_csr.csr_pair_spmm_plain(*args),
+                               **tol)
+    assert torch.equal(got, scatter_csr.csr_pair_spmm(*args))
+    assert torch.all(got[1::2] == 0)
+    out0 = torch.randn(n_out, 2 * width, device=card)
+    acc = scatter_csr.csr_pair_spmm_accum(*args, out0.clone(), row0)
+    torch.testing.assert_close(
+        acc, scatter_csr.csr_pair_spmm_accum_plain(*args, out0, row0), **tol)
+    untouched = torch.ones(n_out, dtype=torch.bool, device=card)
+    untouched[row0:row0 + n:2] = False
+    assert torch.equal(acc[untouched], out0[untouched])
+    assert scatter_csr.LAUNCHES["csr_pair_spmm"] == \
+        before["csr_pair_spmm"] + 2
+    assert scatter_csr.LAUNCHES["csr_pair_spmm_accum"] == \
+        before["csr_pair_spmm_accum"] + 1
+    torch.cuda.synchronize()
