@@ -51,6 +51,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    steps on each (flat: ``csr_pair_spmm`` forward, ``csr_dual_spmm`` dx;
    sharded: ``csr_dual_spmm`` forward, K3 backward) and prints the
    trainable/frozen step ratio against phase 3.
+7. Experiments phase: the four entry points ``magnet_node``,
+   ``magnet_link`` (one split), ``msgnn_node`` and ``msgnn_link`` through
+   their ``main(argv)`` at ``--dataset synthetic --num_nodes 9000`` and
+   their default widths, 30 epochs each, on the layouts ops/layout.py
+   picks at that size (streamed K2 for the first three, flat K1 for
+   msgnn_link).  Prints input edges, Laplacian nnz, the layout and its cut
+   rows, host seconds by stage, median ms/step, first and last loss and
+   test accuracy; requires falling losses and launch counts equal to
+   those the layouts imply for the steps and evaluation forwards run, and
+   for each training step, counted around it.
+   Holds K1 on msgnn_link's flat operator and K2 on the first streamed
+   block of magnet_node's (every row cut) and msgnn_node's operators
+   against their plain versions at 2F = 4, 8, 32 and 128, float32, and
+   times each (one call between events, and 20 back to back) beside its
+   bound and two cuSPARSE products; off the path, K1 the same way on
+   magnet_node's Laplacian laid out flat, where every row is cut.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -62,6 +78,7 @@ is printed.  The last lines are the card's nvidia-smi name and power
 limit, one JSON line of kernel measurements, and
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -84,6 +101,15 @@ BSR_GRAPH = dict(nodes=8192, avg_deg=24, seed=0, steps=30)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 REPS = 20
+# the experiments at N=9000, just over the dense tier's 8192 nodes, at
+# their default widths; each trains at least EXPERIMENT_EPOCHS steps
+EXPERIMENT_N = 9000
+EXPERIMENT_EPOCHS = 30
+EXPERIMENT_ARGV = {"magnet_node": [], "magnet_link": ["--splits", "1"],
+                   "msgnn_node": [], "msgnn_link": []}
+# 2F of the applies on their paths: MagNet's 2 degree features, MSGNN's 4
+# signed ones, hidden 16 and hidden 64
+EXPERIMENT_WIDTHS = (4, 8, 32, 128)
 # f32: the kernels sum in compensated float32, the plain versions in
 # float64 (with atomics, in no fixed order)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -117,6 +143,22 @@ def time_ms(fn, reps=REPS):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps=REPS):
+    """Milliseconds a call of ``reps`` calls made back to back between two
+    CUDA events: the device's time where the host keeps ahead of it."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound(nbytes, flops):
@@ -229,7 +271,8 @@ def kernel_entry(name, r, launches, source, replaces):
 
 
 def log_case(label, r):
-    log(f"{label}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+    dev = (f" device_ms={r['device_ms']:.4f}" if "device_ms" in r else "")
+    log(f"{label}: kernel_ms={r['ms']:.4f}{dev} plain_ms={r['plain_ms']:.4f} "
         f"library_ms={r['library_ms']} bound_us={r['bound_ms'] * 1e3:.2f} "
         f"({r['bound_by']}, {r['bytes']} B) "
         f"max_abs_err={r['max_abs_err']:.3g}")
@@ -258,6 +301,8 @@ def dual_kernel_case(D, width, dtype, seed):
               "csr_dual_spmm")
     err = float((got - want).abs().max())
     ms = time_ms(lambda: scatter_csr.csr_dual_spmm(*args, D.row_split))
+    device_ms = back_to_back_ms(
+        lambda: scatter_csr.csr_dual_spmm(*args, D.row_split))
     plain_ms = time_ms(lambda: scatter_csr.csr_dual_spmm_plain(*args))
     library_ms = None
     if dtype == torch.float32:
@@ -272,8 +317,9 @@ def dual_kernel_case(D, width, dtype, seed):
                                       torch.sparse.mm(B, xb)))
     nbytes = 4 * (n + 1) + 12 * nnz + x.numel() * x.element_size() + 4 * n * width
     b_ms, b_by = bound(nbytes, 2 * nnz * width)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, bytes=nbytes,
                 shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
@@ -485,7 +531,8 @@ def plain_apply(d, x, fa):
     return out
 
 
-def accum_kernel_case(D, b, table_rows, width, dtype, seed):
+def accum_kernel_case(D, b, table_rows, width, dtype, seed,
+                      what="block 0 of the giant dual"):
     """K2 alone on block ``b`` of ``D``, into a non-zero output: kernel vs
     plain vs two cuSPARSE ``addmm``."""
     import torch
@@ -511,6 +558,8 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed):
     out = out0.clone()
     ms = time_ms(lambda: scatter_csr.csr_dual_spmm_accum(*args, out, b.row0,
                                                          b.split))
+    device_ms = back_to_back_ms(lambda: scatter_csr.csr_dual_spmm_accum(
+        *args, out, b.row0, b.split))
     plain_ms = time_ms(
         lambda: scatter_csr.csr_dual_spmm_accum_plain(*args, out0, b.row0))
     library_ms = None
@@ -531,9 +580,10 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed):
     nbytes = (4 * (rows + 1) + 12 * nnz + x.numel() * x.element_size()
               + 8 * rows * width)
     b_ms, b_by = bound(nbytes, 2 * nnz * width)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
-                shape=f"block 0 of the giant dual: rows={rows} nnz={nnz} "
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, bytes=nbytes,
+                shape=f"{what}: rows={rows} nnz={nnz} "
                       f"cut rows={b.split.rows.numel()} "
                       f"pieces={b.split.pieces.shape[0]} "
                       f"table={table_rows} W={width} {str(dtype)[6:]}")
@@ -1470,6 +1520,208 @@ def trainable_q_phase(smi, frozen_ms):
     return cases, k4, runs
 
 
+# ---------------------------------------------------------------------------
+# experiments: the four entry points at N=9000 (K1 and K2)
+
+
+def layout_text(d):
+    """One direction of a kernel-tier dual: its layout and cut rows."""
+    if not d.blocks:
+        return (f"flat, nnz={d.col.numel()}, cut rows "
+                f"{d.row_split.rows.numel()} of {d.num_nodes} "
+                f"({d.row_split.pieces.shape[0]} pieces)")
+    parts = []
+    for b in d.blocks:
+        lens = b.rowptr[1:] - b.rowptr[:-1]
+        parts.append(f"[rows {int((lens > 0).sum())}, edges {b.e1 - b.e0}, "
+                     f"cut {b.split.rows.numel()}]")
+    kind = "streamed" if d.streamed else "split"
+    return f"{kind}, {len(d.blocks)} blocks " + " ".join(parts)
+
+
+def experiment_launches(D, K, layers, steps, evals):
+    """The K1/K2 wrapper calls of ``steps`` training steps and ``evals``
+    evaluation forwards of a ``layers``-layer model of order ``K`` on the
+    dual ``D``: a forward applies D K times a layer; the backward applies
+    D's transpose K times in every layer but the first, whose input needs
+    no gradient."""
+    expected = {}
+    for d, k in ((D, (steps + evals) * layers * K),
+                 (D.transposed, steps * (layers - 1) * K)):
+        for name, count in per_apply(d).items():
+            expected[name] = expected.get(name, 0) + k * count
+    return expected
+
+
+@contextlib.contextmanager
+def launches_by_step(into):
+    """While in the block, append to ``into`` the launches each
+    ``Trainer.step_async`` call makes: the counts after it less those
+    before (the counters are not reset)."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+
+    step_async = Trainer.step_async
+
+    def counted(self, *args):
+        before = launch_counts()
+        loss = step_async(self, *args)
+        after = launch_counts()
+        into.append({k: v - before[k] for k, v in after.items()
+                     if v != before[k]})
+        return loss
+
+    Trainer.step_async = counted
+    try:
+        yield into
+    finally:
+        Trainer.step_async = step_async
+
+
+def experiment_phase(smi):
+    """Phase 7: magnet_node, magnet_link, msgnn_node and msgnn_link
+    through their ``main(argv)`` at N=9000, on the layouts ops/layout.py
+    picks there; K1 on msgnn_link's flat operator and K2 on one streamed
+    block of magnet_node's and msgnn_node's, at 2F = 4, 8, 32, 128."""
+    import importlib
+
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        EXPERIMENTS)
+    from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+
+    runs, cases = {}, {}
+    for name, extra in EXPERIMENT_ARGV.items():
+        mod = importlib.import_module(
+            "pytorch_geometric_signed_directed_tpu_torch.experiments."
+            + EXPERIMENTS[name][0])
+        argv = ["--dataset", "synthetic", "--num_nodes", str(EXPERIMENT_N),
+                "--epochs", str(EXPERIMENT_EPOCHS), "--device", DEV] + extra
+        args = mod.parser().parse_args(argv)
+        torch.cuda.synchronize()
+        with launches_by_step([]) as by_step:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = mod.main(argv)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        inputs = res["inputs"]
+        lap = (res["runs"][0]["split"].lap if name == "magnet_link"
+               else inputs.lap)
+        D = lap.dual
+        if D is None or D.mode != "mxu":
+            raise AssertionError(f"{name}: mode='auto' did not pick the "
+                                 f"kernel tier at N={EXPERIMENT_N}")
+        steps = sum(r["steps"] for r in res["runs"])
+        evals = sum(r["evals"] for r in res["runs"])
+        expected = experiment_launches(D, args.K, 2, steps, evals)
+        for k in set(launches) | set(expected):
+            if launches.get(k, 0) != expected.get(k, 0):
+                raise AssertionError(
+                    f"{name}: {k} launched {launches.get(k, 0)} times, the "
+                    f"layouts imply {expected.get(k, 0)} ({steps} steps, "
+                    f"{evals} evaluation forwards; {launches})")
+        # each training step, as counted around it, launches what the
+        # layouts imply for one step; the rest are the evaluation forwards'
+        per_step = {k: v for k, v in
+                    experiment_launches(D, args.K, 2, 1, 0).items() if v}
+        if len(by_step) != steps or any(s != per_step for s in by_step):
+            raise AssertionError(
+                f"{name}: {len(by_step)} steps counted ({steps} run), "
+                f"launches by step {sorted(map(str, by_step))[:3]}, the "
+                f"layouts imply {per_step} a step")
+        for i, r in enumerate(res["runs"]):
+            ls = r["losses"]
+            if not all(np.isfinite(ls)):
+                raise AssertionError(f"{name} split {i}: non-finite loss")
+            if not ls[-1] < ls[0]:
+                raise AssertionError(f"{name} split {i}: loss did not fall: "
+                                     f"{ls[0]} -> {ls[-1]}")
+            if not 0.0 <= r["acc"] <= 1.0:
+                raise AssertionError(f"{name} split {i}: accuracy {r['acc']}")
+        graph_edges = (res["runs"][0]["split"].graph_edges
+                       if name == "magnet_link" else
+                       getattr(inputs, "graph_edges", inputs.num_edges))
+        step_ms = [m for r in res["runs"] for m in r["step_ms"][1:]]
+        ms_step = statistics.median(step_ms)
+        log(f"{name}: N={EXPERIMENT_N} input edges {inputs.num_edges} "
+            f"(operator graph {graph_edges}), Laplacian nnz "
+            f"{D.col.numel()}, K={args.K} hidden={args.hidden}")
+        log(f"  layout forward: {layout_text(D)}")
+        log(f"  layout transposed: {layout_text(D.transposed)}")
+        log(f"  host seconds: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res["host_seconds"].items()))
+        log(f"  train on {smi}: {steps} steps in {len(res['runs'])} "
+            f"split(s), median {ms_step:.3f} ms/step (first step "
+            f"{res['runs'][0]['step_ms'][0]:.3f} ms), training seconds "
+            f"{[round(v, 3) for v in res['seconds']]}, main() {wall:.2f} s")
+        log(f"  losses (first -> last): " + ", ".join(
+            f"{r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}"
+            for r in res["runs"]) + f"; test acc {res['accs']}")
+        log(f"  launches {launches}: {by_step[0]} in each of {steps} steps "
+            f"as counted around each, the rest in {evals} evaluation "
+            f"forwards")
+        runs[name] = dict(launches=launches, per_step=by_step[0],
+                          ms_step=ms_step, host=res["host_seconds"])
+
+        if name == "msgnn_link":
+            if D.rowptr is None:
+                raise AssertionError("msgnn_link's operator is not flat")
+            for width in EXPERIMENT_WIDTHS:
+                r = dual_kernel_case(D, width, torch.float32, seed=width)
+                r["shape"] = f"msgnn_link flat operator: {r['shape']}"
+                cases[(name, width)] = r
+                log_case(f"csr_dual_spmm msgnn_link 2F={width} float32", r)
+        elif name in ("magnet_node", "msgnn_node"):
+            if not D.streamed:
+                raise AssertionError(f"{name}'s operator is not streamed")
+            b = D.blocks[0]
+            lens = b.rowptr[1:] - b.rowptr[:-1]
+            rows, cut = int((lens > 0).sum()), b.split.rows.numel()
+            # only the block's first and last rows may be partial, and
+            # short, at its edge boundaries
+            if name == "magnet_node" and cut < rows - 2:
+                raise AssertionError(f"magnet_node block 0: {cut} of {rows} "
+                                     f"rows cut, expected every row")
+            for width in EXPERIMENT_WIDTHS:
+                r = accum_kernel_case(
+                    D, b, D.num_cols, width, torch.float32, seed=width,
+                    what=f"{name} streamed block 0 ({cut} of {rows} rows "
+                         f"cut)")
+                cases[(name, width)] = r
+                log_case(f"csr_dual_spmm_accum {name} block 0 2F={width} "
+                         f"float32", r)
+            x = torch.randn(D.num_cols, 128, device=DEV)
+            torch.testing.assert_close(spmm.dual_spmm_stacked(D, x),
+                                       plain_apply(D, x, 64), **F32_TOL)
+            log(f"  {name} streamed apply 2F=128 agrees with its plain "
+                f"version")
+        if name == "magnet_node":
+            # off the path: K1 on the same Laplacian laid out flat, where
+            # every row (~2,560 entries) is cut
+            F = dual_with_knobs(inputs.arrays, D.num_nodes,
+                                STREAM_THRESHOLD_EDGES=D.col.numel() + 1)
+            rows = int((row_lengths(F) > 0).sum())
+            cut = F.row_split.rows.numel()
+            if F.blocks or cut != rows:
+                raise AssertionError(f"magnet_node flat: {cut} of {rows} "
+                                     f"rows cut, expected every row")
+            for width in EXPERIMENT_WIDTHS:
+                r = dual_kernel_case(F, width, torch.float32, seed=width)
+                r["shape"] = (f"magnet_node's Laplacian laid out flat "
+                              f"({cut} of {rows} rows cut): {r['shape']}")
+                cases[("magnet_node flat", width)] = r
+                log_case(f"csr_dual_spmm magnet_node flat 2F={width} "
+                         f"float32", r)
+            del F
+        del res, inputs, lap, D
+        torch.cuda.empty_cache()
+    return runs, cases
+
+
 def main():
     import torch
 
@@ -1500,7 +1752,8 @@ def main():
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
                         ("trainable_q", lambda smi: trainable_q_phase(
-                            smi, phases["magnet_mxu"][2]))):
+                            smi, phases["magnet_mxu"][2])),
+                        ("experiments", experiment_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -1509,6 +1762,7 @@ def main():
     k2, k2_own, k2_launches = phases["giant"]
     k5_cases, k5_launches = phases["bsr"]
     tq_cases, k4, tq_runs = phases["trainable_q"]
+    exp_runs, exp_cases = phases["experiments"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -1540,10 +1794,27 @@ def main():
                             "dual_sddmm.cu", "scatter_mxu.py:741"),
              "library": tq_cases[("csr_dual_sddmm", 64,
                                   torch.float32)]["library"]},
-        ],
+        ] + [
+            # K1 on msgnn_link's flat operator, K2 on a streamed block of
+            # magnet_node's and msgnn_node's, at each width of the paths
+            {**kernel_entry(kname, exp_cases[(path, width)],
+                            exp_runs[path]["launches"][kname],
+                            "scatter_csr.cu", replaces),
+             "path": path, "launches_per_step":
+                 exp_runs[path]["per_step"][kname]}
+            for path, kname, replaces in (
+                ("msgnn_link", "csr_dual_spmm", "scatter_mxu.py:503"),
+                ("magnet_node", "csr_dual_spmm_accum", "scatter_mxu.py:580"),
+                ("msgnn_node", "csr_dual_spmm_accum", "scatter_mxu.py:580"))
+            for width in EXPERIMENT_WIDTHS],
         # K1's and K2's own contracts and K4: tested, on no path this
         # script drives
         "off_path": [
+            # K1 on magnet_node's Laplacian laid out flat: every row cut
+            *[{**kernel_entry("csr_dual_spmm",
+                              exp_cases[("magnet_node flat", width)], 0,
+                              "scatter_csr.cu", "scatter_mxu.py:503"),
+               "path": None} for width in EXPERIMENT_WIDTHS],
             {**kernel_entry("csr_scatter_sum",
                             tq_cases[("csr_scatter_sum", 128)],
                             flat_launches["csr_scatter_sum"],

@@ -14,10 +14,13 @@ Layout mirrors the JAX package so a reader can find each counterpart:
   spectral/  host-side (numpy/scipy) magnetic Laplacians and the
              trainable-q templates.
   parallel/  the kernel tier across a device mesh.
-  data/      DSBM synthetic generator.
-  utils/     meta-graph generation.
-  nn/        MagNet layers and models as ``torch.nn.Module``s.
-  train/     full-batch trainer (Adam with coupled L2).
+  data/      DirectedData / SignedData containers, DSBM and SDSBM.
+  utils/     meta-graph generation, node and link splits, samplers.
+  nn/        MagNet and MSGNN layers and models as ``torch.nn.Module``s.
+  train/     full-batch trainer (Adam with coupled L2), masked NLL,
+             checkpoints, timing.
+  experiments/  magnet_node, magnet_link, msgnn_node and msgnn_link, run by
+             ``python -m pytorch_geometric_signed_directed_tpu_torch``.
 
 Device policy: every entry point that places tensors takes ``device=None``
 and ``None`` means ``"cuda"``.  Without CUDA it raises and asks for
@@ -34,7 +37,8 @@ from . import data  # noqa: F401
 from . import nn  # noqa: F401
 from . import parallel  # noqa: F401
 from . import train  # noqa: F401
+from . import experiments  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
 __all__ = ["ops", "graph", "spectral", "utils", "data", "nn", "parallel",
-           "train", "resolve_device", "__version__"]
+           "train", "experiments", "resolve_device", "__version__"]

@@ -1,4 +1,5 @@
-"""Carry MagNet weights over from the JAX package's parameter tree.
+"""Carry MagNet and MSGNN weights over from the JAX package's parameter
+tree.
 
 ``state_dict_from_jax`` takes the flax tree as nested dicts of numpy
 arrays (``jax.device_get(params)`` gives one) and returns the port's
@@ -10,7 +11,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_CONV = re.compile(r"MagNetConv_(\d+)$")
+_CONV = re.compile(r"(?:MagNetConv|MSConv)_(\d+)$")
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -18,9 +19,13 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     'q' [1]]}, 'Dense_0': {'kernel' [in,out], 'bias'}}}`` -> the state_dict
     of ``MagNet_node_classification`` / ``MagNet_link_prediction`` (or,
     for a bare ``{'params': {'weight', 'bias'[, 'q']}}``, of one
-    ``MagNetConv``).  The Dense kernel is transposed into the Linear
-    weight; a trainable-q conv's ``q`` leaf carries over as it is."""
-    tree = params.get("params", params)
+    ``MagNetConv``).  MSGNN's tree holds its convs one level down,
+    ``{'_MSGNNTrunk_0': {'MSConv_i': {...}}, 'Dense_0': ...}``, and maps
+    onto the state_dict of ``MSGNN_node_classification`` /
+    ``MSGNN_link_prediction``.  The Dense kernel is transposed into the
+    Linear weight; a trainable-q conv's ``q`` leaf carries over as it is."""
+    tree = dict(params.get("params", params))
+    tree.update(tree.pop("_MSGNNTrunk_0", {}))
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))

@@ -26,15 +26,11 @@ def _sample_directed_block(u_nodes, v_nodes, p, rng, same_block: bool):
     return r, c
 
 
-def DSBM(N: int, K: int, p: float, F: np.ndarray, size_ratio: float = 1,
-         rng: Optional[np.random.Generator] = None
-         ) -> Tuple[sp.spmatrix, np.ndarray]:
-    """Sample a directed SBM: returns (CSR adjacency [N, N], labels [N]).
-
-    Edge (u, v) with u in block i, v in block j appears with probability
-    ``p * |F[i, j]|`` and carries the sign of ``F[i, j]``."""
-    rng = rng or np.random.default_rng()
-    F = np.asarray(F, dtype=float)
+def _dsbm_core(N: int, K: int, p: float, F: np.ndarray, size_ratio: float,
+               rng: np.random.Generator):
+    """Blocks of sizes ``geometric_sizes``, edges of block pair (i, j) with
+    probability ``p * |F[i, j]|`` and the sign of ``F[i, j]``; the
+    generator of DSBM and SDSBM."""
     size = geometric_sizes(N, K, size_ratio)
     perm = rng.permutation(N)
     assign = np.zeros(N, dtype=int)
@@ -64,3 +60,14 @@ def DSBM(N: int, K: int, p: float, F: np.ndarray, size_ratio: float = 1,
     else:
         A = sp.csr_matrix((N, N))
     return A, assign
+
+
+def DSBM(N: int, K: int, p: float, F: np.ndarray, size_ratio: float = 1,
+         rng: Optional[np.random.Generator] = None
+         ) -> Tuple[sp.spmatrix, np.ndarray]:
+    """Sample a directed SBM: returns (CSR adjacency [N, N], labels [N]).
+
+    Edge (u, v) with u in block i, v in block j appears with probability
+    ``p * |F[i, j]|`` and carries the sign of ``F[i, j]``."""
+    rng = rng or np.random.default_rng()
+    return _dsbm_core(N, K, p, np.asarray(F, dtype=float), size_ratio, rng)

@@ -22,16 +22,19 @@ def _dropout(x: torch.Tensor, p: float,
 
 
 class _MagNetTrunk(nn.Module):
+    """The conv stack and the Linear head of MagNet (and, with ``conv`` =
+    MSConv and its ``conv_kw``, of MSGNN)."""
+
     def __init__(self, num_features, hidden, q, K, label_dim, activation,
                  trainable_q, layer, dropout, normalization, head_in,
-                 device, generator):
+                 device, generator, conv=MagNetConv, **conv_kw):
         super().__init__()
         device = resolve_device(device)
         self.activation, self.dropout = activation, dropout
         self.convs = nn.ModuleList([
-            MagNetConv(num_features if i == 0 else hidden, hidden, K, q=q,
-                       trainable_q=trainable_q, normalization=normalization,
-                       device=device, generator=generator)
+            conv(num_features if i == 0 else hidden, hidden, K, q=q,
+                 trainable_q=trainable_q, normalization=normalization,
+                 device=device, generator=generator, **conv_kw)
             for i in range(layer)])
         # built on "meta" so its default init draws nothing from the
         # global RNG; the weights come from ``generator``
@@ -47,10 +50,14 @@ class _MagNetTrunk(nn.Module):
                 real, imag = complex_relu(real, imag)
         return real, imag
 
-    def _head(self, x, training, generator):
+    def _drop(self, x, training, generator):
         if training and self.dropout > 0:
             x = _dropout(x, self.dropout, generator)
-        return torch.log_softmax(self.linear(x), dim=1)
+        return x
+
+    def _head(self, x, training, generator):
+        return torch.log_softmax(
+            self.linear(self._drop(x, training, generator)), dim=1)
 
 
 class MagNet_node_classification(_MagNetTrunk):

@@ -6,6 +6,7 @@ from .magnetic import (
     magnet_operator_arrays,
     magnet_propagators,
     magnetic_laplacian,
+    magnetic_pair,
     magnetic_signed_laplacian,
     magnetic_template,
     template_dual,
@@ -14,6 +15,6 @@ from .magnetic import (
 )
 
 __all__ = ["MagneticPair", "MagneticTemplate", "magnet_operator_arrays",
-           "magnet_propagators", "magnetic_laplacian",
+           "magnet_propagators", "magnetic_laplacian", "magnetic_pair",
            "magnetic_signed_laplacian", "magnetic_template", "template_dual",
            "template_dual_apply", "template_propagators"]

@@ -268,10 +268,17 @@ def magnet_propagators(
     """Build the scaled Chebyshev operator pair (L_hat_re, L_hat_im) of
     ``magnet_operator_arrays`` on ``device`` (None means "cuda")."""
     device = resolve_device(device)
-    row, col, vre, vim, num_nodes = magnet_operator_arrays(
+    return magnetic_pair(*magnet_operator_arrays(
         edge_index, edge_weight, q=q, normalization=normalization,
         num_nodes=num_nodes, lambda_max=lambda_max, signed=signed,
-        absolute_degree=absolute_degree)
+        absolute_degree=absolute_degree), mode=mode, device=device)
+
+
+def magnetic_pair(row, col, vre, vim, num_nodes: int, mode: str = "auto",
+                  device: DeviceLike = None) -> MagneticPair:
+    """The operator pair of ``magnet_operator_arrays``' output on
+    ``device`` (None means "cuda"), in the tier ``mode`` picks."""
+    device = resolve_device(device)
     dual = dual_propagator(row, col, vre, vim, num_nodes, mode=mode,
                            device=device)
     # on the kernel tier the dual carries the hot path and the single

@@ -9,7 +9,10 @@ bf16 messages and "default" matmul precision as the bench runs it), or
 with ``--bsr`` the bench's headline graph (DSBM N=8192, average degree 24)
 on the ``bsr`` tier, or with ``--trainable-q`` the magnet_mxu graph with
 trainable q from 0.25 on a flat mxu template (``--sharded``: on the
-one-card sharded template, ``local_mesh()``); times
+one-card sharded template, ``local_mesh()``), or with ``--experiment
+NAME`` the training step of that experiment (magnet_node, magnet_link,
+msgnn_node, msgnn_link) at its default widths on ``--dataset synthetic
+--num_nodes N`` (9000 by default; magnet_link's first split); times
 steps with CUDA events, then traces a window of steps with torch.profiler
 and prints device time by kernel, each of the port's kernels named by the
 wrapper that launches it, and the device's busy share of the window.
@@ -17,9 +20,11 @@ wrapper that launches it, and the device's busy share of the window.
 Run from the root of the checkout:
 
     python3 scripts/profile_torch_magnet_step.py [--steps 20]
-        [--giant | --bsr | --trainable-q [--sharded]]
+        [--giant | --bsr | --trainable-q [--sharded]
+         | --experiment NAME [--num_nodes N]]
 """
 import argparse
+import importlib
 import os
 import statistics
 import subprocess
@@ -96,6 +101,28 @@ def giant_setup():
     return len(row), x, y, lap
 
 
+def experiment_setup(name, num_nodes):
+    """(input edges, Laplacian pair, (trainer, state, batch)) of one
+    training step of experiment ``name``, as its ``train_split`` makes
+    it."""
+    mod = importlib.import_module(
+        f"pytorch_geometric_signed_directed_tpu_torch.experiments.{name}")
+    args = mod.parser().parse_args(["--dataset", "synthetic", "--num_nodes",
+                                    str(num_nodes), "--device", "cuda"])
+    inputs = mod.build_inputs(args, "cuda")
+    print(f"host seconds: {inputs.seconds}")
+    if name == "magnet_link":
+        s = mod.split_inputs(args, inputs, 0)
+        print(f"split host seconds: {s.seconds}")
+        return s.graph_edges, s.lap, mod.make_trainer(
+            args, s, mod.make_model(args, inputs))
+    if name == "msgnn_link":
+        return inputs.graph_edges, inputs.lap, mod.make_trainer(
+            args, inputs, mod.make_model(args, inputs))
+    return inputs.num_edges, inputs.lap, mod.make_trainer(
+        args, inputs, 0, mod.make_model(args, inputs, 0))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -107,8 +134,14 @@ def main():
                        help="the N=8192 graph on the bsr tier")
     which.add_argument("--trainable-q", action="store_true",
                        help="trainable q on the magnet_mxu graph's template")
+    which.add_argument("--experiment",
+                       choices=("magnet_node", "magnet_link", "msgnn_node",
+                                "msgnn_link"),
+                       help="an experiment's training step")
     ap.add_argument("--sharded", action="store_true",
                     help="with --trainable-q: the one-card sharded template")
+    ap.add_argument("--num_nodes", type=int, default=9000,
+                    help="with --experiment: the synthetic graph's nodes")
     args = ap.parse_args()
     if args.sharded and not args.trainable_q:
         ap.error("--sharded goes with --trainable-q")
@@ -120,7 +153,10 @@ def main():
         text=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
 
-    if args.giant:
+    step = None
+    if args.experiment:
+        e, lap, step = experiment_setup(args.experiment, args.num_nodes)
+    elif args.giant:
         e, x, y, lap = giant_setup()
         spmm.set_message_dtype("bf16")
         spmm.set_matmul_precision("default")
@@ -141,21 +177,23 @@ def main():
                   + ("two single bsr operators" if d is None
                      else f"{len(d.blocks)} blocks ({d.hot_blocks} hot)"
                      if d.blocks else "flat"))
-    model = MagNet_node_classification(
-        num_features=2, hidden=32, K=2, label_dim=5, activation=True,
-        layer=2, trainable_q=args.trainable_q, q=0.25,
-        generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(
-        lambda m: torch.nn.functional.nll_loss(m(x, x, lap), y), lr=1e-2)
-    state = trainer.init(model)
+    if step is None:
+        model = MagNet_node_classification(
+            num_features=2, hidden=32, K=2, label_dim=5, activation=True,
+            layer=2, trainable_q=args.trainable_q, q=0.25,
+            generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(
+            lambda m: torch.nn.functional.nll_loss(m(x, x, lap), y), lr=1e-2)
+        step = trainer, trainer.init(model), ()
+    trainer, state, batch = step
 
     for _ in range(5):                     # warm-up: cuBLAS, Adam state
-        trainer.step_async(state)
+        trainer.step_async(state, *batch)
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(args.steps + 1)]
     ev[0].record()
     for i in range(args.steps):
-        trainer.step_async(state)
+        trainer.step_async(state, *batch)
         ev[i + 1].record()
     torch.cuda.synchronize()
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(args.steps)]
@@ -173,7 +211,7 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         a.record()
         for _ in range(args.steps):
-            trainer.step_async(state)
+            trainer.step_async(state, *batch)
         b.record()
         torch.cuda.synchronize()
     window_ms = a.elapsed_time(b)

@@ -1,0 +1,391 @@
+"""Port experiments vs the JAX package's: the host inputs each builds
+(data, masks or splits, features, Laplacian arrays) are bit-equal; five
+Adam steps from carried-over weights give the same losses and log-probs;
+``main`` prints the JAX experiment's lines; the CLI dispatches."""
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pytorch_geometric_signed_directed_tpu.experiments as jx_experiments
+from pytorch_geometric_signed_directed_tpu.data import (
+    DSBM as jx_DSBM, DirectedData as JxDirectedData, SDSBM as jx_SDSBM,
+    SignedData as JxSignedData)
+from pytorch_geometric_signed_directed_tpu.graph import (
+    in_out_degree as jx_in_out_degree)
+from pytorch_geometric_signed_directed_tpu.nn import (
+    MSGNN_link_prediction as JxMSGNNLink,
+    MSGNN_node_classification as JxMSGNNNode,
+    MagNet_link_prediction as JxMagNetLink,
+    MagNet_node_classification as JxMagNetNode)
+from pytorch_geometric_signed_directed_tpu.spectral import (
+    magnet_propagators as jx_magnet_propagators)
+from pytorch_geometric_signed_directed_tpu.train import Trainer as JxTrainer
+from pytorch_geometric_signed_directed_tpu.utils import (
+    link_class_split as jx_link_class_split,
+    meta_graph_generation as jx_meta_graph_generation)
+
+import pytorch_geometric_signed_directed_tpu_torch.__main__ as cli
+from pytorch_geometric_signed_directed_tpu_torch.convert import (
+    state_dict_from_jax)
+from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+    EXPERIMENTS, NOT_PORTED, magnet_link, magnet_node, msgnn_link,
+    msgnn_node, run)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+N = 80
+
+
+def assert_same(a, b, path="out"):
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_same(a[k], b[k], f"{path}[{k!r}]")
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        assert x.dtype == y.dtype, (path, x.dtype, y.dtype)
+        np.testing.assert_array_equal(x, y, err_msg=path)
+
+
+def assert_same_laplacian(arrays, edge_index, w, n, **kw):
+    """The port's (row, col, vre, vim) equal the JAX segment-tier dual's."""
+    D = jx_magnet_propagators(edge_index, w, num_nodes=n, mode="segment",
+                              **kw).dual
+    nnz = len(arrays[0])
+    assert nnz > n
+    assert_same(arrays[0], np.asarray(D.row)[:nnz].astype(np.int64))
+    assert_same(arrays[1], np.asarray(D.col)[:nnz].astype(np.int64))
+    assert_same(arrays[2].astype(np.float32), np.asarray(D.val_a)[:nnz])
+    assert_same(arrays[3].astype(np.float32), np.asarray(D.val_b)[:nnz])
+    assert np.all(np.asarray(D.row)[nnz:] == n)
+
+
+def jx_steps(loss_fn, params, lr, weight_decay=0.0, steps=5):
+    tr = JxTrainer(loss_fn, lr=lr, weight_decay=weight_decay)
+    st = tr.init(params)
+    return [tr.step(st) for _ in range(steps)], st.params
+
+
+def load(model, params):
+    model.load_state_dict(state_dict_from_jax(jax.device_get(params)))
+    return model
+
+
+SYN = ["--dataset", "synthetic", "--num_nodes", str(N), "--device", "cpu"]
+
+
+# --- magnet_node -----------------------------------------------------------
+
+def jx_magnet_node_inputs(seed=0, q=0.2):
+    F = jx_meta_graph_generation("cyclic", 5, 0.05, False)
+    A, y = jx_DSBM(N, 5, 0.3, F, rng=np.random.default_rng(seed))
+    data = JxDirectedData(A=A, y=y)
+    data.node_split(train_size_per_class=0.6, val_size_per_class=0.2,
+                    data_split=2)
+    w = np.ones_like(np.asarray(data.edge_weight, np.float32))
+    x = jx_in_out_degree(data.edge_index, N, edge_weight=w)
+    x = np.asarray(x / max(x.max(), 1.0))
+    lap = jx_magnet_propagators(data.edge_index, w, q=q, num_nodes=N)
+    return data, w, x, lap
+
+
+def test_magnet_node_inputs_bit_equal():
+    args = magnet_node.parser().parse_args(SYN)
+    got = magnet_node.build_inputs(args, "cpu")
+    data, w, x, lap = jx_magnet_node_inputs()
+    for name in ("edge_index", "edge_weight", "y", "train_mask", "val_mask",
+                 "test_mask", "seed_mask"):
+        assert_same(getattr(got.data, name), getattr(data, name), name)
+    assert_same(got.x.numpy(), x)
+    assert_same_laplacian(got.arrays, data.edge_index, w, N, q=0.2)
+    assert got.lap.re.mode == "dense"
+    assert_same(got.lap.re.dense.numpy(), np.asarray(lap[0].dense))
+    assert_same(got.lap.im.dense.numpy(), np.asarray(lap[1].dense))
+    assert set(got.seconds) == {"graph", "features", "laplacian", "layout"}
+
+
+def test_magnet_node_five_steps_match_jax():
+    args = magnet_node.parser().parse_args(
+        SYN + ["--epochs", "5", "--dropout", "0"])
+    inputs = magnet_node.build_inputs(args, "cpu")
+    data, _, x, lap = jx_magnet_node_inputs()
+    y = jnp.asarray(data.y)
+    mask = jnp.asarray(data.train_mask[:, 1].astype(np.float32))
+    jmodel = JxMagNetNode(num_features=2, hidden=64, K=2, q=0.2,
+                          label_dim=5, activation=True, dropout=0.0)
+    params = jmodel.init(jax.random.PRNGKey(1), x, x, lap)
+
+    def jloss(p):
+        logp = jmodel.apply(p, x, x, lap)
+        per_node = -logp[jnp.arange(N), y] * mask
+        return per_node.sum() / jnp.maximum(mask.sum(), 1.0)
+
+    jlosses, jparams = jx_steps(jloss, params, 5e-3, 5e-4)
+    model = load(magnet_node.make_model(args, inputs, 1), params)
+    r = magnet_node.train_split(args, inputs, 1, model=model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    assert r["steps"] == 5 and r["evals"] == 5 and len(r["step_ms"]) == 5
+    with torch.no_grad():
+        logp = model(inputs.x, inputs.x, inputs.lap)
+    np.testing.assert_allclose(logp.numpy(),
+                               np.asarray(jmodel.apply(jparams, x, x, lap)),
+                               **TOL)
+
+
+# --- magnet_link -----------------------------------------------------------
+
+def jx_magnet_link(seed=0):
+    F = jx_meta_graph_generation("path", 3, 0.05, False)
+    A, y = jx_DSBM(N, 3, 0.3, F, rng=np.random.default_rng(seed))
+    data = JxDirectedData(A=A, y=y)
+    datasets = jx_link_class_split(data, splits=2, task="direction",
+                                   seed=seed)
+    g = datasets[0]["graph"]
+    w = np.ones_like(np.asarray(datasets[0]["weights"], np.float32))
+    x = jx_in_out_degree(g, N, edge_weight=w)
+    x = np.asarray(x / max(x.max(), 1.0))
+    lap = jx_magnet_propagators(g, w, q=0.25, num_nodes=N)
+    return data, datasets, g, w, x, lap
+
+
+def test_magnet_link_inputs_bit_equal():
+    args = magnet_link.parser().parse_args(SYN)
+    got = magnet_link.build_inputs(args, "cpu")
+    s = magnet_link.split_inputs(args, got, 0)
+    data, datasets, g, w, x, _ = jx_magnet_link()
+    assert_same(got.data.edge_index, data.edge_index)
+    assert_same(got.datasets, datasets)
+    assert_same(s.x.numpy(), x)
+    assert_same_laplacian(s.arrays, g, w, N, q=0.25)
+    assert_same(s.tr_e.numpy(), datasets[0]["train"]["edges"])
+    assert_same(s.te_y, datasets[0]["test"]["label"])
+    assert set(got.seconds) == {"graph", "link_split"}
+    assert set(s.seconds) == {"features", "laplacian", "layout"}
+
+
+def test_magnet_link_five_steps_match_jax():
+    args = magnet_link.parser().parse_args(SYN + ["--epochs", "5"])
+    inputs = magnet_link.build_inputs(args, "cpu")
+    s = magnet_link.split_inputs(args, inputs, 0)
+    _, datasets, _, _, x, lap = jx_magnet_link()
+    tr_e = jnp.asarray(datasets[0]["train"]["edges"])
+    tr_y = jnp.asarray(datasets[0]["train"]["label"])
+    te_e = jnp.asarray(datasets[0]["test"]["edges"])
+    jmodel = JxMagNetLink(num_features=2, hidden=16, K=2, q=0.25,
+                          label_dim=2, activation=True)
+    params = jmodel.init(jax.random.PRNGKey(0), x, x, lap, tr_e)
+
+    def jloss(p):
+        logp = jmodel.apply(p, x, x, lap, tr_e)
+        return -jnp.mean(logp[jnp.arange(tr_e.shape[0]), tr_y])
+
+    jlosses, jparams = jx_steps(jloss, params, 5e-3)
+    model = load(magnet_link.make_model(args, inputs), params)
+    r = magnet_link.train_split(args, inputs, s, model=model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    with torch.no_grad():
+        logp = model(s.x, s.x, s.lap, s.te_e)
+    np.testing.assert_allclose(
+        logp.numpy(), np.asarray(jmodel.apply(jparams, x, x, lap, te_e)),
+        **TOL)
+
+
+# --- msgnn_node ------------------------------------------------------------
+
+def jx_msgnn_node(seed=0):
+    F = jx_meta_graph_generation("cyclic", 3, 0.05, False)
+    F[0, 1] = -abs(F[0, 1])
+    F[1, 0] = -abs(F[1, 0])
+    A, y = jx_SDSBM(N, 3, 0.1, F, eta=0.1, rng=np.random.default_rng(seed))
+    data = JxSignedData(A=A, y=y)
+    data.node_split(train_size_per_class=0.6, val_size_per_class=0.2,
+                    data_split=2)
+    x = jx_in_out_degree(data.edge_index, N, signed=True,
+                         edge_weight=data.edge_weight)
+    x = np.asarray(x / max(np.abs(x).max(), 1.0))
+    lap = jx_magnet_propagators(data.edge_index, data.edge_weight, q=0.25,
+                                num_nodes=N, signed=True)
+    return data, x, lap
+
+
+def test_msgnn_node_inputs_bit_equal():
+    args = msgnn_node.parser().parse_args(SYN)
+    got = msgnn_node.build_inputs(args, "cpu")
+    data, x, _ = jx_msgnn_node()
+    for name in ("edge_index", "edge_weight", "y", "train_mask", "val_mask",
+                 "test_mask"):
+        assert_same(getattr(got.data, name), getattr(data, name), name)
+    assert got.data.is_signed
+    assert_same(got.x.numpy(), x)
+    assert_same_laplacian(got.arrays, data.edge_index, data.edge_weight, N,
+                          q=0.25, signed=True)
+
+
+def test_msgnn_node_five_steps_match_jax():
+    args = msgnn_node.parser().parse_args(SYN + ["--epochs", "5"])
+    inputs = msgnn_node.build_inputs(args, "cpu")
+    data, x, lap = jx_msgnn_node()
+    y = jnp.asarray(data.y)
+    mask = jnp.asarray(data.train_mask[:, 0].astype(np.float32))
+    jmodel = JxMSGNNNode(num_features=4, hidden=16, K=1, q=0.25,
+                         label_dim=3)
+    params = jmodel.init(jax.random.PRNGKey(0), x, x, lap)
+
+    def jloss(p):
+        _, logp, _, _ = jmodel.apply(p, x, x, lap)
+        per_node = -logp[jnp.arange(N), y] * mask
+        return per_node.sum() / jnp.maximum(mask.sum(), 1.0)
+
+    jlosses, jparams = jx_steps(jloss, params, 1e-2, 5e-4)
+    model = load(msgnn_node.make_model(args, inputs, 0), params)
+    r = msgnn_node.train_split(args, inputs, 0, model=model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    with torch.no_grad():
+        logp = model(inputs.x, inputs.x, inputs.lap)[1]
+    np.testing.assert_allclose(
+        logp.numpy(), np.asarray(jmodel.apply(jparams, x, x, lap)[1]), **TOL)
+
+
+# --- msgnn_link ------------------------------------------------------------
+
+def jx_msgnn_link(task="four_class_signed_digraph", features="sd4",
+                  seed=0):
+    F = jx_meta_graph_generation("cyclic", 3, 0.05, False)
+    F[0, 1] = -abs(F[0, 1])
+    A, y = jx_SDSBM(N, 3, 0.1, F, eta=0.1, rng=np.random.default_rng(seed))
+    data = JxSignedData(A=A, y=y)
+    datasets = jx_link_class_split(data, splits=1, task=task, seed=seed,
+                                   maintain_connect=False)
+    g, w = datasets[0]["graph"], datasets[0]["weights"]
+    if features == "sd4":
+        d = JxSignedData(edge_index=np.asarray(g), edge_weight=np.asarray(w))
+        d.separate_positive_negative()
+        x = np.concatenate([np.asarray(jx_in_out_degree(d.edge_index_p, N)),
+                            np.asarray(jx_in_out_degree(d.edge_index_n, N))],
+                           axis=1)
+    elif features == "uw2":
+        x = jx_in_out_degree(g, N)
+    else:
+        x = jx_in_out_degree(g, N, signed=True, edge_weight=w)
+    x = np.asarray(x, np.float32)
+    x = np.asarray(x / max(np.abs(x).max(), 1.0))
+    lap = jx_magnet_propagators(g, w, q=0.0, num_nodes=N, signed=True)
+    return datasets, g, w, x, lap
+
+
+@pytest.mark.parametrize("task,features", [
+    ("four_class_signed_digraph", "sd4"), ("five_class_signed_digraph", "w4"),
+    ("sign", "uw2")])
+def test_msgnn_link_inputs_bit_equal(task, features):
+    args = msgnn_link.parser().parse_args(
+        SYN + ["--task", task, "--features", features])
+    got = msgnn_link.build_inputs(args, "cpu")
+    datasets, g, w, x, _ = jx_msgnn_link(task, features)
+    assert_same(got.datasets, datasets)
+    assert_same(got.x.numpy(), x)
+    assert_same_laplacian(got.arrays, g, w, N, q=0.0, signed=True)
+    assert got.label_dim == {"four_class_signed_digraph": 4,
+                             "five_class_signed_digraph": 5,
+                             "sign": 2}[task]
+
+
+def test_msgnn_link_five_steps_match_jax():
+    args = msgnn_link.parser().parse_args(SYN + ["--epochs", "5"])
+    inputs = msgnn_link.build_inputs(args, "cpu")
+    datasets, _, _, x, lap = jx_msgnn_link()
+    tr_e = jnp.asarray(datasets[0]["train"]["edges"])
+    tr_y = jnp.asarray(datasets[0]["train"]["label"])
+    te_e = jnp.asarray(datasets[0]["test"]["edges"])
+    jmodel = JxMSGNNLink(num_features=4, hidden=64, K=1, q=0.0,
+                         label_dim=4)
+    params = jmodel.init(jax.random.PRNGKey(0), x, x, lap, tr_e)
+
+    def jloss(p):
+        logp, _ = jmodel.apply(p, x, x, lap, tr_e)
+        return -jnp.mean(logp[jnp.arange(tr_e.shape[0]), tr_y])
+
+    jlosses, jparams = jx_steps(jloss, params, 1e-2)
+    model = load(msgnn_link.make_model(args, inputs), params)
+    r = msgnn_link.train_split(args, inputs, model=model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    with torch.no_grad():
+        logp = model(inputs.x, inputs.x, inputs.lap, inputs.te_e)[0]
+    np.testing.assert_allclose(
+        logp.numpy(), np.asarray(jmodel.apply(jparams, x, x, lap, te_e)[0]),
+        **TOL)
+
+
+# --- main and the CLI ------------------------------------------------------
+
+def template(text):
+    """Printed lines with every number replaced by '#'."""
+    return [re.sub(r"\d+(\.\d+)?", "#", line) for line in
+            text.strip().splitlines()]
+
+
+MAIN_ARGS = {
+    "magnet_node": ["--num_nodes", "80", "--epochs", "5"],
+    "magnet_link": ["--num_nodes", "80", "--epochs", "5", "--splits", "1"],
+    "msgnn_node": ["--num_nodes", "150", "--epochs", "3"],
+    "msgnn_link": ["--num_nodes", "100", "--epochs", "5"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAIN_ARGS))
+def test_main_prints_the_jax_lines(name, capsys):
+    argv = ["--dataset", "synthetic"] + MAIN_ARGS[name]
+    out = run(name, argv + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    jx_experiments.run(name, argv)
+    want = capsys.readouterr().out
+    assert template(got) == template(want)
+    assert len(out["accs"]) == len(out["seconds"]) == len(template(got)) - (
+        0 if name == "msgnn_link" else 1)
+    assert all(0.0 <= a <= 1.0 for a in out["accs"])
+    assert {"graph", "laplacian", "layout"} <= set(out["host_seconds"])
+
+
+@pytest.mark.parametrize("name", sorted(MAIN_ARGS))
+def test_without_device_the_experiments_need_cuda(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(name, ["--dataset", "synthetic"] + MAIN_ARGS[name])
+
+
+@pytest.mark.parametrize("name,dataset", [
+    ("magnet_node", "telegram"), ("magnet_link", "cora_ml"),
+    ("msgnn_node", "bitcoin_alpha"), ("msgnn_link", "bitcoin_alpha")])
+def test_a_real_dataset_raises(name, dataset):
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        run(name, ["--dataset", dataset, "--device", "cpu"])
+
+
+def test_registry_and_cli(capsys):
+    assert set(EXPERIMENTS) == {"magnet_node", "magnet_link", "msgnn_node",
+                                "msgnn_link"}
+    # every experiment of the JAX package is either ported or named as not
+    assert set(EXPERIMENTS) | set(NOT_PORTED) == set(
+        jx_experiments.EXPERIMENTS)
+    cli.main(["--list"])
+    listing = capsys.readouterr().out
+    assert all(name in listing for name in EXPERIMENTS)
+    with pytest.raises(SystemExit, match="not ported"):
+        cli.main(["digrac"])
+    with pytest.raises(SystemExit, match="unknown experiment"):
+        cli.main(["no_such_experiment"])
+
+
+def test_python_m_runs_an_experiment(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_geometric_signed_directed_tpu_torch",
+         "msgnn_node", "--dataset", "synthetic", "--num_nodes", "60",
+         "--epochs", "2", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300,
+        cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    assert proc.returncode == 0, proc.stderr
+    assert "mean test acc" in proc.stdout

@@ -42,18 +42,29 @@ def test_the_prefix_rule_does_not_match_the_port_itself():
 
 
 def _entry_points():
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import run
     from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        MSConv, MSGNN_link_prediction, MSGNN_node_classification,
         MagNetConv, MagNet_node_classification)
     from pytorch_geometric_signed_directed_tpu_torch.ops import (
         build_coo, dual_propagator, make_propagator)
     from pytorch_geometric_signed_directed_tpu_torch.parallel import (
         local_mesh, make_mesh)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
-        magnet_propagators, magnetic_template)
+        magnet_operator_arrays, magnet_propagators, magnetic_pair,
+        magnetic_template)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
     ei = np.array([[0, 1, 2], [1, 2, 0]])
     one = np.ones(3)
+
+    def experiment(name, *argv):
+        def go(device=None):
+            dev = [] if device is None else ["--device", device]
+            return run(name, ["--dataset", "synthetic", "--num_nodes", "40",
+                              "--epochs", "1", *argv, *dev])
+        return go
+
     return {
         "magnet_propagators": lambda **kw: magnet_propagators(ei, **kw),
         "magnetic_template": lambda **kw: magnetic_template(ei, **kw),
@@ -69,6 +80,16 @@ def _entry_points():
         "MagNet_node_classification":
             lambda **kw: MagNet_node_classification(2, **kw),
         "Trainer": lambda **kw: Trainer(lambda m: 0, **kw),
+        "magnetic_pair": lambda **kw: magnetic_pair(
+            *magnet_operator_arrays(ei), **kw),
+        "MSConv": lambda **kw: MSConv(2, 2, 1, **kw),
+        "MSGNN_node_classification":
+            lambda **kw: MSGNN_node_classification(4, **kw),
+        "MSGNN_link_prediction": lambda **kw: MSGNN_link_prediction(4, **kw),
+        "experiment magnet_node": experiment("magnet_node"),
+        "experiment magnet_link": experiment("magnet_link", "--splits", "1"),
+        "experiment msgnn_node": experiment("msgnn_node"),
+        "experiment msgnn_link": experiment("msgnn_link"),
     }
 
 
