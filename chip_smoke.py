@@ -67,6 +67,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    times each (one call between events, and 20 back to back) beside its
    bound and two cuSPARSE products; off the path, K1 the same way on
    magnet_node's Laplacian laid out flat, where every row is cut.
+8. Directed families phase: DIGRAC, DiGCN and DGCN.  The ``digrac``
+   experiment through its ``main(argv)`` at ``--N 9000 --epochs 30`` and
+   its own defaults (K=3, Hermitian features, hidden 32, hop 2: K1 on the
+   two walk operators at W=32 and on A and A^T at W=3); bench.py's digrac
+   cell (N=65,536, E=2,000,000 uniform edges, K=5) trained 30 steps with
+   the (P_A, P_AT) pair and 30 with the fused duals
+   (``rw_norm_dual_propagator``, ``adj_dual_propagator``), whose first
+   losses must agree at 1e-5; bench.py's DiGCN inception cell (N=65,536,
+   average degree 15, two stand-in operators, hidden 32, 5 labels); DGCN
+   at dgcn_node's hidden 32 on that graph through its own operators
+   (``directed_features_in_out``: the in and out graphs stream, K2); and
+   ``dgcn_link``, ``digcn_link`` and ``digcn_inception_link`` through
+   ``main(argv)`` at ``--dataset synthetic --splits 1 --epochs 30`` and
+   their default 1,000 nodes (the dense tier: no kernel launch).  Each
+   run must launch exactly what its layouts imply, for the run and for
+   each step, and its loss must fall.  Holds K1 on single operators
+   (the digrac P_s at W=3 and 32, the bench P_s at W=5 and 32), K1 on
+   the two fused duals (2F=64, 2K=10) and K2 on block 0 of DGCN's
+   streamed A_in (W=32) against their plain versions, timed beside their
+   bound and one (or two) cuSPARSE products.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -110,6 +130,19 @@ EXPERIMENT_ARGV = {"magnet_node": [], "magnet_link": ["--splits", "1"],
 # 2F of the applies on their paths: MagNet's 2 degree features, MSGNN's 4
 # signed ones, hidden 16 and hidden 64
 EXPERIMENT_WIDTHS = (4, 8, 32, 128)
+# phase 8: the digrac experiment at N=9000 with its own defaults (K=3,
+# p=0.1, hermitian features, hidden 32, hop 2), 30 epochs; bench.py's
+# digrac cell (bench.py:409-461, run at :641) and its DiGCN inception cell
+# (bench.py:522-567, :643), DGCN at dgcn_node's hidden 32 on the latter's
+# graph; the three link experiments at their default 1,000 nodes
+DIGRAC_ARGV = ["--N", "9000", "--epochs", "30"]
+BENCH_DIGRAC = dict(nodes=65_536, edges=2_000_000, k=5, steps=30)
+DIGCN_GRAPH = dict(nodes=65_536, avg_deg=15, steps=30)
+DGCN_HIDDEN = 32
+LINK_EXPERIMENTS = ("dgcn_link", "digcn_link", "digcn_inception_link")
+LINK_ARGV = ["--dataset", "synthetic", "--splits", "1", "--epochs", "30"]
+# steps traced by torch.profiler for each phase-8 path's device time
+PROFILE_STEPS = 10
 # f32: the kernels sum in compensated float32, the plain versions in
 # float64 (with atomics, in no fixed order)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -282,8 +315,10 @@ def log_case(label, r):
 # magnet_mxu: K1
 
 
-def dual_kernel_case(D, width, dtype, seed):
-    """Kernel vs plain vs library on operator D at one width and type."""
+def dual_kernel_case(D, width, dtype, seed, single=False):
+    """Kernel vs plain vs library on operator D at one width and type.
+    ``single``: D is one operator (``single_view``), applied to every lane
+    (fa = width), and the library call is one ``torch.sparse.mm``."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
         scatter_csr)
@@ -291,7 +326,7 @@ def dual_kernel_case(D, width, dtype, seed):
     n, m, nnz = D.num_nodes, D.num_cols, D.col.numel()
     gen = torch.Generator(device=DEV).manual_seed(seed)
     x = torch.randn(m, width, device=DEV, generator=gen).to(dtype)
-    fa = width // 2
+    fa = width if single else width // 2
     args = (D.rowptr, D.col, D.val_a, D.val_b, x, fa)
     got = scatter_csr.csr_dual_spmm(*args, D.row_split)
     want = scatter_csr.csr_dual_spmm_plain(*args)
@@ -305,9 +340,14 @@ def dual_kernel_case(D, width, dtype, seed):
         lambda: scatter_csr.csr_dual_spmm(*args, D.row_split))
     plain_ms = time_ms(lambda: scatter_csr.csr_dual_spmm_plain(*args))
     library_ms = None
-    if dtype == torch.float32:
+    rp, cl = D.rowptr.long(), D.col.long()
+    if dtype == torch.float32 and single:
+        # yardstick only: one cuSPARSE product
+        A = torch.sparse_csr_tensor(rp, cl, D.val_a, size=(n, m))
+        torch.testing.assert_close(torch.sparse.mm(A, x), want, **F32_TOL)
+        library_ms = time_ms(lambda: torch.sparse.mm(A, x))
+    elif dtype == torch.float32:
         # yardstick only: two cuSPARSE products, A x_a and B x_b
-        rp, cl = D.rowptr.long(), D.col.long()
         A = torch.sparse_csr_tensor(rp, cl, D.val_a, size=(n, m))
         B = torch.sparse_csr_tensor(rp, cl, D.val_b, size=(n, m))
         xa, xb = x[:, :fa].contiguous(), x[:, fa:].contiguous()
@@ -315,7 +355,9 @@ def dual_kernel_case(D, width, dtype, seed):
         torch.testing.assert_close(lib, want, **F32_TOL)
         library_ms = time_ms(lambda: (torch.sparse.mm(A, xa),
                                       torch.sparse.mm(B, xb)))
-    nbytes = 4 * (n + 1) + 12 * nnz + x.numel() * x.element_size() + 4 * n * width
+    # one value array a single operator, two a dual
+    nbytes = (4 * (n + 1) + (8 if single else 12) * nnz
+              + x.numel() * x.element_size() + 4 * n * width)
     b_ms, b_by = bound(nbytes, 2 * nnz * width)
     return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -511,6 +553,16 @@ def per_apply(d):
     return {"csr_dual_spmm": 1}
 
 
+def count_applies(applies):
+    """The K1/K2 wrapper calls of ``applies``: each (d, k) is k applies of
+    one direction d (a CSR or a DualPropagator) of the kernel tier."""
+    expected = {}
+    for d, k in applies:
+        for name, count in per_apply(d).items():
+            expected[name] = expected.get(name, 0) + k * count
+    return {name: v for name, v in expected.items() if v}
+
+
 def plain_apply(d, x, fa):
     """The plain version of one split or streamed apply: the same blocks
     in the same order, each through K2's plain version."""
@@ -532,15 +584,15 @@ def plain_apply(d, x, fa):
 
 
 def accum_kernel_case(D, b, table_rows, width, dtype, seed,
-                      what="block 0 of the giant dual"):
+                      what="block 0 of the giant dual", single=False):
     """K2 alone on block ``b`` of ``D``, into a non-zero output: kernel vs
-    plain vs two cuSPARSE ``addmm``."""
+    plain vs two cuSPARSE ``addmm`` (one, for a ``single`` operator)."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
         scatter_csr)
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    n, fa = D.num_nodes, width // 2
+    n, fa = D.num_nodes, width if single else width // 2
     rows, nnz = b.rowptr.numel() - 1, b.e1 - b.e0
     x = torch.randn(table_rows, width, device=DEV, generator=gen).to(dtype)
     out0 = torch.randn(n, width, device=DEV, generator=gen)
@@ -563,9 +615,16 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed,
     plain_ms = time_ms(
         lambda: scatter_csr.csr_dual_spmm_accum_plain(*args, out0, b.row0))
     library_ms = None
-    if dtype == torch.float32:
+    rp, cl = b.rowptr.long(), args[1].long()
+    if dtype == torch.float32 and single:
+        # yardstick only: out + A x by cuSPARSE
+        A = torch.sparse_csr_tensor(rp, cl, args[2], size=(rows, table_rows))
+        o = out0[b.row0:b.row0 + rows]
+        torch.testing.assert_close(torch.addmm(o, A, x),
+                                   want[b.row0:b.row0 + rows], **LIBRARY_TOL)
+        library_ms = time_ms(lambda: torch.addmm(o, A, x))
+    elif dtype == torch.float32:
         # yardstick only: out_a + A x_a and out_b + B x_b by cuSPARSE
-        rp, cl = b.rowptr.long(), args[1].long()
         A = torch.sparse_csr_tensor(rp, cl, args[2], size=(rows, table_rows))
         B = torch.sparse_csr_tensor(rp, cl, args[3], size=(rows, table_rows))
         oa = out0[b.row0:b.row0 + rows, :fa].contiguous()
@@ -577,8 +636,8 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed,
         library_ms = time_ms(lambda: (torch.addmm(oa, A, xa),
                                       torch.addmm(ob, B, xb)))
     # K1's bytes, with the output rows read as well as written
-    nbytes = (4 * (rows + 1) + 12 * nnz + x.numel() * x.element_size()
-              + 8 * rows * width)
+    nbytes = (4 * (rows + 1) + (8 if single else 12) * nnz
+              + x.numel() * x.element_size() + 8 * rows * width)
     b_ms, b_by = bound(nbytes, 2 * nnz * width)
     return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1545,12 +1604,8 @@ def experiment_launches(D, K, layers, steps, evals):
     dual ``D``: a forward applies D K times a layer; the backward applies
     D's transpose K times in every layer but the first, whose input needs
     no gradient."""
-    expected = {}
-    for d, k in ((D, (steps + evals) * layers * K),
-                 (D.transposed, steps * (layers - 1) * K)):
-        for name, count in per_apply(d).items():
-            expected[name] = expected.get(name, 0) + k * count
-    return expected
+    return count_applies([(D, (steps + evals) * layers * K),
+                          (D.transposed, steps * (layers - 1) * K)])
 
 
 @contextlib.contextmanager
@@ -1579,6 +1634,51 @@ def launches_by_step(into):
         Trainer.step_async = step_async
 
 
+def check_counts(name, launches, by_step, per_step, steps, evals=None):
+    """The run launched ``per_step`` in each of its ``steps`` steps, as
+    counted around each, and ``evals`` besides (its evaluation forwards)."""
+    evals = evals or {}
+    run = {k: per_step.get(k, 0) * steps + evals.get(k, 0)
+           for k in set(per_step) | set(evals)}
+    for k in set(launches) | set(run):
+        if launches.get(k, 0) != run.get(k, 0):
+            raise AssertionError(
+                f"{name}: {k} launched {launches.get(k, 0)} times, the "
+                f"layouts imply {run.get(k, 0)} ({steps} steps of "
+                f"{per_step}, evaluation {evals}; {launches})")
+    if len(by_step) != steps or any(s != per_step for s in by_step):
+        raise AssertionError(
+            f"{name}: {len(by_step)} steps counted ({steps} run), launches by "
+            f"step {sorted(map(str, by_step))[:3]}, the layouts imply "
+            f"{per_step} a step")
+
+
+def check_losses(name, losses):
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+
+
+def run_main(mod, argv):
+    """``mod.main(argv)`` with the launch counters set to 0 just before and
+    read just after, and each training step's launches counted around it:
+    (result, seconds, launches, launches by step)."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+
+    torch.cuda.synchronize()
+    with launches_by_step([]) as by_step:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    return res, wall, launches, by_step
+
+
 def experiment_phase(smi):
     """Phase 7: magnet_node, magnet_link, msgnn_node and msgnn_link
     through their ``main(argv)`` at N=9000, on the layouts ops/layout.py
@@ -1590,8 +1690,6 @@ def experiment_phase(smi):
     from pytorch_geometric_signed_directed_tpu_torch.experiments import (
         EXPERIMENTS)
     from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
-    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
 
     runs, cases = {}, {}
     for name, extra in EXPERIMENT_ARGV.items():
@@ -1601,13 +1699,7 @@ def experiment_phase(smi):
         argv = ["--dataset", "synthetic", "--num_nodes", str(EXPERIMENT_N),
                 "--epochs", str(EXPERIMENT_EPOCHS), "--device", DEV] + extra
         args = mod.parser().parse_args(argv)
-        torch.cuda.synchronize()
-        with launches_by_step([]) as by_step:
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            res = mod.main(argv)
-            wall = time.perf_counter() - t0
-            launches = launch_counts()
+        res, wall, launches, by_step = run_main(mod, argv)
         inputs = res["inputs"]
         lap = (res["runs"][0]["split"].lap if name == "magnet_link"
                else inputs.lap)
@@ -1617,29 +1709,13 @@ def experiment_phase(smi):
                                  f"kernel tier at N={EXPERIMENT_N}")
         steps = sum(r["steps"] for r in res["runs"])
         evals = sum(r["evals"] for r in res["runs"])
-        expected = experiment_launches(D, args.K, 2, steps, evals)
-        for k in set(launches) | set(expected):
-            if launches.get(k, 0) != expected.get(k, 0):
-                raise AssertionError(
-                    f"{name}: {k} launched {launches.get(k, 0)} times, the "
-                    f"layouts imply {expected.get(k, 0)} ({steps} steps, "
-                    f"{evals} evaluation forwards; {launches})")
         # each training step, as counted around it, launches what the
         # layouts imply for one step; the rest are the evaluation forwards'
-        per_step = {k: v for k, v in
-                    experiment_launches(D, args.K, 2, 1, 0).items() if v}
-        if len(by_step) != steps or any(s != per_step for s in by_step):
-            raise AssertionError(
-                f"{name}: {len(by_step)} steps counted ({steps} run), "
-                f"launches by step {sorted(map(str, by_step))[:3]}, the "
-                f"layouts imply {per_step} a step")
+        check_counts(name, launches, by_step,
+                     experiment_launches(D, args.K, 2, 1, 0), steps,
+                     experiment_launches(D, args.K, 2, 0, evals))
         for i, r in enumerate(res["runs"]):
-            ls = r["losses"]
-            if not all(np.isfinite(ls)):
-                raise AssertionError(f"{name} split {i}: non-finite loss")
-            if not ls[-1] < ls[0]:
-                raise AssertionError(f"{name} split {i}: loss did not fall: "
-                                     f"{ls[0]} -> {ls[-1]}")
+            check_losses(f"{name} split {i}", r["losses"])
             if not 0.0 <= r["acc"] <= 1.0:
                 raise AssertionError(f"{name} split {i}: accuracy {r['acc']}")
         graph_edges = (res["runs"][0]["split"].graph_edges
@@ -1722,6 +1798,437 @@ def experiment_phase(smi):
     return runs, cases
 
 
+# ---------------------------------------------------------------------------
+# directed families: DIGRAC, DiGCN and DGCN (K1 and K2)
+
+
+def single_view(csr):
+    """One kernel-tier operator (a CSR) seen as a dual whose two value
+    arrays are its one: what ``_csr_apply`` hands the kernels."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(rowptr=csr.rowptr, col=csr.col, val_a=csr.val,
+                           val_b=csr.val, num_nodes=csr.num_rows,
+                           num_cols=csr.num_cols, row_split=csr.row_split,
+                           blocks=csr.blocks, hot_blocks=csr.hot_blocks,
+                           hot_ids=csr.hot_ids, streamed=csr.streamed)
+
+
+def both_ways(ops, k=1):
+    """k applies of each operator and k of its transpose (the backward's:
+    every operator of these models sees an input that needs a gradient)."""
+    return [(d, k) for op in ops for d in (op, op.transposed)]
+
+
+def csr_of(P):
+    if P.mode != "mxu":
+        raise AssertionError(f"mode='auto' gave the {P.mode!r} tier, not "
+                             f"the kernel tier")
+    return P.csr
+
+
+def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS):
+    """Traces ``steps`` more steps with torch.profiler (after 2 untraced):
+    device ms a step, the idle share of an untraced step of ``ms_step``
+    ms (1 - device ms / ms_step), and the kernels that take the most
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        trainer.step_async(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.step_async(state)
+        torch.cuda.synchronize()
+    # device work only: user annotations also appear on the device
+    # timeline and overlap their kernels
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError(f"{name}: the trace holds no device kernels")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_ms = sum(by_name.values()) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  device: {device_ms:.4f} ms a step, {len(kernels) / steps:.1f} "
+        f"kernels; idle share {1 - device_ms / ms_step:.3f} of a "
+        f"{ms_step:.3f} ms step; most: " + "; ".join(
+            f"{t / 1e3 / steps:.4f} {n[:60]}" for n, t in top))
+    return dict(device_ms=device_ms, idle=1 - device_ms / ms_step)
+
+
+def train_path(name, loss_fn, model, steps, per_step, smi, edges):
+    """``steps`` Adam steps at lr 1e-2 of ``loss_fn`` on ``model``, the
+    launch counters set to 0 just before and read just after, each step
+    counted around it; requires ``per_step`` launches a step and a falling
+    loss.  Returns the run (experiments._common.run_steps) with its
+    launches and median ms/step."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.experiments._common \
+        import run_steps
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+
+    trainer = Trainer(loss_fn, lr=1e-2, device=DEV)
+    state = trainer.init(model)
+    torch.cuda.synchronize()
+    with launches_by_step([]) as by_step:
+        reset_launch_counts()
+        run = run_steps(trainer, state, (), steps)
+        launches = launch_counts()
+    check_counts(name, launches, by_step, per_step, steps)
+    check_losses(name, run["losses"])
+    ms_step = statistics.median(run["step_ms"][1:])
+    log(f"  train on {smi}: {steps} steps, median {ms_step:.3f} ms/step "
+        f"(first step {run['step_ms'][0]:.3f} ms), "
+        f"{edges / (ms_step / 1e3):.1f} input edges/s; loss "
+        f"{run['losses'][0]:.6f} -> {run['losses'][-1]:.6f}")
+    log(f"  launches {launches}: {by_step[0]} in each step as counted "
+        f"around it")
+    return dict(run, launches=launches, per_step=by_step[0], ms_step=ms_step,
+                **device_profile(name, trainer, state, ms_step))
+
+
+def single_cases(P, widths, label, cases, key):
+    """K1 on the single operator ``P`` at each width (f32)."""
+    import torch
+
+    v = single_view(csr_of(P))
+    if v.blocks:
+        raise AssertionError(f"{label}: not flat")
+    for width in widths:
+        r = dual_kernel_case(v, width, torch.float32, seed=width,
+                             single=True)
+        r["shape"] = f"{label} (one operator, cut rows " \
+                     f"{v.row_split.rows.numel()}): {r['shape']}"
+        cases[(key, width)] = r
+        log_case(f"csr_dual_spmm {label} W={width} float32", r)
+
+
+def digrac_experiment(smi, cases):
+    """The digrac experiment through ``main(argv)`` at N=9000."""
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        digrac)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        Prob_Imbalance_Loss)
+
+    argv = DIGRAC_ARGV + ["--device", DEV]
+    args = digrac.parser().parse_args(argv)
+    res, wall, launches, by_step = run_main(digrac, argv)
+    inputs, r = res["inputs"], res["runs"][0]
+    csrs = [csr_of(P) for P in (inputs.P_s, inputs.P_t, *inputs.A)]
+    walks, adj = csrs[:2], csrs[2:]
+    per_step = count_applies(both_ways(walks, args.hop) + both_ways(adj))
+    evals = count_applies([(c, args.hop) for c in walks]
+                          + [(c, 1) for c in adj])
+    check_counts("digrac", launches, by_step, per_step, r["steps"], evals)
+    check_losses("digrac", r["losses"])
+    ms_step = statistics.median(r["step_ms"][1:])
+    log(f"digrac: N={args.N} K={args.K} input edges {inputs.num_edges}, "
+        f"P_s nnz {csrs[0].col.numel()}, P_A nnz {csrs[2].col.numel()}, "
+        f"{args.features} features {tuple(inputs.x.shape)}, hidden "
+        f"{args.hidden}, hop {args.hop}")
+    for label, c in zip(("P_s", "P_t", "P_A", "P_AT"), csrs):
+        log(f"  layout {label}: {layout_text(single_view(c))}")
+    log(f"  host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in res["host_seconds"].items()))
+    log(f"  train on {smi}: {r['steps']} steps, median {ms_step:.3f} "
+        f"ms/step (first step {r['step_ms'][0]:.3f} ms), main() "
+        f"{wall:.2f} s; loss {r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}, "
+        f"final {r['loss']:.6f}, ARI {r['ari']:.4f}")
+    log(f"  launches {launches}: {by_step[0]} in each of {r['steps']} steps "
+        f"as counted around each, {evals} in the evaluation forward")
+    trainer = Trainer(digrac.loss_function(args, inputs, Prob_Imbalance_Loss(
+        inputs.F)), lr=args.lr, device=DEV)
+    prof = device_profile("digrac", trainer, trainer.init(
+        digrac.make_model(args, inputs)), ms_step)
+    single_cases(inputs.P_s, (3, 32), "digrac P_s", cases, "digrac")
+    return dict(launches=launches, per_step=by_step[0], ms_step=ms_step,
+                **prof)
+
+
+def uniform_digraph(n, e, rng):
+    """bench.py's uniform random digraph: e (row, col) draws, weights 1,
+    normalized degree features."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        in_out_degree)
+
+    ei = np.vstack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    w = np.ones(e, np.float32)
+    x = in_out_degree(ei, n, edge_weight=w)
+    return ei, w, torch.from_numpy(x / max(x.max(), 1.0)).to(DEV)
+
+
+def bench_digrac_path(fused, graph=None):
+    """bench.py's digrac cell (N=65,536, E=2,000,000, K=5, hidden 32, hop
+    2, ``Prob_Imbalance_Loss(5)``): its model (seed 0), loss, operators,
+    the launches of a step, input edges and host seconds.  ``fused``: the
+    walk and adjacency duals in place of the four single operators."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        digrac)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        DIGRAC_node_clustering)
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        Prob_Imbalance_Loss)
+
+    n, e, k = BENCH_DIGRAC["nodes"], BENCH_DIGRAC["edges"], BENCH_DIGRAC["k"]
+    hop = 2
+    ei, w, x = graph or uniform_digraph(n, e, np.random.default_rng(0))
+    t0 = time.perf_counter()
+    P_s, P_t, A = digrac.operators(ei, w, n, DEV, fused=fused)
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    if fused:
+        per_step = count_applies(both_ways([P_s], hop) + both_ways([A]))
+    else:
+        per_step = count_applies(
+            both_ways([csr_of(P_s), csr_of(P_t)], hop)
+            + both_ways([csr_of(P) for P in A]))
+    imb = Prob_Imbalance_Loss(k)
+    model = DIGRAC_node_clustering(
+        num_features=2, hidden=32, nclass=k, hop=hop, device=DEV,
+        generator=torch.Generator().manual_seed(0))
+
+    def loss_fn(m):
+        return imb(m(P_s, P_t, x)[3], A, k, "vol_sum", "sort")
+
+    return dict(model=model, loss_fn=loss_fn, ops=(P_s, P_t, A),
+                per_step=per_step, edges=e, host=host)
+
+
+def bench_digrac(smi, cases):
+    """The digrac cell, 30 steps with the (P_A, P_AT) pair and 30 with the
+    fused duals, from one seed: their first losses agree."""
+    import torch
+
+    n, e, k = BENCH_DIGRAC["nodes"], BENCH_DIGRAC["edges"], BENCH_DIGRAC["k"]
+    graph = uniform_digraph(n, e, np.random.default_rng(0))
+    runs = {}
+    for form in ("pair", "fused"):
+        p = bench_digrac_path(form == "fused", graph)
+        P_s, _, A = p["ops"]
+        if form == "fused":
+            log(f"bench digrac fused: N={n} E={e} K={k}; walk dual nnz "
+                f"{P_s.col.numel()} ({layout_text(P_s)}), A dual nnz "
+                f"{A.col.numel()} ({layout_text(A)}); built in "
+                f"{p['host']:.2f} s")
+        else:
+            c = csr_of(P_s)
+            log(f"bench digrac pair: N={n} E={e} K={k}; P_s nnz "
+                f"{c.col.numel()} ({layout_text(single_view(c))}), P_A nnz "
+                f"{csr_of(A[0]).col.numel()}; built in {p['host']:.2f} s")
+        runs[form] = train_path(f"bench digrac {form}", p["loss_fn"],
+                                p["model"], BENCH_DIGRAC["steps"],
+                                p["per_step"], smi, e)
+        if form == "fused":
+            for D, width, key in ((P_s, 64, "walk dual"),
+                                  (A, 2 * k, "A dual")):
+                r = dual_kernel_case(D, width, torch.float32, seed=width)
+                r["shape"] = f"bench digrac {key}: {r['shape']}"
+                cases[("bench digrac " + key, width)] = r
+                log_case(f"csr_dual_spmm bench digrac {key} 2F={width} "
+                         f"float32", r)
+        else:
+            single_cases(P_s, (k, 32), "bench digrac P_s", cases,
+                         "bench digrac")
+        del p, P_s, A
+    a, b = runs["pair"]["losses"][0], runs["fused"]["losses"][0]
+    if abs(a - b) > 1e-5:
+        raise AssertionError(f"bench digrac: the first losses of the pair "
+                             f"and fused forms differ: {a} vs {b}")
+    log(f"  first-step loss: pair {a:.8f}, fused {b:.8f} (|diff| "
+        f"{abs(a - b):.3g} <= 1e-5)")
+    return runs
+
+
+def digcn_graph():
+    """bench.py's DiGCN inception graph (N=65,536, average degree 15,
+    seed 0): edges, weights, features, 5 random labels and the second
+    stand-in operator's edges, drawn in the bench's order."""
+    import torch
+
+    n, e = DIGCN_GRAPH["nodes"], DIGCN_GRAPH["nodes"] * DIGCN_GRAPH["avg_deg"]
+    rng = np.random.default_rng(0)
+    ei, w, x = uniform_digraph(n, e, rng)
+    y = torch.from_numpy(rng.integers(0, 5, n)).to(DEV)
+    ei2 = np.vstack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    return n, ei, w, x, y, ei2
+
+
+def digcn_path(graph=None):
+    """The DiGCN inception cell: model (seed 0, hidden 32, 5 labels),
+    loss, its two operators, the launches of a step, input edges and host
+    seconds."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        norm_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        DiGCN_Inception_Block_node_classification)
+
+    n, ei, w, x, y, ei2 = graph or digcn_graph()
+    t0 = time.perf_counter()
+    P1 = norm_propagator(ei, w, n, device=DEV)
+    P2 = norm_propagator(ei2, w, n, device=DEV)
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    model = DiGCN_Inception_Block_node_classification(
+        num_features=2, hidden=32, label_dim=5, device=DEV,
+        generator=torch.Generator().manual_seed(0))
+    return dict(model=model, ops=(P1, P2), edges=2 * ei.shape[1], host=host,
+                loss_fn=lambda m: torch.nn.functional.nll_loss(
+                    m(x, P1, P2), y),
+                per_step=count_applies(both_ways([csr_of(P1), csr_of(P2)],
+                                                 3)))
+
+
+def dgcn_path(graph=None):
+    """DGCN at dgcn_node's hidden 32 on the DiGCN graph, through its own
+    operators (``directed_features_in_out``, GCN-normalized): model,
+    loss, operators, the launches of a step, input edges and host seconds
+    (the in/out graphs, the operators)."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        directed_features_in_out, gcn_norm_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        DGCN_node_classification)
+
+    n, ei, w, x, y, _ = graph or digcn_graph()
+    t0 = time.perf_counter()
+    idx, e_in, w_in, e_out, w_out = directed_features_in_out(ei, n, w)
+    t1 = time.perf_counter()
+    Ps = [gcn_norm_propagator(a, b, n, device=DEV)
+          for a, b in ((idx, None), (e_in, w_in), (e_out, w_out))]
+    torch.cuda.synchronize()
+    model = DGCN_node_classification(
+        num_features=2, hidden=DGCN_HIDDEN, label_dim=5, device=DEV,
+        generator=torch.Generator().manual_seed(0))
+    return dict(model=model, ops=Ps, edges=ei.shape[1],
+                host=(t1 - t0, time.perf_counter() - t1),
+                graphs=(idx.shape[1], e_in.shape[1], e_out.shape[1]),
+                loss_fn=lambda m: torch.nn.functional.nll_loss(m(x, *Ps), y),
+                per_step=count_applies(both_ways([csr_of(P) for P in Ps],
+                                                 2)))
+
+
+def bench_digcn_and_dgcn(smi, cases):
+    """The DiGCN inception cell, then DGCN on the same graph (its in and
+    out graphs stream: K2)."""
+    import torch
+
+    graph = digcn_graph()
+    steps = DIGCN_GRAPH["steps"]
+    runs = {}
+    p = digcn_path(graph)
+    c = csr_of(p["ops"][0])
+    log(f"bench digcn inception: N={c.num_rows} E={p['edges']} (2 "
+        f"operators), nnz {c.col.numel()} and "
+        f"{csr_of(p['ops'][1]).col.numel()} ({layout_text(single_view(c))});"
+        f" built in {p['host']:.2f} s")
+    runs["digcn"] = train_path("bench digcn inception", p["loss_fn"],
+                               p["model"], steps, p["per_step"], smi,
+                               p["edges"])
+    del p, c
+
+    p = dgcn_path(graph)
+    ops = [csr_of(P) for P in p["ops"]]
+    log(f"dgcn (dgcn_node's widths, bench graph): N={ops[0].num_rows} "
+        f"E={p['edges']}; symmetrized, in and out graphs {p['graphs']} "
+        f"edges; host {p['host'][0]:.2f} s, operators {p['host'][1]:.2f} s")
+    for label, c in zip(("A_sym", "A_in", "A_out"), ops):
+        log(f"  layout {label}: {layout_text(single_view(c))}; transposed "
+            f"{layout_text(single_view(c.transposed))}")
+    if ops[0].blocks or not (ops[1].streamed and ops[2].streamed):
+        raise AssertionError("dgcn: expected A_sym flat, A_in and A_out "
+                             "streamed")
+    runs["dgcn"] = train_path("dgcn", p["loss_fn"], p["model"], steps,
+                              p["per_step"], smi, p["edges"])
+    v = single_view(ops[1])
+    b = v.blocks[0]
+    table = v.hot_ids.numel() if v.hot_blocks > 0 else v.num_cols
+    r = accum_kernel_case(v, b, table, DGCN_HIDDEN, torch.float32,
+                          seed=DGCN_HIDDEN, single=True,
+                          what=f"dgcn A_in block 0 of {len(v.blocks)}")
+    cases[("dgcn A_in", DGCN_HIDDEN)] = r
+    log_case(f"csr_dual_spmm_accum dgcn A_in block 0 W={DGCN_HIDDEN} "
+             f"float32", r)
+    xs = torch.randn(v.num_cols, DGCN_HIDDEN, device=DEV)
+    torch.testing.assert_close(p["ops"][1](xs),
+                               plain_apply(v, xs, DGCN_HIDDEN), **F32_TOL)
+    log(f"  A_in streamed apply W={DGCN_HIDDEN} agrees with its plain "
+        f"version")
+    return runs
+
+
+def link_experiments(smi):
+    """dgcn_link, digcn_link and digcn_inception_link through ``main(argv)``
+    at their default size, on the dense tier: no K1/K2 launch."""
+    import importlib
+
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        _directed_link)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+
+    runs = {}
+    for name in LINK_EXPERIMENTS:
+        mod = importlib.import_module(
+            "pytorch_geometric_signed_directed_tpu_torch.experiments." + name)
+        argv = LINK_ARGV + ["--device", DEV]
+        res, wall, launches, by_step = run_main(mod, argv)
+        r = res["runs"][0]
+        if any(P.mode != "dense" for P in r["split"].ops):
+            raise AssertionError(f"{name}: expected the dense tier")
+        check_counts(name, launches, by_step, {}, r["steps"])
+        check_losses(name, r["losses"])
+        ms_step = statistics.median(r["step_ms"][1:])
+        log(f"{name}: N={res['inputs'].data.num_nodes} input "
+            f"edges {res['inputs'].num_edges}, observed graph "
+            f"{r['split'].graph_edges}, operator nnz "
+            f"{[int((P.dense != 0).sum()) for P in r['split'].ops]}")
+        log(f"  host seconds: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res["host_seconds"].items()))
+        log(f"  train on {smi}: {r['steps']} steps, median {ms_step:.3f} "
+            f"ms/step, main() {wall:.2f} s; loss {r['losses'][0]:.5f} -> "
+            f"{r['losses'][-1]:.5f}; test acc {res['accs']}; launches "
+            f"{launches}")
+        args = mod.parser().parse_args(argv)
+        trainer = Trainer(_directed_link.loss_function(r["split"]),
+                          lr=args.lr, weight_decay=args.weight_decay,
+                          device=DEV)
+        runs[name] = dict(ms_step=ms_step, host=res["host_seconds"],
+                          **device_profile(name, trainer, trainer.init(
+                              mod.make_model(args, res["inputs"])), ms_step))
+        del res
+    return runs
+
+
+def directed_phase(smi):
+    """Phase 8: the digrac experiment, bench digrac (pair and fused), the
+    bench DiGCN inception cell, DGCN on the same graph, and the three
+    link experiments; K1 and K2 held at the widths they apply."""
+    import torch
+
+    cases, runs = {}, {}
+    for name, path in (("digrac", digrac_experiment),
+                       ("bench digrac", bench_digrac),
+                       ("bench digcn/dgcn", bench_digcn_and_dgcn),
+                       ("link", lambda smi, cases: link_experiments(smi))):
+        t0 = time.perf_counter()
+        out = path(smi, cases)
+        runs.update(out if name != "digrac" else {"digrac": out})
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return runs, cases
+
+
 def main():
     import torch
 
@@ -1747,13 +2254,14 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-6. the four paths ---------------------------------------------
+    # ---- 2-8. the paths -------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
                         ("trainable_q", lambda smi: trainable_q_phase(
                             smi, phases["magnet_mxu"][2])),
-                        ("experiments", experiment_phase)):
+                        ("experiments", experiment_phase),
+                        ("directed", directed_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -1763,6 +2271,7 @@ def main():
     k5_cases, k5_launches = phases["bsr"]
     tq_cases, k4, tq_runs = phases["trainable_q"]
     exp_runs, exp_cases = phases["experiments"]
+    dir_runs, dir_cases = phases["directed"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -1806,7 +2315,26 @@ def main():
                 ("msgnn_link", "csr_dual_spmm", "scatter_mxu.py:503"),
                 ("magnet_node", "csr_dual_spmm_accum", "scatter_mxu.py:580"),
                 ("msgnn_node", "csr_dual_spmm_accum", "scatter_mxu.py:580"))
-            for width in EXPERIMENT_WIDTHS],
+            for width in EXPERIMENT_WIDTHS] + [
+            # phase 8: K1 on single operators at odd and even widths and on
+            # the fused duals, K2 on a streamed block of DGCN's A_in
+            {**kernel_entry(kname, dir_cases[(key, width)],
+                            dir_runs[path]["launches"][kname],
+                            "scatter_csr.cu", replaces),
+             "path": path, "launches_per_step":
+                 dir_runs[path]["per_step"][kname]}
+            for key, path, kname, replaces, widths in (
+                ("digrac", "digrac", "csr_dual_spmm", "scatter_mxu.py:503",
+                 (3, 32)),
+                ("bench digrac", "pair", "csr_dual_spmm",
+                 "scatter_mxu.py:503", (5, 32)),
+                ("bench digrac walk dual", "fused", "csr_dual_spmm",
+                 "scatter_mxu.py:503", (64,)),
+                ("bench digrac A dual", "fused", "csr_dual_spmm",
+                 "scatter_mxu.py:503", (10,)),
+                ("dgcn A_in", "dgcn", "csr_dual_spmm_accum",
+                 "scatter_mxu.py:580", (DGCN_HIDDEN,)))
+            for width in widths],
         # K1's and K2's own contracts and K4: tested, on no path this
         # script drives
         "off_path": [

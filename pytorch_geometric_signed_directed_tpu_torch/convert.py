@@ -1,5 +1,4 @@
-"""Carry MagNet and MSGNN weights over from the JAX package's parameter
-tree.
+"""Carry weights over from the JAX package's parameter tree.
 
 ``state_dict_from_jax`` takes the flax tree as nested dicts of numpy
 arrays (``jax.device_get(params)`` gives one) and returns the port's
@@ -11,36 +10,53 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_CONV = re.compile(r"(?:MagNetConv|MSConv)_(\d+)$")
+# flax group name -> the port's module path ("" flattens the group)
+_GROUPS = (
+    (re.compile(r"(?:MagNetConv|MSConv|DiGCNConv)_(\d+)$"), r"convs.\1"),
+    (re.compile(r"DiGCN_Inception_Block_(\d+)$"), r"blocks.\1"),
+    (re.compile(r"Dense_0$"), "linear"),
+    (re.compile(r"Dense_(\d+)$"), r"linear\1"),
+    (re.compile(r"(w_[st][01])$"), r"\1"),
+    (re.compile(r"DIMPA_0$"), "dimpa"),
+    (re.compile(r"_DGCNTrunk_0$"), "trunk"),
+    (re.compile(r"_MSGNNTrunk_0$"), ""),
+)
+
+
+def _group(name: str) -> str:
+    for pattern, path in _GROUPS:
+        if pattern.match(name):
+            return pattern.sub(path, name)
+    raise KeyError(f"unexpected parameter group {name!r}")
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``{'params': {'MagNetConv_i': {'weight' [K+1,in,out], 'bias'[,
-    'q' [1]]}, 'Dense_0': {'kernel' [in,out], 'bias'}}}`` -> the state_dict
-    of ``MagNet_node_classification`` / ``MagNet_link_prediction`` (or,
-    for a bare ``{'params': {'weight', 'bias'[, 'q']}}``, of one
-    ``MagNetConv``).  MSGNN's tree holds its convs one level down,
-    ``{'_MSGNNTrunk_0': {'MSConv_i': {...}}, 'Dense_0': ...}``, and maps
-    onto the state_dict of ``MSGNN_node_classification`` /
-    ``MSGNN_link_prediction``.  The Dense kernel is transposed into the
-    Linear weight; a trainable-q conv's ``q`` leaf carries over as it is."""
-    tree = dict(params.get("params", params))
-    tree.update(tree.pop("_MSGNNTrunk_0", {}))
+    """The flax tree of a model of the port's families -> its state_dict.
+
+    Groups map by ``_GROUPS``: conv layers ``MagNetConv_i`` / ``MSConv_i``
+    / ``DiGCNConv_i`` -> ``convs.i``, ``DiGCN_Inception_Block_i`` ->
+    ``blocks.i``, ``Dense_0`` -> ``linear`` (``Dense_i`` -> ``linear{i}``),
+    DIGRAC's ``w_s0``.. ``w_t1`` and ``DIMPA_0`` -> ``dimpa``, DGCN's
+    ``_DGCNTrunk_0`` -> ``trunk``; MSGNN's ``_MSGNNTrunk_0`` is flattened.
+    Leaves keep their names (``weight``, ``bias``, ``q``, ``W_prob``,
+    ``bias1``, ``_w_s``, ...), except a Dense ``kernel`` [in, out], which
+    becomes the Linear's ``weight`` [out, in].  A bare conv tree
+    ``{'params': {'weight', 'bias'[, 'q']}}`` maps onto one MagNetConv."""
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
     out: Dict[str, torch.Tensor] = {}
-    for name, leaf in tree.items():
-        m = _CONV.match(name)
-        if m:
-            for k, v in leaf.items():
-                out[f"convs.{m.group(1)}.{k}"] = t(v)
-        elif name == "Dense_0":
-            out["linear.weight"] = t(leaf["kernel"]).T.contiguous()
-            out["linear.bias"] = t(leaf["bias"])
-        elif name in ("weight", "bias", "q"):
-            out[name] = t(leaf)
-        else:
-            raise KeyError(f"unexpected parameter group {name!r}")
+
+    def walk(tree: Mapping, prefix: str) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                path = _group(name)
+                walk(leaf, prefix + path + "." if path else prefix)
+            elif name == "kernel":
+                out[prefix + "weight"] = t(leaf).T.contiguous()
+            else:
+                out[prefix + name] = t(leaf)
+
+    walk(params.get("params", params), "")
     return out

@@ -10,12 +10,9 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 
+from ..spectral.features import hermitian_features
 from ..utils.general.link_split import link_class_split
 from ..utils.general.node_split import node_class_split
-
-_FEATURES_LATER = (
-    "{} needs spectral/features.py, which is not ported yet (ROADMAP.md "
-    "queue A item 5)")
 
 
 class GraphData:
@@ -83,8 +80,7 @@ class DirectedData(GraphData):
         self.edge_weight = np.asarray(self.A.data, np.float32)
 
     def set_hermitian_features(self, k: int = 2):
-        raise NotImplementedError(
-            _FEATURES_LATER.format("set_hermitian_features"))
+        self.x = hermitian_features(self.A.tocsr(), k)
 
     def link_split(self, size=None, splits: int = 2, prob_test: float = 0.15,
                    prob_val: float = 0.05, task: str = "direction",

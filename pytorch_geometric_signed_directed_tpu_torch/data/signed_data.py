@@ -9,7 +9,11 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..utils.general.link_split import link_class_split
-from .directed_data import _FEATURES_LATER, GraphData
+from .directed_data import GraphData
+
+_FEATURES_LATER = (
+    "{} needs the signed spectral features of spectral/features.py, which "
+    "are not ported yet (ROADMAP.md queue A item 5)")
 
 
 class SignedData(GraphData):

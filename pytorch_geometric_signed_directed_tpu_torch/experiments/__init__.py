@@ -13,11 +13,15 @@ EXPERIMENTS = {
     "magnet_link": ("magnet_link", "MagNet link/direction prediction"),
     "msgnn_node": ("msgnn_node", "MSGNN signed-directed node classification"),
     "msgnn_link": ("msgnn_link", "MSGNN signed-directed link tasks"),
+    "digrac": ("digrac", "DIGRAC directed flow clustering"),
+    "dgcn_link": ("dgcn_link", "DGCN link/direction prediction"),
+    "digcn_link": ("digcn_link", "DiGCN link/direction prediction"),
+    "digcn_inception_link": ("digcn_inception_link",
+                             "DiGCN inception-block link prediction"),
 }
 
-NOT_PORTED = ("dgcn_node", "dgcn_link", "digcn_node", "digcn_link",
-              "digcn_inception_node", "digcn_inception_link", "digcl_node",
-              "digcl_link", "digrac", "sssnet", "link_sign_prediction",
+NOT_PORTED = ("dgcn_node", "digcn_node", "digcn_inception_node",
+              "digcl_node", "digcl_link", "sssnet", "link_sign_prediction",
               "link_sign_direction_tasks")
 
 

@@ -13,11 +13,12 @@ def add_device_arg(ap) -> None:
                     "there is no CUDA, pass 'cpu' to run on the CPU")
 
 
-def real_dataset(name: str) -> NotImplementedError:
+def real_dataset(name: str, synthetic: str = "synthetic"
+                 ) -> NotImplementedError:
     return NotImplementedError(
         f"dataset {name!r}: the real-data loaders (data/load_real.py) are "
         f"not ported yet (ROADMAP.md queue A item 8); use --dataset "
-        f"synthetic")
+        f"{synthetic}")
 
 
 def _sync(device: torch.device) -> None:

@@ -10,15 +10,10 @@ import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
-from ..inits import lecun_normal, zeros
+from ..dropout import dropout
+from ..inits import linear
 from .complex_relu import complex_relu
 from .magnet_conv import MagNetConv
-
-
-def _dropout(x: torch.Tensor, p: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class _MagNetTrunk(nn.Module):
@@ -36,12 +31,7 @@ class _MagNetTrunk(nn.Module):
                  trainable_q=trainable_q, normalization=normalization,
                  device=device, generator=generator, **conv_kw)
             for i in range(layer)])
-        # built on "meta" so its default init draws nothing from the
-        # global RNG; the weights come from ``generator``
-        self.linear = nn.Linear(head_in, label_dim, device="meta")
-        self.linear.weight = nn.Parameter(
-            lecun_normal((label_dim, head_in), generator).to(device))
-        self.linear.bias = nn.Parameter(zeros((label_dim,)).to(device))
+        self.linear = linear(head_in, label_dim, True, device, generator)
 
     def _trunk(self, real, imag, lap):
         for conv in self.convs:
@@ -51,9 +41,7 @@ class _MagNetTrunk(nn.Module):
         return real, imag
 
     def _drop(self, x, training, generator):
-        if training and self.dropout > 0:
-            x = _dropout(x, self.dropout, generator)
-        return x
+        return dropout(x, self.dropout, training, generator)
 
     def _head(self, x, training, generator):
         return torch.log_softmax(

@@ -1,0 +1,14 @@
+"""Dropout drawn from an explicit generator, switched by an explicit
+``training`` flag (as the JAX models' ``training`` argument), never by
+``Module.train()``."""
+from typing import Optional
+
+import torch
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    if not training or not p:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

@@ -1,17 +1,21 @@
 """Weight initializers (drawn on the CPU from an explicit generator, so a
 seed gives the same weights whatever the target device)."""
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch import nn
 
 
 def glorot(shape: Sequence[int],
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Uniform(-a, a) with a = sqrt(6 / (fan_in + fan_out)) over the last
-    two dims — PyG's ``glorot`` used by the MagNetConv weights."""
+           generator: Optional[torch.Generator] = None,
+           gain_sq: float = 1.0) -> torch.Tensor:
+    """Uniform(-a, a) with a = sqrt(6 gain_sq / (fan_in + fan_out)) over the
+    last two dims — PyG's ``glorot`` used by the MagNetConv weights; with
+    ``gain_sq=2`` DIGRAC's xavier-uniform of gain 1.414 (flax's
+    ``variance_scaling(2.0, "fan_avg", "uniform")``)."""
     fan_in, fan_out = shape[-2], shape[-1]
-    a = math.sqrt(6.0 / (fan_in + fan_out))
+    a = math.sqrt(6.0 * gain_sq / (fan_in + fan_out))
     return torch.empty(tuple(shape)).uniform_(-a, a, generator=generator)
 
 
@@ -25,3 +29,18 @@ def lecun_normal(shape: Sequence[int],
     untruncated form of flax's Dense default)."""
     std = 1.0 / math.sqrt(shape[-1])
     return torch.empty(tuple(shape)).normal_(0.0, std, generator=generator)
+
+
+def linear(in_features: int, out_features: int, bias: bool,
+           device: torch.device, generator: Optional[torch.Generator],
+           init: Callable = lecun_normal) -> nn.Linear:
+    """A Linear whose weight [out, in] comes from ``init(shape,
+    generator)`` and whose bias is 0 — flax's ``nn.Dense`` defaults.  Built
+    on "meta" first, so its own default init draws nothing from the global
+    RNG."""
+    layer = nn.Linear(in_features, out_features, bias=bias, device="meta")
+    layer.weight = nn.Parameter(
+        init((out_features, in_features), generator).to(device))
+    if bias:
+        layer.bias = nn.Parameter(zeros((out_features,)).to(device))
+    return layer

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .coalesce import coalesce_edges
 
 
 @dataclass(frozen=True)
@@ -78,9 +79,11 @@ def build_coo(
     *,
     num_cols: Optional[int] = None,
     device: DeviceLike = None,
+    sum_duplicates: bool = False,
 ) -> COO:
-    """Host-side constructor: sorts by (row, col) (duplicates are kept and
-    sum when applied) and moves to ``device``.
+    """Host-side constructor: sorts by (row, col) and moves to ``device``.
+    Duplicates are kept and sum when applied, or, with
+    ``sum_duplicates``, summed here (in float32, as the JAX package does).
 
     Args:
         row/col: int arrays of destination / source indices.
@@ -102,7 +105,9 @@ def build_coo(
         num_cols = num_nodes
 
     check_indices(row, col, num_nodes, num_cols)
-    if len(row) and not _is_rowcol_sorted(row, col):
+    if sum_duplicates and len(row):
+        row, col, val = coalesce_edges(row, col, val, num_cols=num_cols)
+    elif len(row) and not _is_rowcol_sorted(row, col):
         order = np.lexsort((col, row))
         row, col, val = row[order], col[order], val[order]
 

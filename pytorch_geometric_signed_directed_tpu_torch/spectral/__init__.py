@@ -1,5 +1,13 @@
-"""Host-side spectral preprocessing and the trainable-q templates."""
+"""Host-side spectral preprocessing (magnetic Laplacians, PPR adjacencies,
+Hermitian features) and the trainable-q templates."""
 
+from .appr import (
+    appr_directed_adj,
+    cal_fast_appr,
+    fast_appr_power,
+    second_directed_adj,
+)
+from .features import hermitian_features
 from .magnetic import (
     MagneticPair,
     MagneticTemplate,
@@ -14,7 +22,10 @@ from .magnetic import (
     template_propagators,
 )
 
-__all__ = ["MagneticPair", "MagneticTemplate", "magnet_operator_arrays",
-           "magnet_propagators", "magnetic_laplacian", "magnetic_pair",
-           "magnetic_signed_laplacian", "magnetic_template", "template_dual",
-           "template_dual_apply", "template_propagators"]
+__all__ = ["MagneticPair", "MagneticTemplate", "appr_directed_adj",
+           "cal_fast_appr", "fast_appr_power", "hermitian_features",
+           "magnet_operator_arrays", "magnet_propagators",
+           "magnetic_laplacian", "magnetic_pair",
+           "magnetic_signed_laplacian", "magnetic_template",
+           "second_directed_adj", "template_dual", "template_dual_apply",
+           "template_propagators"]

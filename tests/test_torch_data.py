@@ -385,6 +385,14 @@ def test_signed_data_matches_jax():
     (SignedData, "set_signed_Laplacian_features"),
     (SignedData, "set_spectral_adjacency_reg_features")])
 def test_spectral_features_wait_for_their_module(cls, method):
+    """The Hermitian features are ported (tests/test_torch_digrac.py holds
+    them against JAX); the signed ones wait for queue A item 5."""
     A, y = sdsbm_graph(30, seed=1)
+    data = cls(A=A, y=y)
+    if method == "set_hermitian_features":
+        data.set_hermitian_features(k=2)
+        assert data.x.shape == (data.num_nodes, 4)
+        assert data.x.dtype == np.float32 and np.isfinite(data.x).all()
+        return
     with pytest.raises(NotImplementedError, match="queue A item 5"):
-        getattr(cls(A=A, y=y), method)()
+        getattr(data, method)()

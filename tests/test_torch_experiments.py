@@ -11,22 +11,31 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from sklearn.metrics import adjusted_rand_score as sk_ari
 
 import pytorch_geometric_signed_directed_tpu.experiments as jx_experiments
 from pytorch_geometric_signed_directed_tpu.data import (
     DSBM as jx_DSBM, DirectedData as JxDirectedData, SDSBM as jx_SDSBM,
     SignedData as JxSignedData)
+from pytorch_geometric_signed_directed_tpu import graph as jx_graph
 from pytorch_geometric_signed_directed_tpu.graph import (
     in_out_degree as jx_in_out_degree)
 from pytorch_geometric_signed_directed_tpu.nn import (
+    DGCN_link_prediction as JxDGCNLink,
+    DIGRAC_node_clustering as JxDIGRAC,
+    DiGCN_Inception_Block_link_prediction as JxInceptionLink,
+    DiGCN_link_prediction as JxDiGCNLink,
     MSGNN_link_prediction as JxMSGNNLink,
     MSGNN_node_classification as JxMSGNNNode,
     MagNet_link_prediction as JxMagNetLink,
     MagNet_node_classification as JxMagNetNode)
 from pytorch_geometric_signed_directed_tpu.spectral import (
-    magnet_propagators as jx_magnet_propagators)
+    appr_directed_adj as jx_appr_directed_adj,
+    magnet_propagators as jx_magnet_propagators,
+    second_directed_adj as jx_second_directed_adj)
 from pytorch_geometric_signed_directed_tpu.train import Trainer as JxTrainer
 from pytorch_geometric_signed_directed_tpu.utils import (
+    Prob_Imbalance_Loss as JxLoss,
     link_class_split as jx_link_class_split,
     meta_graph_generation as jx_meta_graph_generation)
 
@@ -34,8 +43,9 @@ import pytorch_geometric_signed_directed_tpu_torch.__main__ as cli
 from pytorch_geometric_signed_directed_tpu_torch.convert import (
     state_dict_from_jax)
 from pytorch_geometric_signed_directed_tpu_torch.experiments import (
-    EXPERIMENTS, NOT_PORTED, magnet_link, magnet_node, msgnn_link,
-    msgnn_node, run)
+    EXPERIMENTS, NOT_PORTED, _directed_link, dgcn_link, digcn_inception_link,
+    digcn_link, digrac, magnet_link, magnet_node, msgnn_link, msgnn_node,
+    run)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 N = 80
@@ -320,6 +330,162 @@ def test_msgnn_link_five_steps_match_jax():
         **TOL)
 
 
+# --- digrac ----------------------------------------------------------------
+
+DIGRAC_N = 150
+DIGRAC = ["--N", str(DIGRAC_N), "--device", "cpu"]
+
+
+def jx_digrac_inputs(seed=0, k=3):
+    F = jx_meta_graph_generation("cyclic", k, 0.05, False)
+    A, labels = jx_DSBM(DIGRAC_N, k, 0.1, F, rng=np.random.default_rng(seed))
+    data = JxDirectedData(A=A, y=labels)
+    x = jx_in_out_degree(data.edge_index, DIGRAC_N,
+                         edge_weight=data.edge_weight)
+    x = np.asarray(x / max(x.max(), 1.0))
+    ei, w = data.edge_index, data.edge_weight
+    ops = (jx_graph.rw_norm_propagator(ei, w, DIGRAC_N),
+           jx_graph.rw_norm_propagator(ei[[1, 0]], w, DIGRAC_N),
+           (jx_graph.norm_propagator(ei[[1, 0]], w, DIGRAC_N),
+            jx_graph.norm_propagator(ei, w, DIGRAC_N)))
+    return data, F, x, ops
+
+
+def test_digrac_inputs_bit_equal():
+    args = digrac.parser().parse_args(DIGRAC + ["--features", "degree"])
+    got = digrac.build_inputs(args, "cpu")
+    data, F, x, (P_s, P_t, (P_A, P_AT)) = jx_digrac_inputs()
+    for name in ("edge_index", "edge_weight", "y"):
+        assert_same(getattr(got.data, name), getattr(data, name), name)
+    assert_same(got.F, F)
+    assert_same(got.x.numpy(), x)
+    for mine, theirs in ((got.P_s, P_s), (got.P_t, P_t), (got.A[0], P_A),
+                         (got.A[1], P_AT)):
+        assert mine.mode == theirs.mode == "dense"
+        assert_same(mine.dense.numpy(), np.asarray(theirs.dense))
+    assert set(got.seconds) == {"graph", "features", "operators"}
+
+
+def test_digrac_five_steps_match_jax():
+    args = digrac.parser().parse_args(
+        DIGRAC + ["--features", "degree", "--epochs", "5"])
+    inputs = digrac.build_inputs(args, "cpu")
+    _, F, x, (P_s, P_t, A) = jx_digrac_inputs()
+    jmodel = JxDIGRAC(num_features=2, hidden=32, nclass=3, hop=2,
+                      dropout=0.0)
+    params = jmodel.init(jax.random.PRNGKey(0), P_s, P_t, x)
+    imb = JxLoss(F)
+
+    def jloss(p):
+        return imb(jmodel.apply(p, P_s, P_t, x)[3], A, 3, "vol_sum", "sort")
+
+    jlosses, jparams = jx_steps(jloss, params, 1e-2)
+    model = load(digrac.make_model(args, inputs), params)
+    r = digrac.train(args, inputs, model=model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    np.testing.assert_allclose(r["loss"], float(jloss(jparams)), **TOL)
+    pred = np.asarray(jmodel.apply(jparams, P_s, P_t, x)[2])
+    np.testing.assert_array_equal(r["pred"], pred)
+    assert r["ari"] == sk_ari(inputs.labels, pred)
+
+
+def test_digrac_hermitian_features_run_on_the_cpu():
+    args = digrac.parser().parse_args(DIGRAC + ["--epochs", "3"])
+    inputs = digrac.build_inputs(args, "cpu")
+    assert inputs.x.shape == (DIGRAC_N, 6) and inputs.x.dtype == torch.float32
+    # standardized columns
+    np.testing.assert_allclose(inputs.x.mean(0).numpy(), 0, atol=1e-5)
+    r = digrac.train(args, inputs)
+    assert len(r["losses"]) == 3 and np.isfinite(r["losses"]).all()
+    assert -1.0 <= r["ari"] <= 1.0
+
+
+# --- the DGCN and DiGCN link experiments -----------------------------------
+
+def jx_link_operators(name, g, w, n):
+    """(JAX Propagators, host arrays) of one link experiment's split."""
+    if name == "dgcn_link":
+        idx, e_in, w_in, e_out, w_out = jx_graph.directed_features_in_out(
+            g, n, w)
+        arrays = [(idx, None), (e_in, w_in), (e_out, w_out)]
+        build = jx_graph.gcn_norm_propagator
+    else:
+        arrays = [jx_appr_directed_adj(0.1, g, n, w)]
+        if name == "digcn_inception_link":
+            arrays.append(jx_second_directed_adj(g, n, w))
+        build = jx_graph.norm_propagator
+    return [build(e, v, n) for e, v in arrays], arrays
+
+
+LINK = {"dgcn_link": (dgcn_link, JxDGCNLink),
+        "digcn_link": (digcn_link, JxDiGCNLink),
+        "digcn_inception_link": (digcn_inception_link, JxInceptionLink)}
+
+
+def jx_link_split(name, seed=0):
+    F = jx_meta_graph_generation("path", 3, 0.05, False)
+    A, y = jx_DSBM(N, 3, 0.3, F, rng=np.random.default_rng(seed))
+    datasets = jx_link_class_split(JxDirectedData(A=A, y=y), splits=2,
+                                   task="direction", seed=seed)
+    g, w = datasets[0]["graph"], datasets[0]["weights"]
+    x = jx_in_out_degree(g, N, edge_weight=w)
+    x = np.asarray(x / max(x.max(), 1.0))
+    ops, arrays = jx_link_operators(name, g, w, N)
+    return datasets, x, ops, arrays
+
+
+@pytest.mark.parametrize("name", sorted(LINK))
+def test_link_experiment_inputs_bit_equal(name):
+    mod = LINK[name][0]
+    args = mod.parser().parse_args(SYN)
+    got = _directed_link.build_inputs(args, "cpu")
+    s = _directed_link.split_inputs(args, got, 0, mod)
+    datasets, x, ops, arrays = jx_link_split(name)
+    assert_same(got.datasets, datasets)
+    assert_same(s.x.numpy(), x)
+    assert len(s.arrays) == len(arrays) == len(s.ops)
+    for (e, v), (je, jv) in zip(s.arrays, arrays):
+        assert_same(e, je)
+        if v is None:
+            assert jv is None
+        else:
+            assert_same(v, jv)
+    for P, J in zip(s.ops, ops):
+        assert P.mode == J.mode == "dense"
+        assert_same(P.dense.numpy(), np.asarray(J.dense))
+    assert_same(s.tr_e.numpy(), datasets[0]["train"]["edges"])
+    assert set(got.seconds) == {"graph", "link_split"}
+    assert set(s.seconds) == {"features", "operators", "layout"}
+
+
+@pytest.mark.parametrize("name", sorted(LINK))
+def test_link_experiment_five_steps_match_jax(name):
+    mod, jcls = LINK[name]
+    args = mod.parser().parse_args(SYN + ["--epochs", "5"])
+    inputs = _directed_link.build_inputs(args, "cpu")
+    s = _directed_link.split_inputs(args, inputs, 0, mod)
+    datasets, x, ops, _ = jx_link_split(name)
+    tr_e = jnp.asarray(datasets[0]["train"]["edges"])
+    tr_y = jnp.asarray(datasets[0]["train"]["label"])
+    te_e = jnp.asarray(datasets[0]["test"]["edges"])
+    jmodel = jcls(num_features=2, hidden=16, label_dim=2)
+    params = jmodel.init(jax.random.PRNGKey(0), x, *ops, tr_e)
+
+    def jloss(p):
+        logp = jmodel.apply(p, x, *ops, tr_e)
+        return -jnp.mean(logp[jnp.arange(tr_e.shape[0]), tr_y])
+
+    jlosses, jparams = jx_steps(jloss, params, 1e-2, 5e-4)
+    model = load(mod.make_model(args, inputs), params)
+    r = _directed_link.train_split(args, s, model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    with torch.no_grad():
+        logp = model(s.x, *s.ops, s.te_e)
+    np.testing.assert_allclose(
+        logp.numpy(), np.asarray(jmodel.apply(jparams, x, *ops, te_e)),
+        **TOL)
+
+
 # --- main and the CLI ------------------------------------------------------
 
 def template(text):
@@ -328,38 +494,58 @@ def template(text):
             text.strip().splitlines()]
 
 
+SYNTHETIC = ["--dataset", "synthetic"]
 MAIN_ARGS = {
-    "magnet_node": ["--num_nodes", "80", "--epochs", "5"],
-    "magnet_link": ["--num_nodes", "80", "--epochs", "5", "--splits", "1"],
-    "msgnn_node": ["--num_nodes", "150", "--epochs", "3"],
-    "msgnn_link": ["--num_nodes", "100", "--epochs", "5"],
+    "magnet_node": SYNTHETIC + ["--num_nodes", "80", "--epochs", "5"],
+    "magnet_link": SYNTHETIC + ["--num_nodes", "80", "--epochs", "5",
+                                "--splits", "1"],
+    "msgnn_node": SYNTHETIC + ["--num_nodes", "150", "--epochs", "3"],
+    "msgnn_link": SYNTHETIC + ["--num_nodes", "100", "--epochs", "5"],
+    "digrac": ["--N", "120", "--epochs", "5", "--features", "degree"],
+    "dgcn_link": SYNTHETIC + ["--num_nodes", "80", "--epochs", "5"],
+    "digcn_link": SYNTHETIC + ["--num_nodes", "80", "--epochs", "5",
+                               "--splits", "1"],
+    "digcn_inception_link": SYNTHETIC + ["--num_nodes", "80", "--epochs",
+                                         "5", "--splits", "1"],
 }
+# host stages each experiment reports; printed lines beside its accuracies
+STAGES = {"digrac": {"graph", "features", "operators"},
+          "dgcn_link": {"graph", "link_split", "operators", "layout"},
+          "digcn_link": {"graph", "link_split", "operators", "layout"},
+          "digcn_inception_link": {"graph", "link_split", "operators",
+                                   "layout"}}
+SUMMARY_LINES = {"msgnn_link": 0, "digrac": 0}
 
 
 @pytest.mark.parametrize("name", sorted(MAIN_ARGS))
 def test_main_prints_the_jax_lines(name, capsys):
-    argv = ["--dataset", "synthetic"] + MAIN_ARGS[name]
+    argv = MAIN_ARGS[name]
     out = run(name, argv + ["--device", "cpu"])
     got = capsys.readouterr().out
     jx_experiments.run(name, argv)
     want = capsys.readouterr().out
     assert template(got) == template(want)
     assert len(out["accs"]) == len(out["seconds"]) == len(template(got)) - (
-        0 if name == "msgnn_link" else 1)
-    assert all(0.0 <= a <= 1.0 for a in out["accs"])
-    assert {"graph", "laplacian", "layout"} <= set(out["host_seconds"])
+        SUMMARY_LINES.get(name, 1))
+    # accuracies in [0, 1]; digrac's ARI in [-1, 1]
+    assert all(-1.0 <= a <= 1.0 for a in out["accs"])
+    assert name == "digrac" or all(0.0 <= a for a in out["accs"])
+    assert STAGES.get(name, {"graph", "laplacian", "layout"}) <= set(
+        out["host_seconds"])
 
 
 @pytest.mark.parametrize("name", sorted(MAIN_ARGS))
 def test_without_device_the_experiments_need_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        run(name, ["--dataset", "synthetic"] + MAIN_ARGS[name])
+        run(name, MAIN_ARGS[name])
 
 
 @pytest.mark.parametrize("name,dataset", [
     ("magnet_node", "telegram"), ("magnet_link", "cora_ml"),
-    ("msgnn_node", "bitcoin_alpha"), ("msgnn_link", "bitcoin_alpha")])
+    ("msgnn_node", "bitcoin_alpha"), ("msgnn_link", "bitcoin_alpha"),
+    ("digrac", "blog"), ("dgcn_link", "telegram"),
+    ("digcn_link", "cora_ml"), ("digcn_inception_link", "citeseer")])
 def test_a_real_dataset_raises(name, dataset):
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         run(name, ["--dataset", dataset, "--device", "cpu"])
@@ -367,15 +553,19 @@ def test_a_real_dataset_raises(name, dataset):
 
 def test_registry_and_cli(capsys):
     assert set(EXPERIMENTS) == {"magnet_node", "magnet_link", "msgnn_node",
-                                "msgnn_link"}
+                                "msgnn_link", "digrac", "dgcn_link",
+                                "digcn_link", "digcn_inception_link"}
     # every experiment of the JAX package is either ported or named as not
     assert set(EXPERIMENTS) | set(NOT_PORTED) == set(
         jx_experiments.EXPERIMENTS)
+    assert not set(EXPERIMENTS) & set(NOT_PORTED)
     cli.main(["--list"])
     listing = capsys.readouterr().out
     assert all(name in listing for name in EXPERIMENTS)
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["digrac"])
+    # the node experiments of DGCN and DiGCN read only real data
+    for name in ("dgcn_node", "digcn_node", "digcn_inception_node"):
+        with pytest.raises(SystemExit, match="not ported"):
+            cli.main([name])
     with pytest.raises(SystemExit, match="unknown experiment"):
         cli.main(["no_such_experiment"])
 

@@ -9,7 +9,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "pytorch_geometric_signed_directed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax",
+# the card's machine has no scikit-learn, so the port does without it
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn",
              "pytorch_geometric_signed_directed_tpu")
 
 
@@ -42,10 +43,15 @@ def test_the_prefix_rule_does_not_match_the_port_itself():
 
 
 def _entry_points():
+    from pytorch_geometric_signed_directed_tpu_torch import graph
     from pytorch_geometric_signed_directed_tpu_torch.experiments import run
     from pytorch_geometric_signed_directed_tpu_torch.nn import (
-        MSConv, MSGNN_link_prediction, MSGNN_node_classification,
-        MagNetConv, MagNet_node_classification)
+        DGCN_link_prediction, DGCN_node_classification,
+        DIGRAC_node_clustering, DIMPA, DiGCN_Inception_Block,
+        DiGCN_Inception_Block_link_prediction,
+        DiGCN_Inception_Block_node_classification, DiGCN_link_prediction,
+        DiGCN_node_classification, DiGCNConv, MSConv, MSGNN_link_prediction,
+        MSGNN_node_classification, MagNetConv, MagNet_node_classification)
     from pytorch_geometric_signed_directed_tpu_torch.ops import (
         build_coo, dual_propagator, make_propagator)
     from pytorch_geometric_signed_directed_tpu_torch.parallel import (
@@ -61,9 +67,10 @@ def _entry_points():
     def experiment(name, *argv):
         def go(device=None):
             dev = [] if device is None else ["--device", device]
-            return run(name, ["--dataset", "synthetic", "--num_nodes", "40",
-                              "--epochs", "1", *argv, *dev])
+            return run(name, [*argv, "--epochs", "1", *dev])
         return go
+
+    synthetic = ("--dataset", "synthetic", "--num_nodes", "40")
 
     return {
         "magnet_propagators": lambda **kw: magnet_propagators(ei, **kw),
@@ -86,10 +93,45 @@ def _entry_points():
         "MSGNN_node_classification":
             lambda **kw: MSGNN_node_classification(4, **kw),
         "MSGNN_link_prediction": lambda **kw: MSGNN_link_prediction(4, **kw),
-        "experiment magnet_node": experiment("magnet_node"),
-        "experiment magnet_link": experiment("magnet_link", "--splits", "1"),
-        "experiment msgnn_node": experiment("msgnn_node"),
-        "experiment msgnn_link": experiment("msgnn_link"),
+        "experiment magnet_node": experiment("magnet_node", *synthetic),
+        "experiment magnet_link": experiment("magnet_link", *synthetic,
+                                             "--splits", "1"),
+        "experiment msgnn_node": experiment("msgnn_node", *synthetic),
+        "experiment msgnn_link": experiment("msgnn_link", *synthetic),
+        "experiment digrac": experiment("digrac", "--N", "60"),
+        "experiment dgcn_link": experiment("dgcn_link", *synthetic,
+                                           "--splits", "1"),
+        "experiment digcn_link": experiment("digcn_link", *synthetic,
+                                            "--splits", "1"),
+        "experiment digcn_inception_link": experiment(
+            "digcn_inception_link", *synthetic, "--splits", "1"),
+        "gcn_norm_propagator": lambda **kw: graph.gcn_norm_propagator(
+            ei, **kw),
+        "norm_propagator": lambda **kw: graph.norm_propagator(ei, one, **kw),
+        "rw_norm_propagator": lambda **kw: graph.rw_norm_propagator(ei, **kw),
+        "rw_norm_dual_propagator":
+            lambda **kw: graph.rw_norm_dual_propagator(ei, **kw),
+        "adj_dual_propagator":
+            lambda **kw: graph.adj_dual_propagator(ei, **kw),
+        "DIMPA": lambda **kw: DIMPA(2, **kw),
+        "DIGRAC_node_clustering":
+            lambda **kw: DIGRAC_node_clustering(2, 4, 3, **kw),
+        "DiGCNConv": lambda **kw: DiGCNConv(2, 4, **kw),
+        "DiGCN_node_classification":
+            lambda **kw: DiGCN_node_classification(2, 4, 3, **kw),
+        "DiGCN_link_prediction":
+            lambda **kw: DiGCN_link_prediction(2, 4, 2, **kw),
+        "DiGCN_Inception_Block":
+            lambda **kw: DiGCN_Inception_Block(2, 4, **kw),
+        "DiGCN_Inception_Block_node_classification":
+            lambda **kw: DiGCN_Inception_Block_node_classification(
+                2, 4, 3, **kw),
+        "DiGCN_Inception_Block_link_prediction":
+            lambda **kw: DiGCN_Inception_Block_link_prediction(2, 4, 2, **kw),
+        "DGCN_node_classification":
+            lambda **kw: DGCN_node_classification(2, 4, 3, **kw),
+        "DGCN_link_prediction":
+            lambda **kw: DGCN_link_prediction(2, 4, 2, **kw),
     }
 
 
