@@ -87,6 +87,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the two fused duals (2F=64, 2K=10) and K2 on block 0 of DGCN's
    streamed A_in (W=32) against their plain versions, timed beside their
    bound and one (or two) cuSPARSE products.
+9. Signed families phase: SSSNET and SGCN.  The ``sssnet`` experiment
+   through its ``main(argv)`` at ``--N 9000 --epochs 30`` and its own
+   defaults (K=3, p=0.1, eta=0.1, hidden 16, hop 2, two splits: K1 on the
+   walk operators at W=16 and on D_bar at W=3, K1 or K2 on the cut loss's
+   D_p - (A_p - A_n) as its layout streams or not); bench.py's SSSNET cell
+   (N=65,536, 1.6M positive and 0.4M negative uniform edges, signed
+   degree features, K=5, hidden 16, hop 2, the balanced normalized cut
+   alone) trained 30 steps; bench.py's SGCN cell (N=131,072, 600k
+   positive and 120k negative edges, a standard-normal input embedding of
+   width 64 as a parameter, 2 layers) trained 30 steps on ``SGCN.loss``
+   with the mean-operator pair and 30 with the fused union-edge-set dual,
+   on 30 sets of non-edges and triplets drawn before training, whose
+   first losses must agree at 1e-5.  Each run must launch exactly what its
+   layouts imply, for the run and for each step, and its loss must fall.
+   Holds K1 on the bench SSSNET's P_p (W=16, 5) and D_bar (W=5), K1 on
+   the SGCN dual (2F=128, 64) and K2 on block 0 of the experiment's cut
+   operator (if it streams) against their plain versions, timed beside
+   their bound and one (or two) cuSPARSE products.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -141,7 +159,17 @@ DIGCN_GRAPH = dict(nodes=65_536, avg_deg=15, steps=30)
 DGCN_HIDDEN = 32
 LINK_EXPERIMENTS = ("dgcn_link", "digcn_link", "digcn_inception_link")
 LINK_ARGV = ["--dataset", "synthetic", "--splits", "1", "--epochs", "30"]
-# steps traced by torch.profiler for each phase-8 path's device time
+# phase 9: the sssnet experiment at N=9000 with its own defaults (K=3,
+# p=0.1, eta=0.1, hidden 16, hop 2, two splits), 30 epochs; bench.py's
+# SSSNET cell (bench.py:464-519, run at :642) and SGCN cell (bench.py:212-
+# 247, :635)
+SSSNET_ARGV = ["--N", "9000", "--epochs", "30"]
+BENCH_SSSNET = dict(nodes=65_536, e_pos=1_600_000, e_neg=400_000, k=5,
+                    hidden=16, hop=2, steps=30)
+BENCH_SGCN = dict(nodes=131_072, e_pos=600_000, e_neg=120_000, dim=64,
+                  steps=30)
+# steps traced by torch.profiler for each phase-8 and phase-9 path's
+# device time
 PROFILE_STEPS = 10
 # f32: the kernels sum in compensated float32, the plain versions in
 # float64 (with atomics, in no fixed order)
@@ -1827,21 +1855,22 @@ def csr_of(P):
     return P.csr
 
 
-def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS):
-    """Traces ``steps`` more steps with torch.profiler (after 2 untraced):
-    device ms a step, the idle share of an untraced step of ``ms_step``
-    ms (1 - device ms / ms_step), and the kernels that take the most
-    device time."""
+def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
+                   batch=()):
+    """Traces ``steps`` more steps with torch.profiler (after 2 untraced),
+    each given ``batch``: device ms a step, the idle share of an untraced
+    step of ``ms_step`` ms (1 - device ms / ms_step), and the kernels that
+    take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        trainer.step_async(state)
+        trainer.step_async(state, *batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            trainer.step_async(state)
+            trainer.step_async(state, *batch)
         torch.cuda.synchronize()
     # device work only: user annotations also appear on the device
     # timeline and overlap their kernels
@@ -1859,7 +1888,8 @@ def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS):
         f"kernels; idle share {1 - device_ms / ms_step:.3f} of a "
         f"{ms_step:.3f} ms step; most: " + "; ".join(
             f"{t / 1e3 / steps:.4f} {n[:60]}" for n, t in top))
-    return dict(device_ms=device_ms, idle=1 - device_ms / ms_step)
+    return dict(device_ms=device_ms, idle=1 - device_ms / ms_step,
+                kernels_per_step=len(kernels) / steps)
 
 
 def train_path(name, loss_fn, model, steps, per_step, smi, edges):
@@ -2229,6 +2259,279 @@ def directed_phase(smi):
     return runs, cases
 
 
+# ---------------------------------------------------------------------------
+# signed families: SSSNET and SGCN (K1, and K2 where the cut streams)
+
+
+def simpa_applies(hop):
+    """(P_p, P_n) applies of one SIMPA forward: hop positive walks of x_p,
+    hop - 1 of x_n, hop (hop - 1) / 2 inside the enemy paths, and hop
+    negative applies (nn/signed/simpa.py)."""
+    return 2 * hop - 1 + hop * (hop - 1) // 2, hop
+
+
+def sssnet_step_launches(P_p, P_n, hop, cut_ops):
+    """The K1/K2 calls of one SSSNET step: SIMPA's applies of the walk
+    operators and one apply of each cut operator, each with its
+    transposed apply in the backward."""
+    a_p, a_n = simpa_applies(hop)
+    return count_applies(both_ways([P_p], a_p) + both_ways([P_n], a_n)
+                         + both_ways(cut_ops))
+
+
+def log_host(seconds):
+    log(f"  host seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()))
+
+
+def sssnet_experiment(smi, cases):
+    """The sssnet experiment through ``main(argv)`` at N=9000."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        sssnet)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+
+    argv = SSSNET_ARGV + ["--device", DEV]
+    args = sssnet.parser().parse_args(argv)
+    res, wall, launches, by_step = run_main(sssnet, argv)
+    inputs, runs = res["inputs"], res["runs"]
+    P_p, P_n = csr_of(inputs.P_p), csr_of(inputs.P_n)
+    mat, D_bar = csr_of(inputs.cut.mat), csr_of(inputs.cut.D_bar)
+    a_p, a_n = simpa_applies(args.hop)
+    steps = sum(r["steps"] for r in runs)
+    evals = sum(r["evals"] for r in runs)
+    per_step = sssnet_step_launches(P_p, P_n, args.hop, [mat, D_bar])
+    # an evaluation forward: SIMPA and the unhappy ratio's own operator
+    eval_counts = count_applies([(P_p, a_p * evals), (P_n, a_n * evals),
+                                 (csr_of(inputs.unhappy.mat), evals)])
+    check_counts("sssnet", launches, by_step, per_step, steps, eval_counts)
+    for i, r in enumerate(runs):
+        check_losses(f"sssnet split {i}", r["losses"])
+        if not -1.0 <= r["ari"] <= 1.0:
+            raise AssertionError(f"sssnet split {i}: ARI {r['ari']}")
+    ms_step = statistics.median(m for r in runs for m in r["step_ms"][1:])
+    log(f"sssnet: N={inputs.data.num_nodes} K={args.K} input edges "
+        f"{inputs.num_edges} (positive {inputs.data.edge_index_p.shape[1]}, "
+        f"negative {inputs.data.edge_index_n.shape[1]}), features "
+        f"{tuple(inputs.x.shape)}, hidden {args.hidden}, hop {args.hop}")
+    for label, c in (("P_p", P_p), ("P_n", P_n), ("cut D_p - A", mat),
+                     ("cut D_bar", D_bar)):
+        log(f"  layout {label}: {layout_text(single_view(c))}; transposed "
+            f"{layout_text(single_view(c.transposed))}")
+    log_host(res["host_seconds"])
+    log(f"  train on {smi}: {steps} steps in {len(runs)} splits, median "
+        f"{ms_step:.3f} ms/step (first step {runs[0]['step_ms'][0]:.3f} ms),"
+        f" training seconds {[round(v, 3) for v in res['seconds']]}, main() "
+        f"{wall:.2f} s")
+    log(f"  losses (first -> last): " + ", ".join(
+        f"{r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}" for r in runs)
+        + f"; test ARI {[round(r['ari'], 4) for r in runs]}, unhappy "
+        f"{[round(r['unhappy'], 4) for r in runs]}")
+    log(f"  launches {launches}: {by_step[0]} in each of {steps} steps as "
+        f"counted around each, {eval_counts} in {evals} evaluation forwards")
+    triplets, nsc, ncl = sssnet.triplet_batches(args, inputs, 1)
+    trainer = Trainer(sssnet.loss_function(inputs, 0, nsc, ncl), lr=args.lr,
+                      device=DEV)
+    prof = device_profile("sssnet", trainer, trainer.init(
+        sssnet.make_model(args, inputs)), ms_step, batch=(triplets[0],))
+    if mat.streamed:
+        v = single_view(mat)
+        b = v.blocks[0]
+        r = accum_kernel_case(
+            v, b, v.num_cols, args.K, torch.float32, seed=args.K,
+            single=True,
+            what=f"sssnet cut block 0 of {len(v.blocks)}")
+        cases[("sssnet cut", args.K)] = r
+        log_case(f"csr_dual_spmm_accum sssnet cut block 0 W={args.K} "
+                 f"float32", r)
+        xs = torch.randn(v.num_cols, args.K, device=DEV)
+        torch.testing.assert_close(inputs.cut.mat(xs),
+                                   plain_apply(v, xs, args.K), **F32_TOL)
+        log(f"  cut streamed apply W={args.K} agrees with its plain version")
+    return dict(launches=launches, per_step=by_step[0], ms_step=ms_step,
+                host=res["host_seconds"], **prof)
+
+
+def bench_sssnet(smi, cases):
+    """bench.py's SSSNET cell: uniform signed edges (seed 0), signed degree
+    features, SSSNET (K=5, hidden 16, hop 2, dropout 0) trained on the
+    balanced normalized cut alone."""
+    import scipy.sparse as sp
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        in_out_degree, rw_norm_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        SSSNET_node_clustering)
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        Prob_Balanced_Normalized_Loss)
+
+    c = BENCH_SSSNET
+    n, k, hop = c["nodes"], c["k"], c["hop"]
+    host = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    ei = np.vstack([rng.integers(0, n, m), rng.integers(0, n, m)])
+    sign = np.concatenate([np.ones(c["e_pos"]),
+                           -np.ones(c["e_neg"])]).astype(np.float32)
+    ei_p, ei_n = ei[:, sign > 0], ei[:, sign < 0]
+    w_p, w_n = sign[sign > 0], -sign[sign < 0]
+    A_p = sp.csr_matrix((w_p, (ei_p[0], ei_p[1])), shape=(n, n))
+    A_n = sp.csr_matrix((w_n, (ei_n[0], ei_n[1])), shape=(n, n))
+    host["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = in_out_degree(ei, n, signed=True, edge_weight=sign)
+    x = torch.from_numpy(np.asarray(x, np.float32)
+                         / max(float(np.abs(x).max()), 1.0)).to(DEV)
+    host["features"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P_p = rw_norm_propagator(ei_p, w_p, n, fill_value=0.5, device=DEV)
+    P_n = rw_norm_propagator(ei_n, w_n, n, fill_value=0.0, device=DEV)
+    cut = Prob_Balanced_Normalized_Loss(A_p, A_n, device=DEV)
+    torch.cuda.synchronize()
+    host["operators"] = time.perf_counter() - t0
+    ops = [csr_of(P) for P in (P_p, P_n, cut.mat, cut.D_bar)]
+    per_step = sssnet_step_launches(ops[0], ops[1], hop, ops[2:])
+    log(f"bench sssnet: N={n} E={m} ({c['e_pos']} positive, {c['e_neg']} "
+        f"negative draws), K={k}, hidden {c['hidden']}, hop {hop}")
+    for label, op in zip(("P_p", "P_n", "cut D_p - A", "cut D_bar"), ops):
+        log(f"  layout {label}: {layout_text(single_view(op))}")
+    log_host(host)
+    model = SSSNET_node_clustering(
+        nfeat=4, hidden=c["hidden"], nclass=k, dropout=0.0, hop=hop,
+        device=DEV, generator=torch.Generator().manual_seed(0))
+    run = train_path("bench sssnet", lambda mo: cut(mo(P_p, P_n, x)[3]),
+                     model, c["steps"], per_step, smi, m)
+    single_cases(P_p, (c["hidden"], k), "bench sssnet P_p", cases,
+                 "bench sssnet P_p")
+    single_cases(cut.D_bar, (k,), "bench sssnet D_bar", cases,
+                 "bench sssnet D_bar")
+    return {"bench sssnet": dict(run, host=host)}
+
+
+def sgcn_samples(pos, neg, n, sets, rng):
+    """``sets`` draws of SGCN's non-edges and positive and negative
+    triplets by the port's samplers, on the card: their host seconds."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        negative_sampling, structured_negative_sampling)
+
+    both = np.concatenate([pos, neg], 1)
+    t0 = time.perf_counter()
+    drawn = [(negative_sampling(both, n, rng=rng),
+              structured_negative_sampling(pos, n, rng=rng),
+              structured_negative_sampling(neg, n, rng=rng))
+             for _ in range(sets)]
+    seconds = time.perf_counter() - t0
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+    return [(dev(a), [dev(v) for v in b], [dev(v) for v in c])
+            for a, b, c in drawn], seconds
+
+
+def bench_sgcn(smi, cases):
+    """bench.py's SGCN cell, 30 steps with the two mean operators and 30
+    with the fused dual, from one seed and the same samples: their first
+    losses agree."""
+    import itertools
+
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SGCN
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed.sgcn import (
+        prepare_sgcn_inputs, split_signed_edges)
+
+    c = BENCH_SGCN
+    n, dim, steps = c["nodes"], c["dim"], c["steps"]
+    rng = np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    t0 = time.perf_counter()
+    edge_s = np.column_stack([
+        rng.integers(0, n, m), rng.integers(0, n, m),
+        np.concatenate([np.ones(c["e_pos"]), -np.ones(c["e_neg"])])
+    ]).astype(np.int64)
+    init_emb = rng.standard_normal((n, dim)).astype(np.float32)
+    graph_s = time.perf_counter() - t0
+    pos, neg = split_signed_edges(edge_s)
+    samples, sample_s = sgcn_samples(pos, neg, n, steps,
+                                     np.random.default_rng(1))
+    log(f"bench sgcn: N={n} E={m} ({pos.shape[1]} positive, "
+        f"{neg.shape[1]} negative), in/out {dim}, 2 layers; graph "
+        f"{graph_s:.2f} s")
+    log(f"  samplers: {steps} sets of {samples[0][0].shape[1]} non-edges "
+        f"and {pos.shape[1]} + {neg.shape[1]} triplets on the host in "
+        f"{sample_s:.2f} s ({sample_s / steps * 1e3:.1f} ms a set)")
+    pos_t = torch.from_numpy(pos).to(DEV)
+    neg_t = torch.from_numpy(neg).to(DEV)
+    runs = {}
+    for form in ("pair", "fused"):
+        t0 = time.perf_counter()
+        _, _, emb, P_pos, P_neg = prepare_sgcn_inputs(
+            n, edge_s, in_dim=dim, init_emb=init_emb, fused=form == "fused",
+            device=DEV)
+        torch.cuda.synchronize()
+        host = {"graph": graph_s, "samplers": sample_s,
+                "operators": time.perf_counter() - t0}
+        if form == "fused":
+            ops = [P_pos]
+            log(f"bench sgcn fused: dual nnz {P_pos.col.numel()} "
+                f"({layout_text(P_pos)}); built in {host['operators']:.2f} s")
+        else:
+            ops = [csr_of(P_pos), csr_of(P_neg)]
+            log(f"bench sgcn pair: P_pos nnz {ops[0].col.numel()} "
+                f"({layout_text(single_view(ops[0]))}), P_neg nnz "
+                f"{ops[1].col.numel()}; built in {host['operators']:.2f} s")
+        # layer 1 applies each operator once, layer 2 twice; the embedding
+        # is a parameter, so every apply has its transposed apply
+        per_step = count_applies(both_ways(ops, 3))
+        model = SGCN(n, in_dim=dim, out_dim=dim, init_emb=emb,
+                     init_emb_grad=True, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+        cycle = itertools.cycle(samples)
+
+        def loss_fn(mo, P_pos=P_pos, P_neg=P_neg, cycle=cycle):
+            none, pt, nt = next(cycle)
+            return mo.loss(P_pos, P_neg, pos_t, neg_t, none, pt, nt)
+
+        runs[f"bench sgcn {form}"] = dict(
+            train_path(f"bench sgcn {form}", loss_fn, model, steps, per_step,
+                       smi, m), host=host)
+        if form == "fused":
+            for width in (2 * dim, dim):
+                r = dual_kernel_case(P_pos, width, torch.float32, seed=width)
+                r["shape"] = f"bench sgcn dual: {r['shape']}"
+                cases[("bench sgcn dual", width)] = r
+                log_case(f"csr_dual_spmm bench sgcn dual 2F={width} float32",
+                         r)
+        del P_pos, P_neg, model, ops
+    a = runs["bench sgcn pair"]["losses"][0]
+    b = runs["bench sgcn fused"]["losses"][0]
+    if abs(a - b) > 1e-5 * max(1.0, abs(a)):
+        raise AssertionError(f"bench sgcn: the first losses of the pair and "
+                             f"fused forms differ: {a} vs {b}")
+    log(f"  first-step loss: pair {a:.8f}, fused {b:.8f} (|diff| "
+        f"{abs(a - b):.3g})")
+    return runs
+
+
+def signed_phase(smi):
+    """Phase 9: the sssnet experiment, the bench SSSNET cell and the bench
+    SGCN cell (pair and fused); K1 and K2 held at the widths they apply."""
+    import torch
+
+    cases, runs = {}, {}
+    for name, path in (("sssnet", sssnet_experiment),
+                       ("bench sssnet", bench_sssnet),
+                       ("bench sgcn", bench_sgcn)):
+        t0 = time.perf_counter()
+        out = path(smi, cases)
+        runs.update(out if name != "sssnet" else {"sssnet": out})
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return runs, cases
+
+
 def main():
     import torch
 
@@ -2254,14 +2557,15 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-8. the paths -------------------------------------------------
+    # ---- 2-9. the paths -------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
                         ("trainable_q", lambda smi: trainable_q_phase(
                             smi, phases["magnet_mxu"][2])),
                         ("experiments", experiment_phase),
-                        ("directed", directed_phase)):
+                        ("directed", directed_phase),
+                        ("signed", signed_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -2272,6 +2576,7 @@ def main():
     tq_cases, k4, tq_runs = phases["trainable_q"]
     exp_runs, exp_cases = phases["experiments"]
     dir_runs, dir_cases = phases["directed"]
+    sig_runs, sig_cases = phases["signed"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -2334,7 +2639,24 @@ def main():
                  "scatter_mxu.py:503", (10,)),
                 ("dgcn A_in", "dgcn", "csr_dual_spmm_accum",
                  "scatter_mxu.py:580", (DGCN_HIDDEN,)))
-            for width in widths],
+            for width in widths] + [
+            # phase 9: K1 on the bench SSSNET's walk and D_bar and on the
+            # SGCN dual, K2 on a streamed block of the sssnet cut operator
+            {**kernel_entry(kname, sig_cases[(key, width)],
+                            sig_runs[path]["launches"][kname],
+                            "scatter_csr.cu", replaces),
+             "path": path, "launches_per_step":
+                 sig_runs[path]["per_step"][kname]}
+            for key, path, kname, replaces in (
+                ("sssnet cut", "sssnet", "csr_dual_spmm_accum",
+                 "scatter_mxu.py:580"),
+                ("bench sssnet P_p", "bench sssnet", "csr_dual_spmm",
+                 "scatter_mxu.py:503"),
+                ("bench sssnet D_bar", "bench sssnet", "csr_dual_spmm",
+                 "scatter_mxu.py:503"),
+                ("bench sgcn dual", "bench sgcn fused", "csr_dual_spmm",
+                 "scatter_mxu.py:503"))
+            for (k2, width) in sig_cases if k2 == key],
         # K1's and K2's own contracts and K4: tested, on no path this
         # script drives
         "off_path": [

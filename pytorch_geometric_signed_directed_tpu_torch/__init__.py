@@ -11,16 +11,20 @@ Layout mirrors the JAX package so a reader can find each counterpart:
   ops/       COO container, segment tier (``index_add_``), tiered SpMM
              (dense / segment / mxu / bsr), the layouts, the CUDA
              kernels (ops/cuda).
-  spectral/  host-side (numpy/scipy) magnetic Laplacians and the
-             trainable-q templates.
+  spectral/  host-side (numpy/scipy) magnetic Laplacians, the
+             trainable-q templates, PPR adjacencies and spectral
+             features.
   parallel/  the kernel tier across a device mesh.
-  data/      DirectedData / SignedData containers, DSBM and SDSBM.
-  utils/     meta-graph generation, node and link splits, samplers.
-  nn/        MagNet and MSGNN layers and models as ``torch.nn.Module``s.
+  data/      DirectedData / SignedData containers, DSBM, SDSBM, SSBM and
+             the polarized SSBM.
+  utils/     meta-graph generation, node and link splits, samplers, the
+             imbalance, balanced-cut, link-sign and triplet losses.
+  nn/        MagNet, MSGNN, DIGRAC, DiGCN, DGCN, SSSNET and SGCN layers
+             and models as ``torch.nn.Module``s.
   train/     full-batch trainer (Adam with coupled L2), masked NLL,
              checkpoints, timing.
-  experiments/  magnet_node, magnet_link, msgnn_node and msgnn_link, run by
-             ``python -m pytorch_geometric_signed_directed_tpu_torch``.
+  experiments/  the ported experiments (``experiments.EXPERIMENTS``), run
+             by ``python -m pytorch_geometric_signed_directed_tpu_torch``.
 
 Device policy: every entry point that places tensors takes ``device=None``
 and ``None`` means ``"cuda"``.  Without CUDA it raises and asks for
@@ -32,9 +36,11 @@ __version__ = "0.1.0"
 from . import ops  # noqa: F401
 from . import graph  # noqa: F401
 from . import spectral  # noqa: F401
+# nn before utils: utils.signed's losses import nn.inits, and nn.signed's
+# SGCN imports those losses
+from . import nn  # noqa: F401
 from . import utils  # noqa: F401
 from . import data  # noqa: F401
-from . import nn  # noqa: F401
 from . import parallel  # noqa: F401
 from . import train  # noqa: F401
 from . import experiments  # noqa: F401

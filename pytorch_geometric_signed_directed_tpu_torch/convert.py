@@ -13,12 +13,15 @@ import torch
 # flax group name -> the port's module path ("" flattens the group)
 _GROUPS = (
     (re.compile(r"(?:MagNetConv|MSConv|DiGCNConv)_(\d+)$"), r"convs.\1"),
+    (re.compile(r"convs_(\d+)$"), r"convs.\1"),
     (re.compile(r"DiGCN_Inception_Block_(\d+)$"), r"blocks.\1"),
     (re.compile(r"Dense_0$"), "linear"),
     (re.compile(r"Dense_(\d+)$"), r"linear\1"),
-    (re.compile(r"(w_[st][01])$"), r"\1"),
+    (re.compile(r"(w_(?:[st]|[st]?[pn])[01])$"), r"\1"),
+    (re.compile(r"(conv1|lin_[bu]|lsp_loss|score_function[12])$"), r"\1"),
     (re.compile(r"DIMPA_0$"), "dimpa"),
-    (re.compile(r"_DGCNTrunk_0$"), "trunk"),
+    (re.compile(r"SIMPA_0$"), "simpa"),
+    (re.compile(r"_(?:DGCN|SSSNET)Trunk_0$"), "trunk"),
     (re.compile(r"_MSGNNTrunk_0$"), ""),
 )
 
@@ -34,13 +37,17 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The flax tree of a model of the port's families -> its state_dict.
 
     Groups map by ``_GROUPS``: conv layers ``MagNetConv_i`` / ``MSConv_i``
-    / ``DiGCNConv_i`` -> ``convs.i``, ``DiGCN_Inception_Block_i`` ->
-    ``blocks.i``, ``Dense_0`` -> ``linear`` (``Dense_i`` -> ``linear{i}``),
-    DIGRAC's ``w_s0``.. ``w_t1`` and ``DIMPA_0`` -> ``dimpa``, DGCN's
-    ``_DGCNTrunk_0`` -> ``trunk``; MSGNN's ``_MSGNNTrunk_0`` is flattened.
-    Leaves keep their names (``weight``, ``bias``, ``q``, ``W_prob``,
-    ``bias1``, ``_w_s``, ...), except a Dense ``kernel`` [in, out], which
-    becomes the Linear's ``weight`` [out, in].  A bare conv tree
+    / ``DiGCNConv_i`` and SGCN's ``convs_i`` -> ``convs.i``,
+    ``DiGCN_Inception_Block_i`` -> ``blocks.i``, ``Dense_0`` -> ``linear``
+    (``Dense_i`` -> ``linear{i}``), DIGRAC's ``w_s0``.. ``w_t1`` and
+    SSSNET's ``w_p0``.. ``w_tn1`` keep their names, ``DIMPA_0`` ->
+    ``dimpa``, ``SIMPA_0`` -> ``simpa``, DGCN's and SSSNET's trunks ->
+    ``trunk``, SGCN's ``conv1``, ``lin_b``/``lin_u``, ``lsp_loss`` and
+    SDGNN's ``score_function1/2`` keep theirs; MSGNN's ``_MSGNNTrunk_0`` is
+    flattened.  Leaves keep their names (``weight``, ``bias``, ``q``,
+    ``W_prob``, ``bias1``, ``_w_s``, ``_w_sp``, SGCN's trainable ``x``,
+    ...), except a Dense ``kernel`` [in, out], which becomes the Linear's
+    ``weight`` [out, in].  A bare conv tree
     ``{'params': {'weight', 'bias'[, 'q']}}`` maps onto one MagNetConv."""
 
     def t(a):

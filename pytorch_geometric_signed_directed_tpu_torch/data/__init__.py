@@ -3,7 +3,9 @@
 from .directed_data import DirectedData
 from .dsbm import DSBM
 from .sdsbm import SDSBM
+from .polarized_ssbm import polarized_SSBM
 from .signed_data import SignedData
-from .ssbm import geometric_sizes
+from .ssbm import SSBM, geometric_sizes
 
-__all__ = ["DirectedData", "DSBM", "SDSBM", "SignedData", "geometric_sizes"]
+__all__ = ["DirectedData", "DSBM", "SDSBM", "SSBM", "SignedData",
+           "geometric_sizes", "polarized_SSBM"]

@@ -8,12 +8,10 @@ from typing import Tuple, Union
 import numpy as np
 import scipy.sparse as sp
 
+from ..spectral.features import (signed_laplacian_eig_features,
+                                 spectral_adjacency_reg_features)
 from ..utils.general.link_split import link_class_split
 from .directed_data import GraphData
-
-_FEATURES_LATER = (
-    "{} needs the signed spectral features of spectral/features.py, which "
-    "are not ported yet (ROADMAP.md queue A item 5)")
 
 
 class SignedData(GraphData):
@@ -70,14 +68,21 @@ class SignedData(GraphData):
             self.separate_positive_negative()
 
     def set_signed_Laplacian_features(self, k: int = 2):
-        raise NotImplementedError(
-            _FEATURES_LATER.format("set_signed_Laplacian_features"))
+        """x = the signed Laplacian's eigenvector features
+        (``spectral.features.signed_laplacian_eig_features``)."""
+        self.separate_positive_negative()
+        self.x = signed_laplacian_eig_features(self.A_p, self.A_n, k)
+        self.clear_separate_attributes()
 
     def set_spectral_adjacency_reg_features(self, k: int = 2,
                                             normalization=None, tau_p=None,
                                             tau_n=None, eigens=None, mi=None):
-        raise NotImplementedError(
-            _FEATURES_LATER.format("set_spectral_adjacency_reg_features"))
+        """x = the regularized signed adjacency's eigenvector features
+        (``spectral.features.spectral_adjacency_reg_features``)."""
+        self.separate_positive_negative()
+        self.x = spectral_adjacency_reg_features(
+            self.A_p, self.A_n, k, normalization, tau_p, tau_n, eigens, mi)
+        self.clear_separate_attributes()
 
     def link_split(self, size=None, splits: int = 2, prob_test: float = 0.15,
                    prob_val: float = 0.05, task: str = "sign", seed: int = 0,

@@ -18,10 +18,11 @@ EXPERIMENTS = {
     "digcn_link": ("digcn_link", "DiGCN link/direction prediction"),
     "digcn_inception_link": ("digcn_inception_link",
                              "DiGCN inception-block link prediction"),
+    "sssnet": ("sssnet", "SSSNET semi-supervised signed clustering"),
 }
 
 NOT_PORTED = ("dgcn_node", "digcn_node", "digcn_inception_node",
-              "digcl_node", "digcl_link", "sssnet", "link_sign_prediction",
+              "digcl_node", "digcl_link", "link_sign_prediction",
               "link_sign_direction_tasks")
 
 

@@ -42,10 +42,11 @@ class StageClock:
         self._t = now
 
 
-def run_steps(trainer, state, batch: tuple, epochs: int,
+def run_steps(trainer, state, batch, epochs: int,
               after_step: Optional[Callable[[int], None]] = None) -> dict:
-    """``epochs`` steps of ``trainer`` on ``state`` with ``batch``,
-    ``after_step(epoch)`` after each.  Returns the losses, the milliseconds of each step (a
+    """``epochs`` steps of ``trainer`` on ``state`` with ``batch`` (a tuple,
+    or ``batch(epoch)`` giving each step's), ``after_step(epoch)`` after
+    each.  Returns the losses, the milliseconds of each step (a
     pair of CUDA events on the card, so the loop makes no host sync; the
     host clock on the CPU) and the seconds of the whole loop."""
     cuda = trainer.device.type == "cuda"
@@ -61,7 +62,8 @@ def run_steps(trainer, state, batch: tuple, epochs: int,
     t0 = time.perf_counter()
     for epoch in range(epochs):
         a = mark()
-        losses.append(trainer.step_async(state, *batch))
+        losses.append(trainer.step_async(
+            state, *(batch(epoch) if callable(batch) else batch)))
         spans.append((a, mark()))
         if after_step is not None:
             after_step(epoch)

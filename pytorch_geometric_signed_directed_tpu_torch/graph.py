@@ -188,6 +188,24 @@ def adj_dual_propagator(edge_index, edge_weight=None,
                            device=device)
 
 
+def mean_propagator(edge_index, num_nodes: Optional[int] = None,
+                    flow: str = "source_to_target", mode: str = "auto",
+                    device: DeviceLike = None) -> Propagator:
+    """Unweighted mean aggregation, SGCNConv's: with ``source_to_target``
+    ``out[t] = mean of x[s]`` over the edges (s, t) (over (t, s) with
+    ``target_to_source``); a node without such edges gets 0.  Duplicate
+    edges stay separate entries and count separately."""
+    edge_index, _, num_nodes = _as_numpy_graph(edge_index, None, num_nodes)
+    if flow == "source_to_target":
+        row, col = edge_index[1], edge_index[0]
+    else:
+        row, col = edge_index[0], edge_index[1]
+    cnt = np.bincount(row, minlength=num_nodes).astype(np.float64)
+    cnt[cnt == 0] = 1.0
+    A = build_coo(row, col, 1.0 / cnt[row], num_nodes, device=device)
+    return propagator_from_coo(A, mode=mode)
+
+
 def directed_features_in_out(edge_index, size: int, edge_weight=None):
     """DGCN's second-order in and out proximity graphs,
     A_in = A^T D_c^-1 A and A_out = A D_r^-1 A^T (column and row sums of A,

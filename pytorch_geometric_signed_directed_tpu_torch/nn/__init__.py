@@ -21,6 +21,8 @@ from .directed import (
 from .general import (Conv_Base, MSConv, MSGNN_link_prediction,
                       MSGNN_node_classification)
 from .normalize import l2_normalize
+from .signed import (SGCN, SGCNConv, SIMPA, SSSNET_link_prediction,
+                     SSSNET_node_clustering)
 
 __all__ = ["Conv_Base", "DGCN_link_prediction", "DGCN_node_classification",
            "DGCNConv", "DIGRAC_node_clustering", "DIMPA",
@@ -29,5 +31,6 @@ __all__ = ["Conv_Base", "DGCN_link_prediction", "DGCN_node_classification",
            "DiGCN_link_prediction", "DiGCN_node_classification", "DiGCNConv",
            "MagNet_link_prediction", "MagNet_node_classification",
            "MagNetConv", "MSConv", "MSGNN_link_prediction",
-           "MSGNN_node_classification", "complex_relu", "complex_relu_layer",
-           "l2_normalize"]
+           "MSGNN_node_classification", "SGCN", "SGCNConv", "SIMPA",
+           "SSSNET_link_prediction", "SSSNET_node_clustering",
+           "complex_relu", "complex_relu_layer", "l2_normalize"]

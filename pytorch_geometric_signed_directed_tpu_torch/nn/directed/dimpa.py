@@ -14,13 +14,8 @@ from torch import nn
 from ...device import DeviceLike, resolve_device
 from ...ops.spmm import DualPropagator, dual_spmm_stacked
 from ..dropout import dropout
-from ..inits import glorot, linear, zeros
+from ..inits import linear, xavier_1414, zeros
 from ..normalize import l2_normalize
-
-
-def _xavier_1414(shape, generator):
-    """xavier-uniform with gain 1.414 (gain^2 = 2)."""
-    return glorot(shape, generator, gain_sq=2.0)
 
 
 class DIMPA(nn.Module):
@@ -73,12 +68,12 @@ class DIGRAC_node_clustering(nn.Module):
         self.fill_value, self.dropout = fill_value, dropout
         for name in ("w_s", "w_t"):
             setattr(self, f"{name}0", linear(num_features, hidden, False,
-                                             device, generator, _xavier_1414))
+                                             device, generator, xavier_1414))
             setattr(self, f"{name}1", linear(hidden, hidden, False, device,
-                                             generator, _xavier_1414))
+                                             generator, xavier_1414))
         self.dimpa = DIMPA(hop, device=device)
         self.W_prob = nn.Parameter(
-            _xavier_1414((2 * hidden, nclass), generator).to(device))
+            xavier_1414((2 * hidden, nclass), generator).to(device))
         self.bias = nn.Parameter(zeros((nclass,)).to(device))
 
     def _mlp(self, x, first, second, training, generator):

@@ -19,6 +19,13 @@ def glorot(shape: Sequence[int],
     return torch.empty(tuple(shape)).uniform_(-a, a, generator=generator)
 
 
+def xavier_1414(shape: Sequence[int],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """xavier-uniform with gain 1.414 (gain^2 = 2): the weights of DIGRAC
+    and SSSNET."""
+    return glorot(shape, generator, gain_sq=2.0)
+
+
 def zeros(shape: Sequence[int]) -> torch.Tensor:
     return torch.zeros(tuple(shape))
 

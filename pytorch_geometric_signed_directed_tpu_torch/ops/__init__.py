@@ -2,7 +2,7 @@
 layouts, BSR, the fused scatter + SDDMM, CUDA kernels."""
 
 from .bsr import BSR, bsr_from_coo, bsr_spmm
-from .coo import COO, build_coo
+from .coo import COO, build_coo, coo_from_scipy
 from .layout import col_degree_split
 from .reorder import apply_permutation, block_density, rcm_permutation
 from .sddmm import (
@@ -36,6 +36,7 @@ __all__ = [
     "bsr_spmm",
     "COO",
     "build_coo",
+    "coo_from_scipy",
     "col_degree_split",
     "apply_permutation",
     "block_density",

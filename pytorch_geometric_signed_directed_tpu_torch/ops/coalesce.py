@@ -1,4 +1,4 @@
-"""Shared host-side edge coalescing (numpy).
+"""Shared host-side edge coalescing and unique keys (numpy).
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/ops/coalesce.py``,
 numpy branch only: the same arrays for the same input.
@@ -32,3 +32,22 @@ def coalesce_edges(row, col, *values, num_cols: int,
              if len(ks) else np.zeros(0, dt))
         out_vals.append(s)
     return (uniq // num_cols, uniq % num_cols, *out_vals)
+
+
+def sorted_unique(keys: np.ndarray, return_inverse: bool = False):
+    """``np.unique`` of 1-D keys by one sort.  numpy >= 2.3 answers a plain
+    ``np.unique`` from a hash table, which at 10^7 random int64 keys takes
+    several seconds a call, many times the sort.  ``return_inverse`` also
+    gives each key's index into the result."""
+    if not return_inverse:
+        keys = np.sort(keys)
+    else:
+        order = np.argsort(keys, kind="stable")
+        keys = keys[order]
+    keep = np.ones(len(keys), bool)
+    np.not_equal(keys[1:], keys[:-1], out=keep[1:])
+    if not return_inverse:
+        return keys[keep]
+    inverse = np.empty(len(keys), np.int64)
+    inverse[order] = np.cumsum(keep) - 1
+    return keys[keep], inverse

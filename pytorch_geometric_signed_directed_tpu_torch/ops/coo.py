@@ -118,3 +118,12 @@ def build_coo(
         num_nodes=int(num_nodes),
         num_cols=int(num_cols),
     )
+
+
+def coo_from_scipy(A, device: DeviceLike = None) -> COO:
+    """A scipy sparse matrix as a COO on ``device`` (None means "cuda"),
+    its stored entries kept as they are (explicit zeros and duplicates
+    included) and stored as float32."""
+    A = A.tocoo()
+    return build_coo(A.row, A.col, A.data, A.shape[0], num_cols=A.shape[1],
+                     device=device)

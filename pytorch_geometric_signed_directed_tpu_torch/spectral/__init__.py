@@ -7,7 +7,9 @@ from .appr import (
     fast_appr_power,
     second_directed_adj,
 )
-from .features import hermitian_features
+from .features import (create_spectral_features, hermitian_features,
+                       signed_laplacian_eig_features,
+                       spectral_adjacency_reg_features)
 from .magnetic import (
     MagneticPair,
     MagneticTemplate,
@@ -23,9 +25,11 @@ from .magnetic import (
 )
 
 __all__ = ["MagneticPair", "MagneticTemplate", "appr_directed_adj",
-           "cal_fast_appr", "fast_appr_power", "hermitian_features",
+           "cal_fast_appr", "create_spectral_features",
+           "fast_appr_power", "hermitian_features",
            "magnet_operator_arrays", "magnet_propagators",
            "magnetic_laplacian", "magnetic_pair",
            "magnetic_signed_laplacian", "magnetic_template",
-           "second_directed_adj", "template_dual", "template_dual_apply",
-           "template_propagators"]
+           "second_directed_adj", "signed_laplacian_eig_features",
+           "spectral_adjacency_reg_features", "template_dual",
+           "template_dual_apply", "template_propagators"]

@@ -25,17 +25,8 @@ from typing import Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from ...ops.coalesce import sorted_unique
 from ..signed.sampling import negative_sampling
-
-
-def _unique(keys: np.ndarray) -> np.ndarray:
-    """``np.unique`` of 1-D keys by one sort.  numpy >= 2.3 answers a plain
-    ``np.unique`` from a hash table, which at 10^7 random int64 keys takes
-    several seconds a call, many times the sort."""
-    keys = np.sort(keys)
-    keep = np.ones(len(keys), bool)
-    np.not_equal(keys[1:], keys[:-1], out=keep[1:])
-    return keys[keep]
 
 
 def _pairs_to_keys(pairs: np.ndarray, n: int) -> np.ndarray:
@@ -83,11 +74,11 @@ def undirected_label2directed_label(
         und_keys = keys[undirected_mask]
 
         def uniq(mask):
-            k = _unique(keys[mask])
+            k = sorted_unique(keys[mask])
             return k[~np.isin(k, und_keys)] if len(und_keys) else k
 
         negative = _keys_to_pairs(
-            _unique(keys[(np.abs(w_ij) == 0) & (np.abs(w_ji) == 0)]), n)
+            sorted_unique(keys[(np.abs(w_ij) == 0) & (np.abs(w_ji) == 0)]), n)
     if signed_directed:
         dp = _keys_to_pairs(uniq(w_ij > 0), n)
         dn = _keys_to_pairs(uniq(w_ij < 0), n)
@@ -208,7 +199,7 @@ def link_class_split(data, size: int = None, splits: int = 2,
     und_col = np.concatenate([col, row])
     # (the unique 1-D keys; the JAX package's np.unique(axis=0) gives the
     # same array through a much slower structured sort)
-    und_edge_index = _unique(und_row.astype(np.int64) * size + und_col)
+    und_edge_index = sorted_unique(und_row.astype(np.int64) * size + und_col)
     und_edge_index = np.stack([und_edge_index // size, und_edge_index % size])
     rng = np.random.default_rng(seed)
     neg_edges = np.ascontiguousarray(

@@ -563,3 +563,82 @@ def test_pair_kernels_match_plain_on_card(card, width, dtype):
     assert scatter_csr.LAUNCHES["csr_pair_spmm_accum"] == \
         before["csr_pair_spmm_accum"] + 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 5, 16])
+def test_one_edge_rows_on_card(card, width):
+    """A diagonal operator (the balanced cut's D_bar: one edge a row, some
+    rows empty) through K1 as a single operator (fa = width)."""
+    n = 5000
+    d = np.random.default_rng(width).uniform(0.5, 9.0, n).astype(np.float32)
+    d[::7] = 0.0
+    keep = np.nonzero(d)[0]
+    P = spmm.make_propagator(keep, keep, d[keep], n, mode="mxu", device=card)
+    c = P.csr
+    x = torch.randn(n, width, device=card)
+    args = (c.rowptr, c.col, c.val, c.val, x, width)
+    got = scatter_csr.csr_dual_spmm(*args, c.row_split)
+    torch.testing.assert_close(got, scatter_csr.csr_dual_spmm_plain(*args),
+                               **F32_TOL)
+    torch.testing.assert_close(got, torch.from_numpy(d).to(card)[:, None] * x,
+                               **F32_TOL)
+    assert torch.equal(got, scatter_csr.csr_dual_spmm(*args, c.row_split))
+
+
+def _signed_model_outputs(kind, device):
+    """Loss and every parameter gradient of a small SSSNET (balanced cut
+    and triplet loss) or SGCN (its loss, pair or fused operators) on
+    ``device``, from one seed; the operators on the kernel tier."""
+    from pytorch_geometric_signed_directed_tpu_torch.data import SSBM
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        rw_norm_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        SGCN, SSSNET_node_clustering)
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed.sgcn import (
+        prepare_sgcn_inputs)
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        Prob_Balanced_Normalized_Loss, negative_sampling,
+        structured_negative_sampling)
+
+    gen = torch.Generator().manual_seed(0)
+    if kind == "sssnet":
+        (A_p, A_n), _ = SSBM(400, 3, 0.1, 0.1, size_ratio=1.5,
+                             rng=np.random.default_rng(0))
+        ops = []
+        for A, fill in ((A_p.tocoo(), 0.5), (A_n.tocoo(), 0.0)):
+            ops.append(rw_norm_propagator(np.vstack([A.row, A.col]), A.data,
+                                          400, fill, mode="mxu",
+                                          device=device))
+        cut = Prob_Balanced_Normalized_Loss(A_p, A_n, mode="mxu",
+                                            device=device)
+        model = SSSNET_node_clustering(3, 16, 3, device=device,
+                                       generator=gen)
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (400, 3)).astype(np.float32)).to(device)
+        loss = cut(model(ops[0], ops[1], x)[3])
+    else:
+        rng = np.random.default_rng(2)
+        n, m = 500, 4000
+        es = np.column_stack([rng.integers(0, n, m), rng.integers(0, n, m),
+                              np.where(rng.random(m) < 0.8, 1, -1)])
+        emb = rng.standard_normal((n, 16)).astype(np.float32)
+        pos, neg, emb, P, Q = prepare_sgcn_inputs(
+            n, es, in_dim=16, init_emb=emb, mode="mxu",
+            fused=kind == "sgcn fused", device=device)
+        model = SGCN(n, in_dim=16, out_dim=16, init_emb=emb,
+                     init_emb_grad=True, device=device, generator=gen)
+        none = negative_sampling(np.concatenate([pos, neg], 1), n, rng=rng)
+        loss = model.loss(P, Q, pos, neg, none,
+                          structured_negative_sampling(pos, n, rng=rng),
+                          structured_negative_sampling(neg, n, rng=rng))
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sssnet", "sgcn pair", "sgcn fused"])
+def test_signed_models_on_card_match_the_cpu(card, kind):
+    for a, b in zip(_signed_model_outputs(kind, card),
+                    _signed_model_outputs(kind, "cpu")):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

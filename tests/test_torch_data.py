@@ -16,6 +16,7 @@ from pytorch_geometric_signed_directed_tpu.utils.signed import (
 
 from pytorch_geometric_signed_directed_tpu_torch.data import (
     DSBM, DirectedData, SDSBM, SignedData)
+from pytorch_geometric_signed_directed_tpu_torch.ops import coalesce
 from pytorch_geometric_signed_directed_tpu_torch.utils import (
     meta_graph_generation)
 from pytorch_geometric_signed_directed_tpu_torch.utils.general import (
@@ -113,7 +114,7 @@ def test_shuffle_of_an_index_equals_the_shuffle_of_a_list(n):
 @pytest.mark.parametrize("n,hi", [(0, 5), (1, 5), (50, 7), (5000, 10**9)])
 def test_sort_unique_equals_np_unique(n, hi):
     keys = np.random.default_rng(n).integers(0, hi, n)
-    assert_same(link_split._unique(keys), np.unique(keys))
+    assert_same(coalesce.sorted_unique(keys), np.unique(keys))
 
 
 # --- node splits -----------------------------------------------------------
@@ -385,14 +386,13 @@ def test_signed_data_matches_jax():
     (SignedData, "set_signed_Laplacian_features"),
     (SignedData, "set_spectral_adjacency_reg_features")])
 def test_spectral_features_wait_for_their_module(cls, method):
-    """The Hermitian features are ported (tests/test_torch_digrac.py holds
-    them against JAX); the signed ones wait for queue A item 5."""
+    """Every feature setter is ported (tests/test_torch_digrac.py and
+    tests/test_torch_signed.py hold the features against JAX's): each sets
+    finite float32 features of the expected width."""
     A, y = sdsbm_graph(30, seed=1)
     data = cls(A=A, y=y)
-    if method == "set_hermitian_features":
-        data.set_hermitian_features(k=2)
-        assert data.x.shape == (data.num_nodes, 4)
-        assert data.x.dtype == np.float32 and np.isfinite(data.x).all()
-        return
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        getattr(data, method)()
+    getattr(data, method)(k=2)
+    width = 4 if method == "set_hermitian_features" else 2
+    assert data.x.shape == (data.num_nodes, width)
+    assert data.x.dtype == np.float32 and np.isfinite(data.x).all()
+    assert not hasattr(data, "A_p")

@@ -16,7 +16,7 @@ from sklearn.metrics import adjusted_rand_score as sk_ari
 import pytorch_geometric_signed_directed_tpu.experiments as jx_experiments
 from pytorch_geometric_signed_directed_tpu.data import (
     DSBM as jx_DSBM, DirectedData as JxDirectedData, SDSBM as jx_SDSBM,
-    SignedData as JxSignedData)
+    SSBM as jx_SSBM, SignedData as JxSignedData)
 from pytorch_geometric_signed_directed_tpu import graph as jx_graph
 from pytorch_geometric_signed_directed_tpu.graph import (
     in_out_degree as jx_in_out_degree)
@@ -28,16 +28,22 @@ from pytorch_geometric_signed_directed_tpu.nn import (
     MSGNN_link_prediction as JxMSGNNLink,
     MSGNN_node_classification as JxMSGNNNode,
     MagNet_link_prediction as JxMagNetLink,
-    MagNet_node_classification as JxMagNetNode)
+    MagNet_node_classification as JxMagNetNode,
+    SSSNET_node_clustering as JxSSSNET)
 from pytorch_geometric_signed_directed_tpu.spectral import (
     appr_directed_adj as jx_appr_directed_adj,
     magnet_propagators as jx_magnet_propagators,
     second_directed_adj as jx_second_directed_adj)
 from pytorch_geometric_signed_directed_tpu.train import Trainer as JxTrainer
 from pytorch_geometric_signed_directed_tpu.utils import (
-    Prob_Imbalance_Loss as JxLoss,
+    Prob_Balanced_Normalized_Loss as JxCut,
+    Prob_Imbalance_Loss as JxLoss, Unhappy_Ratio as JxUnhappy,
+    extract_network as jx_extract_network,
     link_class_split as jx_link_class_split,
     meta_graph_generation as jx_meta_graph_generation)
+from pytorch_geometric_signed_directed_tpu.utils.general.triplet_loss import (
+    sample_triplets as jx_sample_triplets,
+    triplet_loss_inner_product as jx_triplet_loss)
 
 import pytorch_geometric_signed_directed_tpu_torch.__main__ as cli
 from pytorch_geometric_signed_directed_tpu_torch.convert import (
@@ -45,7 +51,7 @@ from pytorch_geometric_signed_directed_tpu_torch.convert import (
 from pytorch_geometric_signed_directed_tpu_torch.experiments import (
     EXPERIMENTS, NOT_PORTED, _directed_link, dgcn_link, digcn_inception_link,
     digcn_link, digrac, magnet_link, magnet_node, msgnn_link, msgnn_node,
-    run)
+    run, sssnet)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 N = 80
@@ -486,6 +492,109 @@ def test_link_experiment_five_steps_match_jax(name):
         **TOL)
 
 
+# --- sssnet ----------------------------------------------------------------
+
+SSSNET_N = 300
+SSSNET = ["--N", str(SSSNET_N), "--device", "cpu"]
+
+
+@pytest.fixture
+def fixed_eigs(monkeypatch):
+    """``eigs`` with a fixed start vector (the features' only randomness),
+    in both packages."""
+    import scipy.sparse.linalg as spla
+
+    eigs = spla.eigs
+
+    def fixed(M, k=6, **kw):
+        v0 = np.random.default_rng(0).standard_normal(M.shape[0])
+        return eigs(M, k=k, v0=v0, **kw)
+
+    monkeypatch.setattr(spla, "eigs", fixed)
+
+
+def jx_sssnet_inputs(seed=0, k=3):
+    (A_p, A_n), labels = jx_SSBM(SSSNET_N, k, 0.1, 0.1, size_ratio=1.5,
+                                 rng=np.random.default_rng(seed))
+    A, labels = jx_extract_network((A_p - A_n).tocsr(), labels)
+    data = JxSignedData(A=A, y=labels)
+    data.set_spectral_adjacency_reg_features(k=k)
+    data.node_split(train_size_per_class=0.8, val_size_per_class=0.1,
+                    seed_size_per_class=0.1, data_split=2)
+    data.separate_positive_negative()
+    n = data.num_nodes
+    P_p = jx_graph.rw_norm_propagator(data.edge_index_p, data.edge_weight_p,
+                                      n, 0.5)
+    P_n = jx_graph.rw_norm_propagator(data.edge_index_n, data.edge_weight_n,
+                                      n, 0.0)
+    return data, P_p, P_n
+
+
+def test_sssnet_inputs_match_jax(fixed_eigs):
+    args = sssnet.parser().parse_args(SSSNET)
+    got = sssnet.build_inputs(args, "cpu")
+    data, P_p, P_n = jx_sssnet_inputs()
+    for name in ("edge_index", "edge_weight", "y", "train_mask", "val_mask",
+                 "test_mask", "seed_mask", "edge_index_p", "edge_weight_p",
+                 "edge_index_n", "edge_weight_n"):
+        assert_same(getattr(got.data, name), getattr(data, name), name)
+    assert_same(got.x.numpy(), np.asarray(data.x, np.float32))
+    for mine, theirs in ((got.P_p, P_p), (got.P_n, P_n)):
+        assert mine.mode == theirs.mode == "dense"
+        assert_same(mine.dense.numpy(), np.asarray(theirs.dense))
+    cut = JxCut(data.A_p.tocsr(), data.A_n.tocsr())
+    assert_same(got.cut.mat.dense.numpy(), np.asarray(cut.mat.dense))
+    assert_same(got.cut.D_bar.dense.numpy(), np.asarray(cut.D_bar.dense))
+    assert got.unhappy.num_edges == JxUnhappy(
+        data.A_p.tocsr(), data.A_n.tocsr()).num_edges
+    assert set(got.seconds) == {"graph", "features", "split", "operators"}
+    # the triplets of each step, drawn up front in the JAX order
+    trip, nsc, ncl = sssnet.triplet_batches(args, got, 4)
+    rng = np.random.default_rng(0)
+    for step in range(4):
+        want = jx_sample_triplets(np.asarray(data.y), data.num_nodes, 200,
+                                  rng)
+        assert (nsc, ncl) == want[3:]
+        assert_same(trip[step].numpy(), np.stack(want[:3]))
+
+
+@pytest.mark.parametrize("split", [0, 1])
+def test_sssnet_five_steps_match_jax(fixed_eigs, split):
+    args = sssnet.parser().parse_args(SSSNET + ["--epochs", "5"])
+    inputs = sssnet.build_inputs(args, "cpu")
+    data, P_p, P_n = jx_sssnet_inputs()
+    x = jnp.asarray(np.asarray(data.x, np.float32))
+    y = jnp.asarray(data.y)
+    train_idx = jnp.asarray(np.nonzero(data.train_mask[:, split])[0])
+    cut = JxCut(data.A_p.tocsr(), data.A_n.tocsr())
+    jmodel = JxSSSNET(nfeat=3, hidden=16, nclass=3, hop=2)
+    params = jmodel.init(jax.random.PRNGKey(0), P_p, P_n, x)
+
+    def jloss(p, *triplets):
+        z, logp, _, prob = jmodel.apply(p, P_p, P_n, x)
+        nll = -jnp.mean(logp[train_idx, y[train_idx]])
+        return (50.0 * (nll + 0.1 * jx_triplet_loss(z, *triplets))
+                + cut(prob))
+
+    tr = JxTrainer(jloss, lr=1e-2)
+    st = tr.init(params)
+    rng = np.random.default_rng(0)
+    jlosses = [tr.step(st, *jx_sample_triplets(np.asarray(data.y),
+                                               data.num_nodes, 200, rng))
+               for _ in range(5)]
+    model = load(sssnet.make_model(args, inputs), params)
+    r = sssnet.train_split(args, inputs, split, model=model)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    _, _, pred, prob = jmodel.apply(st.params, P_p, P_n, x)
+    np.testing.assert_array_equal(r["pred"], np.asarray(pred))
+    test = np.nonzero(data.test_mask[:, split])[0]
+    assert r["ari"] == sk_ari(np.asarray(data.y)[test],
+                              np.asarray(pred)[test])
+    unhappy = JxUnhappy(data.A_p.tocsr(), data.A_n.tocsr())(prob)
+    np.testing.assert_allclose(r["unhappy"], float(unhappy), **TOL)
+    assert set(r["host_seconds"]) == {"samplers"}
+
+
 # --- main and the CLI ------------------------------------------------------
 
 def template(text):
@@ -502,6 +611,7 @@ MAIN_ARGS = {
     "msgnn_node": SYNTHETIC + ["--num_nodes", "150", "--epochs", "3"],
     "msgnn_link": SYNTHETIC + ["--num_nodes", "100", "--epochs", "5"],
     "digrac": ["--N", "120", "--epochs", "5", "--features", "degree"],
+    "sssnet": ["--N", "200", "--epochs", "3"],
     "dgcn_link": SYNTHETIC + ["--num_nodes", "80", "--epochs", "5"],
     "digcn_link": SYNTHETIC + ["--num_nodes", "80", "--epochs", "5",
                                "--splits", "1"],
@@ -510,6 +620,7 @@ MAIN_ARGS = {
 }
 # host stages each experiment reports; printed lines beside its accuracies
 STAGES = {"digrac": {"graph", "features", "operators"},
+          "sssnet": {"graph", "features", "split", "operators", "samplers"},
           "dgcn_link": {"graph", "link_split", "operators", "layout"},
           "digcn_link": {"graph", "link_split", "operators", "layout"},
           "digcn_inception_link": {"graph", "link_split", "operators",
@@ -527,9 +638,9 @@ def test_main_prints_the_jax_lines(name, capsys):
     assert template(got) == template(want)
     assert len(out["accs"]) == len(out["seconds"]) == len(template(got)) - (
         SUMMARY_LINES.get(name, 1))
-    # accuracies in [0, 1]; digrac's ARI in [-1, 1]
+    # accuracies in [0, 1]; the ARIs of digrac and sssnet in [-1, 1]
     assert all(-1.0 <= a <= 1.0 for a in out["accs"])
-    assert name == "digrac" or all(0.0 <= a for a in out["accs"])
+    assert name in ("digrac", "sssnet") or all(0.0 <= a for a in out["accs"])
     assert STAGES.get(name, {"graph", "laplacian", "layout"}) <= set(
         out["host_seconds"])
 
@@ -544,7 +655,7 @@ def test_without_device_the_experiments_need_cuda(name, monkeypatch):
 @pytest.mark.parametrize("name,dataset", [
     ("magnet_node", "telegram"), ("magnet_link", "cora_ml"),
     ("msgnn_node", "bitcoin_alpha"), ("msgnn_link", "bitcoin_alpha"),
-    ("digrac", "blog"), ("dgcn_link", "telegram"),
+    ("digrac", "blog"), ("sssnet", "sampson"), ("dgcn_link", "telegram"),
     ("digcn_link", "cora_ml"), ("digcn_inception_link", "citeseer")])
 def test_a_real_dataset_raises(name, dataset):
     with pytest.raises(NotImplementedError, match="queue A item 8"):
@@ -554,7 +665,9 @@ def test_a_real_dataset_raises(name, dataset):
 def test_registry_and_cli(capsys):
     assert set(EXPERIMENTS) == {"magnet_node", "magnet_link", "msgnn_node",
                                 "msgnn_link", "digrac", "dgcn_link",
-                                "digcn_link", "digcn_inception_link"}
+                                "digcn_link", "digcn_inception_link",
+                                "sssnet"}
+    assert "sssnet" not in NOT_PORTED
     # every experiment of the JAX package is either ported or named as not
     assert set(EXPERIMENTS) | set(NOT_PORTED) == set(
         jx_experiments.EXPERIMENTS)
@@ -579,3 +692,11 @@ def test_python_m_runs_an_experiment(tmp_path):
         cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
     assert proc.returncode == 0, proc.stderr
     assert "mean test acc" in proc.stdout
+
+
+def test_cli_dispatches_sssnet(capsys):
+    out = cli.main(["sssnet", "--dataset", "ssbm", "--N", "150", "--epochs",
+                    "2", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "mean ARI" in printed and len(out["runs"]) == 2
+    assert all(len(r["losses"]) == 2 for r in out["runs"])

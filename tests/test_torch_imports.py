@@ -2,6 +2,8 @@
 and it runs on the card unless the caller asks for the CPU."""
 import ast
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -42,6 +44,55 @@ def test_the_prefix_rule_does_not_match_the_port_itself():
     assert not _forbidden("pytorch_geometric_signed_directed_tpu_torch.nn")
 
 
+# the signed family's modules: each must exist and import nothing forbidden
+SIGNED_MODULES = (
+    "data/ssbm.py", "data/polarized_ssbm.py",
+    "utils/general/extract_network.py", "utils/general/triplet_loss.py",
+    "utils/signed/balanced_loss.py", "utils/signed/link_sign_loss.py",
+    "spectral/features.py", "nn/signed/simpa.py", "nn/signed/sssnet.py",
+    "nn/signed/sgcn_conv.py", "nn/signed/sgcn.py", "experiments/sssnet.py")
+
+
+@pytest.mark.parametrize("module", SIGNED_MODULES)
+def test_signed_modules_import_nothing_forbidden(module):
+    path = PORT / module
+    assert path.is_file()
+    assert [m for m in _imports(path) if _forbidden(m)] == []
+
+
+def test_sssnet_and_sgcn_run_with_jax_and_sklearn_blocked():
+    """In a fresh interpreter that cannot import JAX, flax, scikit-learn or
+    the JAX package: the sssnet experiment and an SGCN loss on the CPU."""
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None      # import raises, find_spec gives None
+import numpy as np
+from pytorch_geometric_signed_directed_tpu_torch.experiments import sssnet
+from pytorch_geometric_signed_directed_tpu_torch.nn.signed import sgcn
+sssnet.main(["--N", "120", "--epochs", "2", "--device", "cpu"])
+rng = np.random.default_rng(0)
+es = np.column_stack([rng.integers(0, 50, 300), rng.integers(0, 50, 300),
+                      np.where(rng.random(300) < 0.7, 1, -1)])
+pos, neg, emb, P, Q = sgcn.prepare_sgcn_inputs(50, es, in_dim=8,
+                                               device="cpu")
+from pytorch_geometric_signed_directed_tpu_torch.utils import (
+    negative_sampling, structured_negative_sampling)
+m = sgcn.SGCN(50, in_dim=8, out_dim=8, init_emb=emb, device="cpu")
+none = negative_sampling(np.concatenate([pos, neg], 1), 50)
+loss = m.loss(P, Q, pos, neg, none, structured_negative_sampling(pos, 50),
+              structured_negative_sampling(neg, 50))
+loss.backward()
+assert not any(k.split(".")[0] in {FORBIDDEN!r} and m is not None
+               for k, m in sys.modules.items())
+print("ok", float(loss))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert "mean ARI" in proc.stdout and "ok" in proc.stdout
+
+
 def _entry_points():
     from pytorch_geometric_signed_directed_tpu_torch import graph
     from pytorch_geometric_signed_directed_tpu_torch.experiments import run
@@ -52,8 +103,18 @@ def _entry_points():
         DiGCN_Inception_Block_node_classification, DiGCN_link_prediction,
         DiGCN_node_classification, DiGCNConv, MSConv, MSGNN_link_prediction,
         MSGNN_node_classification, MagNetConv, MagNet_node_classification)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        SGCN, SGCNConv, SIMPA, SSSNET_link_prediction,
+        SSSNET_node_clustering)
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import sgcn
     from pytorch_geometric_signed_directed_tpu_torch.ops import (
-        build_coo, dual_propagator, make_propagator)
+        build_coo, coo_from_scipy, dual_propagator, make_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        Link_Sign_Entropy_Loss, Prob_Balanced_Normalized_Loss,
+        Prob_Balanced_Ratio_Loss, Unhappy_Ratio)
+    from pytorch_geometric_signed_directed_tpu_torch.utils.signed import (
+        Sign_Direction_Loss, Sign_Triangle_Loss)
+    import scipy.sparse as sp
     from pytorch_geometric_signed_directed_tpu_torch.parallel import (
         local_mesh, make_mesh)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
@@ -63,6 +124,10 @@ def _entry_points():
 
     ei = np.array([[0, 1, 2], [1, 2, 0]])
     one = np.ones(3)
+    A_p = sp.csr_matrix((one, (ei[0], ei[1])), shape=(3, 3))
+    A_n = sp.csr_matrix((one[:1], (ei[1][:1], ei[0][:1])), shape=(3, 3))
+    signed = np.array([[0, 1, 1], [1, 2, -1], [2, 0, 1]])
+    emb = np.ones((3, 4), np.float32)
 
     def experiment(name, *argv):
         def go(device=None):
@@ -132,6 +197,30 @@ def _entry_points():
             lambda **kw: DGCN_node_classification(2, 4, 3, **kw),
         "DGCN_link_prediction":
             lambda **kw: DGCN_link_prediction(2, 4, 2, **kw),
+        "experiment sssnet": experiment("sssnet", "--N", "60"),
+        "coo_from_scipy": lambda **kw: coo_from_scipy(A_p, **kw),
+        "mean_propagator": lambda **kw: graph.mean_propagator(ei, **kw),
+        "sgcn_dual_propagator": lambda **kw: sgcn.sgcn_dual_propagator(
+            ei, ei[[1, 0]], 3, mode="segment", **kw),
+        "prepare_sgcn_inputs": lambda **kw: sgcn.prepare_sgcn_inputs(
+            3, signed, in_dim=4, init_emb=emb, **kw),
+        "Prob_Balanced_Normalized_Loss":
+            lambda **kw: Prob_Balanced_Normalized_Loss(A_p, A_n, **kw),
+        "Prob_Balanced_Ratio_Loss":
+            lambda **kw: Prob_Balanced_Ratio_Loss(A_p, A_n, **kw),
+        "Unhappy_Ratio": lambda **kw: Unhappy_Ratio(A_p, A_n, **kw),
+        "Link_Sign_Entropy_Loss": lambda **kw: Link_Sign_Entropy_Loss(
+            4, **kw),
+        "Sign_Triangle_Loss": lambda **kw: Sign_Triangle_Loss(4, **kw),
+        "Sign_Direction_Loss": lambda **kw: Sign_Direction_Loss(4, **kw),
+        "SIMPA": lambda **kw: SIMPA(2, **kw),
+        "SSSNET_node_clustering":
+            lambda **kw: SSSNET_node_clustering(2, 4, 3, **kw),
+        "SSSNET_link_prediction":
+            lambda **kw: SSSNET_link_prediction(2, 4, 3, **kw),
+        "SGCNConv": lambda **kw: SGCNConv(2, 4, True, **kw),
+        "SGCN": lambda **kw: SGCN(3, in_dim=4, out_dim=4, init_emb=emb,
+                                  **kw),
     }
 
 
