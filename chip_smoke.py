@@ -105,6 +105,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the SGCN dual (2F=128, 64) and K2 on block 0 of the experiment's cut
    operator (if it streams) against their plain versions, timed beside
    their bound and one (or two) cuSPARSE products.
+10. Signed attention phase: SNEA, SiGAT and SDGNN, on K1's own contract
+   ``csr_scatter_sum`` (through ``ops.scatter.scatter_sum``, whose
+   backward is a gather, and ``motif_attend``).  bench.py's SNEA cell
+   (N=16,384, 400k positive and 100k negative uniform draws, a
+   standard-normal input embedding of width 32 as a parameter, SNEA in
+   32 / out 32, 2 layers) and the same at epinions scale (N=131,580,
+   589,888 + 121,322 draws), each trained 30 steps on ``SNEA.loss`` over
+   30 sample sets drawn before training: 3 K1 a step (g_pos and g_neg at
+   W=17, the fused pair on g_cat at W=34); bench.py's SiGAT and SDGNN
+   cells (N=3,783, 22,650 + 1,536 draws, the spectral embedding of width
+   20) trained 30 steps with one GAT a motif graph (SiGAT 38 K1 a step at
+   W=21, SDGNN 8) and 30 with the fused motif stack from the same weights
+   (SiGAT 3: one forward at W=21 over 38 N rows, two backward at W=21 by
+   source and W=1 by destination; SDGNN 6), whose first losses must agree
+   at 1e-5.  Each run must launch exactly that, for the run and for each
+   step, and its loss must fall.  Holds ``csr_scatter_sum`` on these CSRs
+   at W = 17, 34, 21 and 1 against its plain version, timed beside its
+   bound and ``torch.segment_reduce``.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -168,7 +186,15 @@ BENCH_SSSNET = dict(nodes=65_536, e_pos=1_600_000, e_neg=400_000, k=5,
                     hidden=16, hop=2, steps=30)
 BENCH_SGCN = dict(nodes=131_072, e_pos=600_000, e_neg=120_000, dim=64,
                   steps=30)
-# steps traced by torch.profiler for each phase-8 and phase-9 path's
+# phase 10: bench.py's SNEA cell (bench.py:173-206, run at :628) and its
+# epinions-scale run (:633), its SiGAT (:257-295, :637) and SDGNN
+# (:298-334, :638) cells at bitcoin_alpha scale
+BENCH_SNEA = dict(nodes=16_384, e_pos=400_000, e_neg=100_000, dim=32,
+                  steps=30)
+SNEA_EPINIONS = dict(nodes=131_580, e_pos=589_888, e_neg=121_322, dim=32,
+                     steps=30)
+BENCH_MOTIF = dict(nodes=3783, e_pos=22_650, e_neg=1_536, dim=20, steps=30)
+# steps traced by torch.profiler for each phase-8, -9 and -10 path's
 # device time
 PROFILE_STEPS = 10
 # f32: the kernels sum in compensated float32, the plain versions in
@@ -333,6 +359,8 @@ def kernel_entry(name, r, launches, source, replaces):
 
 def log_case(label, r):
     dev = (f" device_ms={r['device_ms']:.4f}" if "device_ms" in r else "")
+    if r.get("library_device_ms") is not None:
+        dev += f" library_device_ms={r['library_device_ms']:.4f}"
     log(f"{label}: kernel_ms={r['ms']:.4f}{dev} plain_ms={r['plain_ms']:.4f} "
         f"library_ms={r['library_ms']} bound_us={r['bound_ms'] * 1e3:.2f} "
         f"({r['bound_by']}, {r['bytes']} B) "
@@ -417,9 +445,11 @@ def scatter_kernel_case(rowptr, split, nnz, width, dtype, seed):
               "csr_scatter_sum")
     err = float((got - want).abs().max())
     ms = time_ms(lambda: scatter_csr.csr_scatter_sum(rowptr, msgs, split))
+    device_ms = back_to_back_ms(
+        lambda: scatter_csr.csr_scatter_sum(rowptr, msgs, split))
     plain_ms = time_ms(lambda: scatter_csr.csr_scatter_sum_plain(rowptr,
                                                                  msgs))
-    library_ms = None
+    library_ms = library_device_ms = None
     if dtype == torch.float32:
         # yardstick only: one segment_reduce over the same rowptr
         offsets = rowptr.long()
@@ -427,10 +457,14 @@ def scatter_kernel_case(rowptr, split, nnz, width, dtype, seed):
         torch.testing.assert_close(lib, want, **F32_TOL)
         library_ms = time_ms(lambda: torch.segment_reduce(
             msgs, "sum", offsets=offsets, axis=0))
+        library_device_ms = back_to_back_ms(lambda: torch.segment_reduce(
+            msgs, "sum", offsets=offsets, axis=0))
     nbytes = 4 * (n + 1) + msgs.numel() * msgs.element_size() + 4 * n * width
     b_ms, b_by = bound(nbytes, nnz * width)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, bytes=nbytes,
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                bytes=nbytes,
                 shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
@@ -2532,6 +2566,211 @@ def signed_phase(smi):
     return runs, cases
 
 
+# ---------------------------------------------------------------------------
+# signed attention: SNEA, SiGAT and SDGNN (K1 csr_scatter_sum)
+
+
+def attention_case(plan, width, label, path, cases):
+    """K1 ``csr_scatter_sum`` on an attention CSR at one width (f32),
+    against its plain version and ``torch.segment_reduce``."""
+    import torch
+
+    r = scatter_kernel_case(plan.rowptr, plan.split, plan.row_ids.numel(),
+                            width, torch.float32, seed=width)
+    r["shape"] = (f"{label} (cut rows {plan.split.rows.numel()}): "
+                  f"{r['shape']}")
+    r["path"] = path
+    cases[(label, width)] = r
+    log_case(f"csr_scatter_sum {label} W={width} float32", r)
+
+
+def graph_text(plan):
+    lens = plan.rowptr[1:] - plan.rowptr[:-1]
+    return (f"{plan.row_ids.numel()} edges over {plan.num_rows} rows, "
+            f"longest {int(lens.max())}, cut rows {plan.split.rows.numel()}")
+
+
+def snea_path(name, c, smi, cases):
+    """bench.py's SNEA cell (``bench_snea``): uniform positive and negative
+    draws (seed 0), a standard-normal input embedding as a parameter,
+    SNEA(in 32, out 32, 2 layers) trained on ``SNEA.loss`` over ``steps``
+    sample sets drawn before training (the bench trains (z**2).sum())."""
+    import itertools
+
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SNEA
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        snea_graphs)
+
+    n, dim, steps = c["nodes"], c["dim"], c["steps"]
+    host = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pos = np.vstack([rng.integers(0, n, c["e_pos"]),
+                     rng.integers(0, n, c["e_pos"])])
+    neg = np.vstack([rng.integers(0, n, c["e_neg"]),
+                     rng.integers(0, n, c["e_neg"])])
+    init_emb = rng.standard_normal((n, dim)).astype(np.float32)
+    host["graph"] = time.perf_counter() - t0
+    samples, host["samplers"] = sgcn_samples(pos, neg, n, steps,
+                                             np.random.default_rng(1))
+    t0 = time.perf_counter()
+    graphs = snea_graphs(pos, neg, n, device=DEV)
+    torch.cuda.synchronize()
+    host["attention graphs"] = time.perf_counter() - t0
+    m = c["e_pos"] + c["e_neg"]
+    log(f"{name}: N={n} E={m} ({c['e_pos']} positive, {c['e_neg']} "
+        f"negative draws), in/out {dim}, 2 layers")
+    for label, g in zip(("g_pos", "g_neg", "g_cat"), graphs):
+        log(f"  {label}: {graph_text(g.plan)}")
+    log_host(host)
+    model = SNEA(n, in_dim=dim, out_dim=dim, init_emb=init_emb, device=DEV,
+                 generator=torch.Generator().manual_seed(0))
+    if not model.convs[0].fused:
+        raise AssertionError(f"{name}: layer 2 does not take the fused pair")
+    pos_t = torch.from_numpy(pos).to(DEV)
+    neg_t = torch.from_numpy(neg).to(DEV)
+    cycle = itertools.cycle(samples)
+
+    def loss_fn(mo):
+        none, pt, nt = next(cycle)
+        return mo.loss(graphs, pos_t, neg_t, none, pt, nt)
+
+    # layer 1 attends on g_pos and on g_neg (W = 1 + 16), layer 2 the
+    # fused pair on g_cat (W = 2 + 32); the backward of each is a gather
+    run = train_path(name, loss_fn, model, steps, {"csr_scatter_sum": 3},
+                     smi, m)
+    half = dim // 2
+    attention_case(graphs[0].plan, 1 + half, f"{name} g_pos", name, cases)
+    attention_case(graphs[2].plan, 2 + 2 * half, f"{name} g_cat", name,
+                   cases)
+    return {name: dict(run, host=host)}
+
+
+def motif_paths(model_name, smi, cases):
+    """bench.py's SiGAT (``bench_sigat``) or SDGNN (``bench_sdgnn``) cell:
+    bitcoin_alpha-scale uniform signed edges (seed 0), the spectral input
+    embedding of width 20; 30 steps of the model's loss with one GAT a
+    motif graph, then 30 with the fused motif stack from the same
+    weights (``stack_state_dict``), whose first losses agree."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SDGNN, SiGAT
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        motif_stack, prepare_sdgnn_inputs, prepare_sigat_inputs,
+        split_signed_edges)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral.features \
+        import create_spectral_features
+
+    c = BENCH_MOTIF
+    n, dim, steps = c["nodes"], c["dim"], c["steps"]
+    sigat = model_name == "sigat"
+    host = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    edges = np.column_stack([
+        rng.integers(0, n, m), rng.integers(0, n, m),
+        np.concatenate([np.ones(c["e_pos"]), -np.ones(c["e_neg"])])
+    ]).astype(np.int64)
+    host["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb = create_spectral_features(*split_signed_edges(edges), n, dim)
+    host["features"] = time.perf_counter() - t0
+    prepare = prepare_sigat_inputs if sigat else prepare_sdgnn_inputs
+    inputs = {}
+    for form in ("per-motif", "fused"):
+        t0 = time.perf_counter()
+        inputs[form] = prepare(n, edges, in_dim=dim, init_emb=emb,
+                               fused=form == "fused", device=DEV)
+        torch.cuda.synchronize()
+        host[f"motifs and graphs, {form}"] = time.perf_counter() - t0
+    lists, stack = inputs["per-motif"][3], inputs["fused"][3]
+    G = len(lists)
+    log(f"bench {model_name}: N={n} E={m} ({c['e_pos']} positive, "
+        f"{c['e_neg']} negative draws), {G} motif graphs of "
+        f"{sum(g.src.numel() for g in lists)} edges (loops included), "
+        f"in/out {dim}")
+    log(f"  largest motif graph: {graph_text(lists[0].plan)}; stack: "
+        f"{graph_text(stack.g.plan)}; source CSR "
+        f"{graph_text(stack.src_plan)}")
+    log_host(host)
+    cls = SiGAT if sigat else SDGNN
+    kw = dict(in_dim=dim, out_dim=dim, init_emb=emb, device=DEV)
+    per = cls(n, generator=torch.Generator().manual_seed(0), **kw)
+    fused = cls(n, fused=True, **kw)
+    fused.load_state_dict(motif_stack.stack_state_dict(per.state_dict()))
+    layers = 1 if sigat else len(per.layers)
+    runs = {}
+    for form, model, graphs, per_step in (
+            ("per-motif", per, lists, G * layers),
+            ("fused", fused, stack, 3 * layers)):
+        pos, neg = (torch.from_numpy(a).to(DEV)
+                    for a in inputs[form][:2])
+        extra = [torch.from_numpy(a).to(DEV) for a in inputs[form][4:]]
+
+        def loss_fn(mo, graphs=graphs, pos=pos, neg=neg, extra=extra):
+            return mo.loss(graphs, pos, neg, *extra)
+
+        # per motif one K1 forward a GAT (W = 1 + 20), its backward a
+        # gather; fused one forward a layer (W = 21 over G N rows) and two
+        # in motif_attend's backward (W = 21 by source, W = 1 by
+        # destination)
+        name = f"bench {model_name} {form}"
+        runs[name] = dict(
+            train_path(name, loss_fn, model, steps,
+                       {"csr_scatter_sum": per_step}, smi, m), host=host)
+    a = runs[f"bench {model_name} per-motif"]["losses"][0]
+    b = runs[f"bench {model_name} fused"]["losses"][0]
+    if abs(a - b) > 1e-5 * max(1.0, abs(a)):
+        raise AssertionError(f"bench {model_name}: the first losses of the "
+                             f"per-motif and fused forms differ: {a} vs {b}")
+    log(f"  first-step loss: per-motif {a:.6f}, fused {b:.6f} (|diff| "
+        f"{abs(a - b):.3g})")
+    if sigat:
+        path = "bench sigat"
+        attention_case(lists[0].plan, dim + 1, "sigat motif 0",
+                       f"{path} per-motif", cases)
+        attention_case(stack.g.plan, dim + 1, "sigat stack by destination",
+                       f"{path} fused", cases)
+        attention_case(stack.src_plan, dim + 1, "sigat stack by source",
+                       f"{path} fused", cases)
+        attention_case(stack.g.plan, 1, "sigat stack by destination",
+                       f"{path} fused", cases)
+    return runs
+
+
+def attention_entries(runs, cases):
+    """The ``kernels`` entries of phase 10: K1's own contract on the
+    attention CSRs, with the launches of the path each case belongs to."""
+    return [{**kernel_entry("csr_scatter_sum", r,
+                            runs[r["path"]]["launches"]["csr_scatter_sum"],
+                            "scatter_csr.cu", "scatter_mxu.py:503"),
+             "path": r["path"], "launches_per_step":
+                 runs[r["path"]]["per_step"]["csr_scatter_sum"],
+             "library": "torch.segment_reduce"} for r in cases.values()]
+
+
+def attention_phase(smi):
+    """Phase 10: the bench SNEA cell and SNEA at epinions scale, the bench
+    SiGAT and SDGNN cells (per motif and fused); K1 ``csr_scatter_sum``
+    held at the widths they run."""
+    import torch
+
+    cases, runs = {}, {}
+    for name, path in (
+            ("bench snea", lambda: snea_path("bench snea", BENCH_SNEA, smi,
+                                             cases)),
+            ("snea epinions", lambda: snea_path("snea epinions",
+                                                SNEA_EPINIONS, smi, cases)),
+            ("bench sigat", lambda: motif_paths("sigat", smi, cases)),
+            ("bench sdgnn", lambda: motif_paths("sdgnn", smi, cases))):
+        t0 = time.perf_counter()
+        runs.update(path())
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return runs, cases
+
+
 def main():
     import torch
 
@@ -2557,7 +2796,7 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-9. the paths -------------------------------------------------
+    # ---- 2-10. the paths ------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
@@ -2565,7 +2804,8 @@ def main():
                             smi, phases["magnet_mxu"][2])),
                         ("experiments", experiment_phase),
                         ("directed", directed_phase),
-                        ("signed", signed_phase)):
+                        ("signed", signed_phase),
+                        ("attention", attention_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -2577,6 +2817,7 @@ def main():
     exp_runs, exp_cases = phases["experiments"]
     dir_runs, dir_cases = phases["directed"]
     sig_runs, sig_cases = phases["signed"]
+    att_runs, att_cases = phases["attention"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -2656,20 +2897,15 @@ def main():
                  "scatter_mxu.py:503"),
                 ("bench sgcn dual", "bench sgcn fused", "csr_dual_spmm",
                  "scatter_mxu.py:503"))
-            for (k2, width) in sig_cases if k2 == key],
-        # K1's and K2's own contracts and K4: tested, on no path this
-        # script drives
+            for (k2, width) in sig_cases if k2 == key]
+        + attention_entries(att_runs, att_cases),
+        # K2's own contract and K4: tested, on no path this script drives
         "off_path": [
             # K1 on magnet_node's Laplacian laid out flat: every row cut
             *[{**kernel_entry("csr_dual_spmm",
                               exp_cases[("magnet_node flat", width)], 0,
                               "scatter_csr.cu", "scatter_mxu.py:503"),
                "path": None} for width in EXPERIMENT_WIDTHS],
-            {**kernel_entry("csr_scatter_sum",
-                            tq_cases[("csr_scatter_sum", 128)],
-                            flat_launches["csr_scatter_sum"],
-                            "scatter_csr.cu", "scatter_mxu.py:503"),
-             "library": "torch.segment_reduce"},
             kernel_entry("csr_scatter_accum", k2_own,
                          k2_launches["csr_scatter_accum"], "scatter_csr.cu",
                          "scatter_mxu.py:580"),

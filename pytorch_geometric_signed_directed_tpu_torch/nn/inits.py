@@ -38,6 +38,26 @@ def lecun_normal(shape: Sequence[int],
     return torch.empty(tuple(shape)).normal_(0.0, std, generator=generator)
 
 
+def xavier_normal(shape: Sequence[int],
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Normal(0, 2 / (fan_in + fan_out)) over the last two dims (a plain,
+    untruncated form of flax's ``xavier_normal``): SNEA's attention
+    weights."""
+    std = math.sqrt(2.0 / (shape[-2] + shape[-1]))
+    return torch.empty(tuple(shape)).normal_(0.0, std, generator=generator)
+
+
+def kaiming_normal(shape: Sequence[int],
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Normal(0, 2/fan_in) for a [fan_out, fan_in] linear weight (a plain,
+    untruncated form of flax's ``kaiming_normal``): SiGAT's and SDGNN's
+    MLPs."""
+    std = math.sqrt(2.0 / shape[-1])
+    return torch.empty(tuple(shape)).normal_(0.0, std, generator=generator)
+
+
 def linear(in_features: int, out_features: int, bias: bool,
            device: torch.device, generator: Optional[torch.Generator],
            init: Callable = lecun_normal) -> nn.Linear:

@@ -23,6 +23,18 @@ from ...utils.signed.link_sign_loss import (Link_Sign_Entropy_Loss,
 from .sgcn_conv import SGCNConv
 
 
+def register_embedding(module: nn.Module, init_emb, init_emb_grad: bool,
+                       device: torch.device) -> None:
+    """``module.x``: a copy of ``init_emb`` (training must not write into
+    the caller's array), a parameter when ``init_emb_grad``, else a
+    buffer left out of the state_dict."""
+    x = torch.tensor(np.asarray(init_emb, np.float32), device=device)
+    if init_emb_grad:
+        module.x = nn.Parameter(x)
+    else:
+        module.register_buffer("x", x, persistent=False)
+
+
 def split_signed_edges(edge_index_s: np.ndarray):
     """[M, 3] (src, dst, sign) -> (pos_edge_index [2, P], neg [2, Q])."""
     edge_index_s = np.asarray(edge_index_s)
@@ -98,12 +110,7 @@ class SGCN(nn.Module):
             raise ValueError("SGCN needs init_emb; prepare_sgcn_inputs "
                              "builds the spectral one")
         self.node_num, self.lamb = node_num, lamb
-        # a copy: training must not write into the caller's array
-        x = torch.tensor(np.asarray(init_emb, np.float32), device=device)
-        if init_emb_grad:
-            self.x = nn.Parameter(x)
-        else:
-            self.register_buffer("x", x, persistent=False)
+        register_embedding(self, init_emb, init_emb_grad, device)
         half = out_dim // 2
         self.conv1 = SGCNConv(in_dim, half, first_aggr=True, device=device,
                               generator=generator)
@@ -125,14 +132,23 @@ class SGCN(nn.Module):
         """nll + lamb * the structure loss; the index arrays (numpy or
         tensors) come from ``utils.signed.negative_sampling`` and
         ``structured_negative_sampling``."""
-        z = self(P_pos, P_neg)
+        return entropy_and_structure_loss(
+            self(P_pos, P_neg), self.lsp_loss, self.lamb, pos_edge_index,
+            neg_edge_index, none_edge_index, pos_triplets, neg_triplets)
 
-        def index(a):
-            return torch.as_tensor(a, device=z.device)
 
-        nll = self.lsp_loss(z, index(pos_edge_index), index(neg_edge_index),
-                            index(none_edge_index))
-        structure = sign_structure_loss(
-            z, [index(a) for a in pos_triplets],
-            [index(a) for a in neg_triplets])
-        return nll + self.lamb * structure
+def entropy_and_structure_loss(z, lsp_loss, lamb, pos_edge_index,
+                               neg_edge_index, none_edge_index, pos_triplets,
+                               neg_triplets) -> torch.Tensor:
+    """SGCN's and SNEA's loss of the embedding z: Link_Sign_Entropy_Loss +
+    lamb * sign_structure_loss; the index arrays may be numpy arrays or
+    tensors."""
+
+    def index(a):
+        return torch.as_tensor(a, device=z.device)
+
+    nll = lsp_loss(z, index(pos_edge_index), index(neg_edge_index),
+                   index(none_edge_index))
+    structure = sign_structure_loss(z, [index(a) for a in pos_triplets],
+                                    [index(a) for a in neg_triplets])
+    return nll + lamb * structure

@@ -10,7 +10,8 @@ from .sddmm import (
     split_dual_scatter_sddmm,
     streamed_dual_scatter_sddmm,
 )
-from .segment import segment_sum
+from .scatter import ScatterPlan, build_scatter_plan, scatter_sum
+from .segment import segment_max, segment_mean, segment_softmax, segment_sum
 from .spmm import (
     CSR,
     DualPropagator,
@@ -44,6 +45,12 @@ __all__ = [
     "dual_scatter_sddmm",
     "split_dual_scatter_sddmm",
     "streamed_dual_scatter_sddmm",
+    "ScatterPlan",
+    "build_scatter_plan",
+    "scatter_sum",
+    "segment_max",
+    "segment_mean",
+    "segment_softmax",
     "segment_sum",
     "CSR",
     "DualPropagator",

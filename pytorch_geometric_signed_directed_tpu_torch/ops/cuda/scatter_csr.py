@@ -448,10 +448,11 @@ def _scatter_launch(name, rowptr, msgs, out, row0, split):
 
 
 def csr_scatter_sum_plain(rowptr, msgs):
-    """Plain PyTorch version of ``csr_scatter_sum`` (``index_add_``)."""
+    """Plain PyTorch version of ``csr_scatter_sum`` (``index_add_``);
+    float64 messages, which the kernel does not take, sum into float64."""
     n = rowptr.numel() - 1
-    out = torch.zeros((n, msgs.shape[1]), dtype=torch.float32,
-                      device=msgs.device)
+    dtype = torch.float64 if msgs.dtype == torch.float64 else torch.float32
+    out = torch.zeros((n, msgs.shape[1]), dtype=dtype, device=msgs.device)
     return _add_rows_(out, rowptr, msgs)
 
 

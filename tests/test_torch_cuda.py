@@ -642,3 +642,83 @@ def test_signed_models_on_card_match_the_cpu(card, kind):
     for a, b in zip(_signed_model_outputs(kind, card),
                     _signed_model_outputs(kind, "cpu")):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 17, 21, 34])
+def test_scatter_sum_and_its_gradient_on_card(card, width):
+    """K1 ``csr_scatter_sum`` at the attention widths (1 + F, 2 + 2F, and
+    the motif backward's 1) through ``ops.scatter.scatter_sum``: one launch
+    forward, the same bits twice, and the gather backward."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops import (
+        build_scatter_plan, scatter_sum)
+
+    rng = np.random.default_rng(width)
+    rows = np.sort(rng.integers(0, 3000, 40000))
+    rows = np.concatenate([rows, np.full(scatter_csr.PIECE_EDGES + 7, 3001)])
+    plan = build_scatter_plan(rows, 3002, device=card)
+    assert plan.split.rows.tolist() == [3001]               # a row is cut
+    msgs = torch.randn(len(rows), width, device=card, requires_grad=True)
+    before = scatter_csr.LAUNCHES["csr_scatter_sum"]
+    out = scatter_sum(plan, msgs)
+    assert scatter_csr.LAUNCHES["csr_scatter_sum"] == before + 1
+    torch.testing.assert_close(
+        out, scatter_csr.csr_scatter_sum_plain(plan.rowptr, msgs.detach()),
+        **F32_TOL)
+    assert torch.equal(out, scatter_sum(plan, msgs))
+    g = torch.randn_like(out)
+    (out * g).sum().backward()
+    assert torch.equal(msgs.grad, g[plan.row_ids])
+
+
+def _attention_model_outputs(kind, device):
+    """Loss and every parameter gradient of a small SNEA (its loss), SiGAT
+    or SDGNN (per-motif or fused) on ``device``, from one seed."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        SDGNN, SNEA, SiGAT)
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        prepare_sdgnn_inputs, prepare_sigat_inputs, prepare_snea_inputs)
+    from pytorch_geometric_signed_directed_tpu_torch.utils import (
+        negative_sampling, structured_negative_sampling)
+
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(3)
+    n, m = 400, 3000
+    es = np.column_stack([rng.integers(0, n, m), rng.integers(0, n, m),
+                          np.where(rng.random(m) < 0.8, 1, -1)])
+    emb = rng.standard_normal((n, 12)).astype(np.float32)
+    fused = kind.endswith("fused")
+    if kind == "snea":
+        pos, neg, emb, graphs = prepare_snea_inputs(n, es, init_emb=emb,
+                                                    device=device)
+        model = SNEA(n, in_dim=12, out_dim=16, init_emb=emb, device=device,
+                     generator=gen)
+        none = negative_sampling(np.concatenate([pos, neg], 1), n, rng=rng)
+        loss = model.loss(graphs, pos, neg, none,
+                          structured_negative_sampling(pos, n, rng=rng),
+                          structured_negative_sampling(neg, n, rng=rng))
+    elif kind.startswith("sigat"):
+        pos, neg, emb, graphs = prepare_sigat_inputs(
+            n, es, init_emb=emb, fused=fused, device=device)
+        model = SiGAT(n, in_dim=12, out_dim=10, init_emb=emb, fused=fused,
+                      device=device, generator=gen)
+        loss = model.loss(graphs, pos, neg)
+    else:
+        pos, neg, emb, graphs, w_pos, w_neg = prepare_sdgnn_inputs(
+            n, es, init_emb=emb, fused=fused, device=device)
+        model = SDGNN(n, in_dim=12, out_dim=10, init_emb=emb, fused=fused,
+                      device=device, generator=gen)
+        loss = model.loss(graphs, pos, neg, w_pos, w_neg)
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["snea", "sigat", "sigat fused", "sdgnn",
+                                  "sdgnn fused"])
+def test_attention_models_on_card_match_the_cpu(card, kind):
+    before = scatter_csr.LAUNCHES["csr_scatter_sum"]
+    outs = _attention_model_outputs(kind, card)
+    assert scatter_csr.LAUNCHES["csr_scatter_sum"] > before
+    for a, b in zip(outs, _attention_model_outputs(kind, "cpu")):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

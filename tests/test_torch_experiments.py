@@ -629,7 +629,7 @@ SUMMARY_LINES = {"msgnn_link": 0, "digrac": 0}
 
 
 @pytest.mark.parametrize("name", sorted(MAIN_ARGS))
-def test_main_prints_the_jax_lines(name, capsys):
+def test_main_prints_the_jax_lines(name, capsys, fixed_eigs):
     argv = MAIN_ARGS[name]
     out = run(name, argv + ["--device", "cpu"])
     got = capsys.readouterr().out

@@ -53,7 +53,14 @@ SIGNED_MODULES = (
     "nn/signed/sgcn_conv.py", "nn/signed/sgcn.py", "experiments/sssnet.py")
 
 
-@pytest.mark.parametrize("module", SIGNED_MODULES)
+# the signed attention family's modules
+ATTENTION_MODULES = (
+    "ops/segment.py", "ops/scatter.py", "nn/signed/snea_conv.py",
+    "nn/signed/snea.py", "nn/signed/gat_conv.py", "nn/signed/motifs.py",
+    "nn/signed/motif_stack.py", "nn/signed/sigat.py", "nn/signed/sdgnn.py")
+
+
+@pytest.mark.parametrize("module", SIGNED_MODULES + ATTENTION_MODULES)
 def test_signed_modules_import_nothing_forbidden(module):
     path = PORT / module
     assert path.is_file()
@@ -93,6 +100,43 @@ print("ok", float(loss))
     assert "mean ARI" in proc.stdout and "ok" in proc.stdout
 
 
+def test_snea_and_sigat_run_with_jax_and_sklearn_blocked():
+    """In a fresh interpreter that cannot import JAX, flax, scikit-learn or
+    the JAX package: an SNEA loss (spectral embedding, K1 aggregates) and
+    a SiGAT loss on the motif stack, on the CPU."""
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None      # import raises, find_spec gives None
+import numpy as np
+from pytorch_geometric_signed_directed_tpu_torch.nn import SNEA, SiGAT
+from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+    prepare_sigat_inputs, prepare_snea_inputs)
+from pytorch_geometric_signed_directed_tpu_torch.utils import (
+    negative_sampling, structured_negative_sampling)
+rng = np.random.default_rng(0)
+es = np.column_stack([rng.integers(0, 50, 300), rng.integers(0, 50, 300),
+                      np.where(rng.random(300) < 0.7, 1, -1)])
+pos, neg, emb, graphs = prepare_snea_inputs(50, es, in_dim=8, device="cpu")
+m = SNEA(50, in_dim=8, out_dim=8, init_emb=emb, device="cpu")
+none = negative_sampling(np.concatenate([pos, neg], 1), 50)
+loss = m.loss(graphs, pos, neg, none, structured_negative_sampling(pos, 50),
+              structured_negative_sampling(neg, 50))
+loss.backward()
+pos, neg, emb, stack = prepare_sigat_inputs(50, es, in_dim=8, fused=True,
+                                            device="cpu")
+s = SiGAT(50, in_dim=8, out_dim=8, init_emb=emb, fused=True, device="cpu")
+s.loss(stack, pos, neg).backward()
+assert not any(k.split(".")[0] in {FORBIDDEN!r} and m is not None
+               for k, m in sys.modules.items())
+print("ok", float(loss))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert "ok" in proc.stdout
+
+
 def _entry_points():
     from pytorch_geometric_signed_directed_tpu_torch import graph
     from pytorch_geometric_signed_directed_tpu_torch.experiments import run
@@ -107,8 +151,14 @@ def _entry_points():
         SGCN, SGCNConv, SIMPA, SSSNET_link_prediction,
         SSSNET_node_clustering)
     from pytorch_geometric_signed_directed_tpu_torch.nn.signed import sgcn
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        SDGNN, SNEA, GATConv, MotifGATStack, SDRLayer, SiGAT, SNEAConv,
+        build_attention_graph, build_motif_stack, gat_graph,
+        prepare_sdgnn_inputs, prepare_sigat_inputs, prepare_snea_inputs,
+        snea_graphs)
     from pytorch_geometric_signed_directed_tpu_torch.ops import (
-        build_coo, coo_from_scipy, dual_propagator, make_propagator)
+        build_coo, build_scatter_plan, coo_from_scipy, dual_propagator,
+        make_propagator)
     from pytorch_geometric_signed_directed_tpu_torch.utils import (
         Link_Sign_Entropy_Loss, Prob_Balanced_Normalized_Loss,
         Prob_Balanced_Ratio_Loss, Unhappy_Ratio)
@@ -221,6 +271,29 @@ def _entry_points():
         "SGCNConv": lambda **kw: SGCNConv(2, 4, True, **kw),
         "SGCN": lambda **kw: SGCN(3, in_dim=4, out_dim=4, init_emb=emb,
                                   **kw),
+        "build_scatter_plan": lambda **kw: build_scatter_plan(
+            np.array([0, 0, 2]), 3, **kw),
+        "build_attention_graph": lambda **kw: build_attention_graph(
+            [(ei, 0, True)], 3, **kw),
+        "snea_graphs": lambda **kw: snea_graphs(ei, ei[[1, 0]], 3, **kw),
+        "gat_graph": lambda **kw: gat_graph(ei, 3, **kw),
+        "build_motif_stack": lambda **kw: build_motif_stack([ei, ei], 3,
+                                                            **kw),
+        "prepare_snea_inputs": lambda **kw: prepare_snea_inputs(
+            3, signed, init_emb=emb, **kw),
+        "prepare_sigat_inputs": lambda **kw: prepare_sigat_inputs(
+            3, signed, init_emb=emb, **kw),
+        "prepare_sdgnn_inputs": lambda **kw: prepare_sdgnn_inputs(
+            3, signed, init_emb=emb, **kw),
+        "SNEAConv": lambda **kw: SNEAConv(2, 4, True, **kw),
+        "SNEA": lambda **kw: SNEA(3, in_dim=4, out_dim=4, init_emb=emb, **kw),
+        "GATConv": lambda **kw: GATConv(2, 4, **kw),
+        "MotifGATStack": lambda **kw: MotifGATStack(2, 4, 3, **kw),
+        "SiGAT": lambda **kw: SiGAT(3, in_dim=4, out_dim=4, init_emb=emb,
+                                    **kw),
+        "SDRLayer": lambda **kw: SDRLayer(2, 4, **kw),
+        "SDGNN": lambda **kw: SDGNN(3, in_dim=4, out_dim=4, init_emb=emb,
+                                    **kw),
     }
 
 
