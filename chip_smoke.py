@@ -123,6 +123,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    step, and its loss must fall.  Holds ``csr_scatter_sum`` on these CSRs
    at W = 17, 34, 21 and 1 against its plain version, timed beside its
    bound and ``torch.segment_reduce``.
+11. DiGCL and the real-data entry points.  bench.py's DiGCL cell
+   (N=65,536, average degree 15, its degree features, the GCN-normalized
+   operator that ``gcn_norm_propagator(mode="auto")`` puts on the kernel
+   tier, DiGCL hidden 64 / projection 32 / tau 0.4, Adam at lr 1e-3)
+   trained 10 steps with the batched InfoNCE at B=4096 and at the bench's
+   1024-row baseline from the same weights (first losses equal at 1e-5):
+   ms/step, similarity pairs/s (2 N^2 a step), peak allocated memory and
+   8 K1 calls a step (4 forward at W=128, 64, 128, 64, their 4
+   transposes).  Holds K1 on that operator at W=128 and 64 against its
+   plain version, timed beside its bound and one ``torch.sparse.mm``.
+   Then, on files written in each dataset's schema at its published size
+   into a temporary directory named by ``PGSD_TPU_DATA``, through their
+   ``main(argv)``, 20 epochs and one split or run each: digcl_node,
+   dgcn_node, digcn_node and digcn_inception_node on cora_ml, digcl_link
+   on telegram, link_sign_prediction with SGCN and SNEA on bitcoin_alpha,
+   run_link_sign_direction_tasks on its SDSBM with MSGNN and SGCN; each
+   prints its cuts, host seconds, ms/step, losses and metrics; the dense
+   tier launches nothing, SNEA 3 K1 a step.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -194,6 +212,27 @@ BENCH_SNEA = dict(nodes=16_384, e_pos=400_000, e_neg=100_000, dim=32,
 SNEA_EPINIONS = dict(nodes=131_580, e_pos=589_888, e_neg=121_322, dim=32,
                      steps=30)
 BENCH_MOTIF = dict(nodes=3783, e_pos=22_650, e_neg=1_536, dim=20, steps=30)
+# phase 11: bench.py's DiGCL cell (bench.py:337-403, run at :640), at its
+# batch of 4096 rows and its 1024-row baseline; the real-data entry points
+# on files written in each dataset's schema at its published size, 20
+# epochs and one split or run each
+# (a step launches 3,700 / 10,500 kernels at B=4096 / 1024 and is
+# device-bound: 2 traced steps read its device time)
+BENCH_DIGCL = dict(nodes=65_536, avg_deg=15, steps=10, batches=(4096, 1024),
+                   profile=2)
+REAL_EPOCHS = 20
+REAL_RUNS = (
+    ("digcl_node", ["--splits", "1"]),
+    ("dgcn_node", ["--dataset", "cora_ml"]),
+    ("digcn_node", ["--dataset", "cora_ml"]),
+    ("digcn_inception_node", ["--dataset", "cora_ml"]),
+    ("digcl_link", ["--dataset", "telegram", "--splits", "1"]),
+    ("link_sign_prediction", ["--model", "sgcn"]),
+    ("link_sign_prediction", ["--model", "snea"]),
+    ("run_link_sign_direction_tasks", ["--dataset", "synthetic", "--method",
+                                       "msgnn", "--runs", "1"]),
+    ("run_link_sign_direction_tasks", ["--dataset", "synthetic", "--method",
+                                       "sgcn", "--runs", "1"]))
 # steps traced by torch.profiler for each phase-8, -9 and -10 path's
 # device time
 PROFILE_STEPS = 10
@@ -397,11 +436,13 @@ def dual_kernel_case(D, width, dtype, seed, single=False):
     plain_ms = time_ms(lambda: scatter_csr.csr_dual_spmm_plain(*args))
     library_ms = None
     rp, cl = D.rowptr.long(), D.col.long()
+    library_device_ms = None
     if dtype == torch.float32 and single:
         # yardstick only: one cuSPARSE product
         A = torch.sparse_csr_tensor(rp, cl, D.val_a, size=(n, m))
         torch.testing.assert_close(torch.sparse.mm(A, x), want, **F32_TOL)
         library_ms = time_ms(lambda: torch.sparse.mm(A, x))
+        library_device_ms = back_to_back_ms(lambda: torch.sparse.mm(A, x))
     elif dtype == torch.float32:
         # yardstick only: two cuSPARSE products, A x_a and B x_b
         A = torch.sparse_csr_tensor(rp, cl, D.val_a, size=(n, m))
@@ -417,7 +458,8 @@ def dual_kernel_case(D, width, dtype, seed, single=False):
     b_ms, b_by = bound(nbytes, 2 * nnz * width)
     return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, bytes=nbytes,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                bytes=nbytes,
                 shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
@@ -2771,6 +2813,218 @@ def attention_phase(smi):
     return runs, cases
 
 
+# ---------------------------------------------------------------------------
+# DiGCL (K1 on its GCN-normalized operator) and the real-data entry points
+
+
+def digcl_run(name, model, x, P, batch, steps, smi, per_step, profile):
+    """``steps`` Adam steps at lr 1e-3 of DiGCL's loss between the views
+    (x, 0.9 x) of ``P``, in row batches of ``batch``; the launch counters
+    set to 0 just before and read just after, each step counted around it,
+    and the run's peak of allocated device memory; then ``profile`` steps
+    traced for the device time."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.experiments._common \
+        import run_steps
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+
+    def loss_fn(m):
+        return m.loss(m(x, P), m(0.9 * x, P), batch_size=batch)
+
+    trainer = Trainer(loss_fn, lr=1e-3, device=DEV)
+    state = trainer.init(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with launches_by_step([]) as by_step:
+        reset_launch_counts()
+        run = run_steps(trainer, state, (), steps)
+        launches = {k: v for k, v in launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(name, launches, by_step, per_step, steps)
+    check_losses(name, run["losses"])
+    ms_step = statistics.median(run["step_ms"][1:])
+    n = x.shape[0]
+    pairs = 2 * n * n / (ms_step / 1e3)
+    log(f"  train B={batch} on {smi}: {steps} steps, median {ms_step:.3f} "
+        f"ms/step (first step {run['step_ms'][0]:.3f} ms), {pairs:.4g} "
+        f"similarity pairs/s (2 N^2 a step); peak allocated "
+        f"{peak / 2 ** 30:.3f} GiB; loss {run['losses'][0]:.6f} -> "
+        f"{run['losses'][-1]:.6f}")
+    log(f"  launches {launches}: {by_step[0]} in each step as counted "
+        f"around it")
+    return dict(run, launches=launches, per_step=by_step[0], ms_step=ms_step,
+                peak_bytes=peak, pairs_per_s=pairs,
+                **device_profile(name, trainer, state, ms_step,
+                                 steps=profile))
+
+
+def bench_digcl(smi, cases):
+    """bench.py's DiGCL cell: the bench MagNet graph at N=65,536 and
+    average degree 15, its degree features, ``gcn_norm_propagator(mode=
+    "auto")`` (the kernel tier), DiGCL(2, relu, 64, 32, tau 0.4, 2 layers)
+    trained 10 steps with the batched InfoNCE at B=4096 and at its
+    1024-row baseline, from the same weights (first losses equal at
+    1e-5).  8 K1 calls a step: the encoder applies the operator at W=128
+    and W=64 for each view, and each apply's transpose in the backward."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        gcn_norm_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import DiGCL
+
+    c = BENCH_DIGCL
+    n = c["nodes"]
+    host = {}
+    t0 = time.perf_counter()
+    edge_index, w, x, _ = slice_graph(n, c["avg_deg"], 0)
+    x = torch.from_numpy(x).to(DEV)
+    host["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P = gcn_norm_propagator(edge_index, w, n, mode="auto", device=DEV)
+    torch.cuda.synchronize()
+    host["operator"] = time.perf_counter() - t0
+    csr = csr_of(P)
+    per_step = count_applies(both_ways([csr], k=4))
+    log(f"bench digcl: N={n} input edges {edge_index.shape[1]}, operator "
+        f"nnz {csr.col.numel()} (self-loops added), features "
+        f"{tuple(x.shape)}, DiGCL hidden 64, projection 32, tau 0.4, 2 "
+        f"layers, Adam lr 1e-3")
+    log(f"  layout: {layout_text(single_view(csr))}; transposed: "
+        f"{layout_text(single_view(csr.transposed))}")
+    log_host(host)
+    runs = {}
+    for batch in c["batches"]:
+        model = DiGCL(2, "relu", 64, 32, tau=0.4, num_layers=2, device=DEV,
+                      generator=torch.Generator().manual_seed(0))
+        runs[batch] = digcl_run(f"bench digcl B={batch}", model, x, P, batch,
+                                c["steps"], smi, per_step, c["profile"])
+        del model
+        torch.cuda.empty_cache()
+    first = [runs[b]["losses"][0] for b in c["batches"]]
+    if not np.allclose(first[0], first[1:], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"bench digcl: first losses of the batchings "
+                             f"differ: {first}")
+    big, base = (runs[b]["ms_step"] for b in c["batches"])
+    log(f"  B={c['batches'][0]} over the B={c['batches'][1]} baseline: "
+        f"{base / big:.3f}x (the bench's vs_baseline)")
+    single_cases(P, (128, 64), "bench digcl P", cases, "bench digcl")
+    return {f"bench digcl B={b}": dict(r, host=host)
+            for b, r in runs.items()}
+
+
+def real_data_runs(smi):
+    """The real-data entry points through ``main(argv)``, on files written
+    in each dataset's schema at its published size (cora_ml, telegram,
+    bitcoin_alpha) into a temporary directory that ``PGSD_TPU_DATA`` names,
+    20 epochs and one split or run each; each step's launches counted
+    around it."""
+    import importlib
+    import os
+    import tempfile
+
+    from pytorch_geometric_signed_directed_tpu_torch.data import (
+        schema_files)
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        EXPERIMENTS)
+
+    runs = {}
+    saved = {k: os.environ.get(k) for k in ("PGSD_TPU_DATA",
+                                            "PGSD_TPU_NO_CACHE")}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        schema_files.write_citation(d, "cora_ml")
+        schema_files.write_telegram(d)
+        schema_files.write_signed_csv(d)
+        log(f"real data: schema files in {time.perf_counter() - t0:.2f} s: "
+            f"cora_ml {schema_files.CORA_ML}, telegram "
+            f"{schema_files.TELEGRAM}, bitcoin_alpha "
+            f"{schema_files.BITCOIN_ALPHA}")
+        os.environ["PGSD_TPU_DATA"] = d
+        os.environ["PGSD_TPU_NO_CACHE"] = "1"
+        try:
+            for name, extra in REAL_RUNS:
+                module = EXPERIMENTS.get(name, (name,))[0]
+                mod = importlib.import_module(
+                    "pytorch_geometric_signed_directed_tpu_torch."
+                    "experiments." + module)
+                argv = extra + ["--epochs", str(REAL_EPOCHS), "--device", DEV]
+                label = " ".join([name] + extra)
+                runs[label] = real_data_run(label, mod, argv, smi)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return runs
+
+
+def real_data_run(label, mod, argv, smi):
+    """One entry point: its cuts, host seconds, ms/step, losses, metrics
+    and launches; the dense tier launches nothing, SNEA's attention K1
+    ``csr_scatter_sum`` the same count every step."""
+    parser = mod.parser()
+    args = parser.parse_args(argv)
+    res, wall, launches, by_step = run_main(mod, argv)
+    launches = {k: v for k, v in launches.items() if v}
+    runs = res["runs"]
+    steps = sum(r["steps"] for r in runs)
+    losses = [v for r in runs for v in r["losses"]]
+    check_losses(label, [losses[0], min(losses)])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss")
+    if len(by_step) != steps or any(s != by_step[0] for s in by_step):
+        raise AssertionError(f"{label}: launches by step differ: "
+                             f"{sorted(map(str, by_step))[:3]}")
+    snea = getattr(args, "model", None) == "snea"
+    if snea != bool(launches):
+        raise AssertionError(f"{label}: launches {launches}: expected "
+                             f"{'K1 on the attention graphs' if snea else 'none (the dense tier)'}")
+    cuts = [f"{args.epochs} epochs in place of "
+            f"{parser.get_default('epochs')}"]
+    for flag in ("splits", "runs"):
+        if hasattr(args, flag):
+            cuts.append(f"{len(runs)} {flag[:-1]} in place of "
+                        f"{parser.get_default(flag) or 'all'}")
+    if not any(hasattr(args, f) for f in ("splits", "runs")):
+        cuts.append(f"{len(runs)} split(s), the dataset's own")
+    ms = statistics.median([t for r in runs for t in r["step_ms"][1:]])
+    inputs = res["inputs"]
+    log(f"{label}: N={getattr(inputs, 'n', None) or inputs.data.num_nodes} "
+        f"input edges {inputs.num_edges}; main() {wall:.2f} s")
+    log(f"  reduced: {'; '.join(cuts)}")
+    log_host(res["host_seconds"])
+    extra = ""
+    if hasattr(inputs, "views"):
+        extra = f"; dense views {len(inputs.views) + 1} (view 1 and one a " \
+                f"distinct alpha)"
+    elif runs and "split" in runs[0] and hasattr(runs[0]["split"], "cache"):
+        extra = f"; dense views {len(runs[0]['split'].cache) + 1} (view 1 " \
+                f"and one a distinct alpha)"
+    log(f"  train on {smi}: {steps} steps, median {ms:.3f} ms/step; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; accs "
+        f"{[round(float(a), 4) for a in res['accs']]}{extra}")
+    log(f"  launches {launches or 0}: {by_step[0] or 0} in each step")
+    return dict(ms_step=ms, launches=launches, per_step=by_step[0],
+                host=res["host_seconds"], wall=wall)
+
+
+def digcl_phase(smi):
+    """Phase 11: the bench DiGCL cell (B=4096 and 1024) with K1 held on its
+    operator at W=128 and 64, then the real-data entry points."""
+    import torch
+
+    cases, runs = {}, {}
+    for name, path in (("bench digcl", lambda: bench_digcl(smi, cases)),
+                       ("real data", lambda: real_data_runs(smi))):
+        t0 = time.perf_counter()
+        runs.update(path())
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return runs, cases
+
+
 def main():
     import torch
 
@@ -2796,7 +3050,7 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-10. the paths ------------------------------------------------
+    # ---- 2-11. the paths ------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
@@ -2805,7 +3059,8 @@ def main():
                         ("experiments", experiment_phase),
                         ("directed", directed_phase),
                         ("signed", signed_phase),
-                        ("attention", attention_phase)):
+                        ("attention", attention_phase),
+                        ("digcl", digcl_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -2818,6 +3073,7 @@ def main():
     dir_runs, dir_cases = phases["directed"]
     sig_runs, sig_cases = phases["signed"]
     att_runs, att_cases = phases["attention"]
+    dcl_runs, dcl_cases = phases["digcl"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -2898,7 +3154,17 @@ def main():
                 ("bench sgcn dual", "bench sgcn fused", "csr_dual_spmm",
                  "scatter_mxu.py:503"))
             for (k2, width) in sig_cases if k2 == key]
-        + attention_entries(att_runs, att_cases),
+        + attention_entries(att_runs, att_cases) + [
+            # phase 11: K1 on the bench DiGCL operator at the encoder's
+            # widths, with the launches of the B=4096 run
+            {**kernel_entry("csr_dual_spmm", dcl_cases[("bench digcl",
+                                                        width)],
+                            dcl_runs[path]["launches"]["csr_dual_spmm"],
+                            "scatter_csr.cu", "scatter_mxu.py:503"),
+             "path": path, "launches_per_step":
+                 dcl_runs[path]["per_step"]["csr_dual_spmm"]}
+            for path in (f"bench digcl B={BENCH_DIGCL['batches'][0]}",)
+            for width in (128, 64)],
         # K2's own contract and K4: tested, on no path this script drives
         "off_path": [
             # K1 on magnet_node's Laplacian laid out flat: every row cut

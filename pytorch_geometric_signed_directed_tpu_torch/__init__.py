@@ -15,15 +15,18 @@ Layout mirrors the JAX package so a reader can find each counterpart:
              trainable-q templates, PPR adjacencies and spectral
              features.
   parallel/  the kernel tier across a device mesh.
-  data/      DirectedData / SignedData containers, DSBM, SDSBM, SSBM and
-             the polarized SSBM.
+  data/      DirectedData / SignedData containers, DSBM, SDSBM, SSBM, the
+             polarized SSBM, the real-data loaders and writers of their
+             file schemas.
   utils/     meta-graph generation, node and link splits, samplers, the
-             imbalance, balanced-cut, link-sign and triplet losses.
-  nn/        MagNet, MSGNN, DIGRAC, DiGCN, DGCN, SSSNET and SGCN layers
-             and models as ``torch.nn.Module``s.
+             imbalance, balanced-cut, link-sign and triplet losses, the
+             numpy logistic probes and metrics.
+  nn/        MagNet, MSGNN, DIGRAC, DiGCN, DGCN, DiGCL, SSSNET, SGCN,
+             SNEA, SiGAT and SDGNN layers and models as
+             ``torch.nn.Module``s.
   train/     full-batch trainer (Adam with coupled L2), masked NLL,
              checkpoints, timing.
-  experiments/  the ported experiments (``experiments.EXPERIMENTS``), run
+  experiments/  every experiment (``experiments.EXPERIMENTS``), run
              by ``python -m pytorch_geometric_signed_directed_tpu_torch``.
 
 Device policy: every entry point that places tensors takes ``device=None``

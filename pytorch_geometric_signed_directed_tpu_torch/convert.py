@@ -27,6 +27,9 @@ _GROUPS = (
     (re.compile(r"SIMPA_0$"), "simpa"),
     (re.compile(r"_(?:DGCN|SSSNET)Trunk_0$"), "trunk"),
     (re.compile(r"_MSGNNTrunk_0$"), ""),
+    (re.compile(r"(encoder|fc[12])$"), r"\1"),
+    (re.compile(r"_GCNConv_(\d+)$"), r"convs.\1"),
+    (re.compile(r"_PReLU_0$"), "prelu"),
 )
 
 
@@ -51,7 +54,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     ``mlp1``/``mlp2`` and ``agg_stack``, and SDGNN's ``loss_direction``,
     ``loss_tri`` and ``score_function1/2`` keep theirs; the motif GATs
     ``agg_i`` -> ``aggs.i``, SDGNN's ``SDRLayer_i`` -> ``layers.i``;
-    MSGNN's ``_MSGNNTrunk_0`` is flattened.  Leaves keep their names
+    MSGNN's ``_MSGNNTrunk_0`` is flattened; DiGCL's ``encoder``, ``fc1``
+    and ``fc2`` keep their names, its ``_GCNConv_i`` -> ``convs.i`` and
+    ``_PReLU_0`` -> ``prelu``.  Leaves keep their names
     (``weight``, ``bias``, ``q``, ``W_prob``, ``bias1``, ``_w_s``,
     ``_w_sp``, ``att_src``, the trainable ``x``, ...), except a Dense
     ``kernel`` [in, out], which becomes the Linear's ``weight`` [out, in]

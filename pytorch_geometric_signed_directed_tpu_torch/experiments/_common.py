@@ -1,5 +1,5 @@
-"""Pieces shared by the experiments: the device flag, host-stage and
-step clocks, and the error for a dataset that is not synthetic."""
+"""Pieces shared by the experiments: the device flag and the host-stage
+and step clocks."""
 import time
 from typing import Callable, Dict, Optional
 
@@ -11,14 +11,6 @@ def add_device_arg(ap) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' (the default) raises where "
                     "there is no CUDA, pass 'cpu' to run on the CPU")
-
-
-def real_dataset(name: str, synthetic: str = "synthetic"
-                 ) -> NotImplementedError:
-    return NotImplementedError(
-        f"dataset {name!r}: the real-data loaders (data/load_real.py) are "
-        f"not ported yet (ROADMAP.md queue A item 8); use --dataset "
-        f"{synthetic}")
 
 
 def _sync(device: torch.device) -> None:

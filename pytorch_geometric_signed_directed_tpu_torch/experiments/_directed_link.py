@@ -1,6 +1,7 @@
 """What the DGCN and DiGCN link experiments share: their flags, the DSBM
 graph and its link splits, degree features, training and the printed
-lines.  Each experiment module supplies ``operator_arrays(args, g, w, n)``
+lines.  The graph is a DSBM (``--dataset synthetic``) or a real directed
+dataset.  Each experiment module supplies ``operator_arrays(args, g, w, n)``
 (the host arrays of its operators), ``propagator`` (their builder) and
 ``make_model(args, inputs)``; its model is called as
 ``model(x, *operators, query_edges)``."""
@@ -10,13 +11,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import DSBM, DirectedData
+from ..data import DSBM, DirectedData, load_directed_real_data
 from ..device import resolve_device
 from ..graph import in_out_degree
 from ..train import Trainer
 from ..utils import link_class_split, meta_graph_generation
-from ._common import (StageClock, accuracy, add_device_arg, real_dataset,
-                      result, run_steps)
+from ._common import StageClock, accuracy, add_device_arg, result, run_steps
 
 
 def parser(name: str, alpha: bool) -> argparse.ArgumentParser:
@@ -42,13 +42,14 @@ def build_inputs(args, device) -> SimpleNamespace:
     """The graph and its ``args.splits`` link splits (numpy), with the host
     seconds of each stage."""
     device = resolve_device(device)
-    if args.dataset != "synthetic":
-        raise real_dataset(args.dataset)
     clock = StageClock(device)
-    F = meta_graph_generation("path", 3, 0.05, False)
-    A, y = DSBM(args.num_nodes, 3, 0.3, F,
-                rng=np.random.default_rng(args.seed))
-    data = DirectedData(A=A, y=y)
+    if args.dataset == "synthetic":
+        F = meta_graph_generation("path", 3, 0.05, False)
+        A, y = DSBM(args.num_nodes, 3, 0.3, F,
+                    rng=np.random.default_rng(args.seed))
+        data = DirectedData(A=A, y=y)
+    else:
+        data = load_directed_real_data(args.dataset, name=args.dataset)
     clock.mark("graph")
     datasets = link_class_split(data, splits=args.splits, task=args.task,
                                 seed=args.seed)

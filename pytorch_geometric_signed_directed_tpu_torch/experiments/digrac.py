@@ -2,9 +2,12 @@
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/experiments/
 digrac.py``: the same flags, defaults and printed line, plus ``--device``.
-A DSBM graph (``--dataset dsbm``), Hermitian or degree features, the DIMPA
-trunk trained on the probabilistic imbalance loss, and the adjusted Rand
-index of the clusters against the planted ones.  ``build_inputs`` makes
+A DSBM graph (``--dataset dsbm``) or a real directed dataset, Hermitian
+or degree features, the DIMPA trunk trained on the probabilistic
+imbalance loss, and the adjusted Rand index of the clusters against the
+planted ones; a real dataset has none, so its meta-graph is the complete
+one (every ordered pair of clusters a candidate flow) and its line gives
+the loss, the score 1 - loss and the clusters used.  ``build_inputs`` makes
 the graph, features and operators; ``train`` trains; ``main`` runs both.
 """
 import argparse
@@ -13,7 +16,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import DSBM, DirectedData
+from ..data import DSBM, DirectedData, load_directed_real_data
 from ..device import resolve_device
 from ..graph import (adj_dual_propagator, in_out_degree, norm_propagator,
                      rw_norm_dual_propagator, rw_norm_propagator)
@@ -21,7 +24,7 @@ from ..nn import DIGRAC_node_clustering
 from ..train import Trainer
 from ..utils import (Prob_Imbalance_Loss, adjusted_rand_score,
                      meta_graph_generation)
-from ._common import StageClock, add_device_arg, real_dataset, result, run_steps
+from ._common import StageClock, add_device_arg, result, run_steps
 
 
 def parser() -> argparse.ArgumentParser:
@@ -67,13 +70,16 @@ def build_inputs(args, device) -> SimpleNamespace:
     """The DSBM graph, its features and operators, with the host seconds
     of each stage."""
     device = resolve_device(device)
-    if args.dataset != "dsbm":
-        raise real_dataset(args.dataset, synthetic="dsbm")
     clock = StageClock(device)
-    F = meta_graph_generation(args.F_style, args.K, args.eta, False)
-    A, labels = DSBM(args.N, args.K, args.p, F,
-                     rng=np.random.default_rng(args.seed))
-    data = DirectedData(A=A, y=labels)
+    if args.dataset == "dsbm":
+        F = meta_graph_generation(args.F_style, args.K, args.eta, False)
+        A, labels = DSBM(args.N, args.K, args.p, F,
+                         rng=np.random.default_rng(args.seed))
+        data = DirectedData(A=A, y=labels)
+    else:
+        data = load_directed_real_data(args.dataset)
+        labels = None
+        F = meta_graph_generation("complete", args.K, 0.0, False)
     n = data.num_nodes
     clock.mark("graph")
     if args.features == "hermitian":
@@ -113,7 +119,9 @@ def loss_function(args, inputs, imb):
 
 def train(args, inputs, model=None) -> dict:
     """``args.epochs`` Adam steps, then one forward: the clusters, their
-    ARI against the planted labels and the final loss."""
+    ARI against the planted labels (None without labels), the final loss
+    and the cluster sizes.  ``acc`` is the ARI, or the score 1 - loss
+    where there are no labels."""
     model = make_model(args, inputs) if model is None else model
     imb = Prob_Imbalance_Loss(inputs.F)
     trainer = Trainer(loss_function(args, inputs, imb), lr=args.lr,
@@ -124,16 +132,27 @@ def train(args, inputs, model=None) -> dict:
         final = float(imb(prob, inputs.A, args.K, args.normalization,
                           args.threshold))
     pred = pred.cpu().numpy()
-    ari = adjusted_rand_score(inputs.labels, pred)
-    return dict(run, acc=ari, ari=ari, loss=final, pred=pred, evals=1)
+    ari = (None if inputs.labels is None
+           else adjusted_rand_score(inputs.labels, pred))
+    return dict(run, acc=1.0 - final if ari is None else ari, ari=ari,
+                loss=final, pred=pred, sizes=np.bincount(pred,
+                                                         minlength=args.K),
+                evals=1)
 
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     inputs = build_inputs(args, args.device)
     r = train(args, inputs)
-    print(f"ARI {r['ari']:.4f}  imbalance loss {r['loss']:.4f} "
-          f"({r['seconds']:.1f}s)")
+    if r["ari"] is not None:
+        print(f"ARI {r['ari']:.4f}  imbalance loss {r['loss']:.4f} "
+              f"({r['seconds']:.1f}s)")
+    else:
+        print(f"{args.dataset}: imbalance loss {r['loss']:.4f}  "
+              f"score {1.0 - r['loss']:.4f}  "
+              f"({args.normalization}/{args.threshold}, K={args.K}, "
+              f"clusters used {int((r['sizes'] > 0).sum())}/{args.K}, "
+              f"{r['seconds']:.1f}s)")
     return result(inputs, [r])
 
 

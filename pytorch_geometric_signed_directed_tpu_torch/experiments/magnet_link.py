@@ -12,15 +12,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import DSBM, DirectedData
+from ..data import DSBM, DirectedData, load_directed_real_data
 from ..device import resolve_device
 from ..graph import in_out_degree
 from ..nn import MagNet_link_prediction
 from ..spectral import magnet_operator_arrays, magnetic_pair
 from ..train import Trainer
 from ..utils import link_class_split, meta_graph_generation
-from ._common import (StageClock, accuracy, add_device_arg, real_dataset,
-                      result, run_steps)
+from ._common import StageClock, accuracy, add_device_arg, result, run_steps
 
 
 def parser() -> argparse.ArgumentParser:
@@ -50,7 +49,7 @@ def parser() -> argparse.ArgumentParser:
 
 def get_data(args) -> DirectedData:
     if args.dataset != "synthetic":
-        raise real_dataset(args.dataset)
+        return load_directed_real_data(args.dataset, name=args.name)
     F = meta_graph_generation("path", 3, 0.05, False)
     A, y = DSBM(args.num_nodes, 3, 0.3, F,
                 rng=np.random.default_rng(args.seed))

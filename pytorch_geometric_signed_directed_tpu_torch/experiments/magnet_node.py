@@ -1,4 +1,5 @@
-"""MagNet node classification (``--dataset synthetic``).
+"""MagNet node classification (``--dataset synthetic`` or a real directed
+dataset).
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/experiments/
 magnet_node.py``: the same flags, defaults and printed lines, plus
@@ -12,15 +13,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import DSBM, DirectedData
+from ..data import DSBM, DirectedData, load_directed_real_data
 from ..device import resolve_device
 from ..graph import in_out_degree
 from ..nn import MagNet_node_classification
 from ..spectral import magnet_operator_arrays, magnetic_pair
 from ..train import Trainer, masked_nll
 from ..utils import meta_graph_generation
-from ._common import (StageClock, accuracy, add_device_arg, real_dataset,
-                      result, run_steps)
+from ._common import StageClock, accuracy, add_device_arg, result, run_steps
 
 
 def parser() -> argparse.ArgumentParser:
@@ -56,14 +56,15 @@ def build_inputs(args, device) -> SimpleNamespace:
     with the host seconds of each stage."""
     device = resolve_device(device)
     clock = StageClock(device)
-    if args.dataset != "synthetic":
-        raise real_dataset(args.dataset)
-    F = meta_graph_generation("cyclic", 5, 0.05, False)
-    A, y = DSBM(args.num_nodes, 5, 0.3, F,
-                rng=np.random.default_rng(args.seed))
-    data = DirectedData(A=A, y=y)
-    data.node_split(train_size_per_class=0.6, val_size_per_class=0.2,
-                    data_split=2)
+    if args.dataset == "synthetic":
+        F = meta_graph_generation("cyclic", 5, 0.05, False)
+        A, y = DSBM(args.num_nodes, 5, 0.3, F,
+                    rng=np.random.default_rng(args.seed))
+        data = DirectedData(A=A, y=y)
+        data.node_split(train_size_per_class=0.6, val_size_per_class=0.2,
+                        data_split=2)
+    else:
+        data = load_directed_real_data(args.dataset, name=args.dataset)
     clock.mark("graph")
 
     n = data.num_nodes

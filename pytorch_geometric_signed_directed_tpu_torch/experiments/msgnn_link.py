@@ -13,15 +13,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import SDSBM, SignedData
+from ..data import SDSBM, SignedData, load_signed_real_data
 from ..device import resolve_device
 from ..graph import in_out_degree
 from ..nn import MSGNN_link_prediction
 from ..spectral import magnet_operator_arrays, magnetic_pair
 from ..train import Trainer
 from ..utils import link_class_split, meta_graph_generation
-from ._common import (StageClock, accuracy, add_device_arg, real_dataset,
-                      result, run_steps)
+from ._common import StageClock, accuracy, add_device_arg, result, run_steps
 
 LABEL_DIM = {"four_class_signed_digraph": 4, "five_class_signed_digraph": 5,
              "sign": 2}
@@ -58,13 +57,15 @@ def build_inputs(args, device) -> SimpleNamespace:
     the host seconds of each stage."""
     device = resolve_device(device)
     clock = StageClock(device)
-    if args.dataset != "synthetic":
-        raise real_dataset(args.dataset)
-    F = meta_graph_generation("cyclic", 3, 0.05, False)
-    F[0, 1] = -abs(F[0, 1])
-    A, y = SDSBM(args.num_nodes, 3, 0.1, F, eta=0.1,
-                 rng=np.random.default_rng(args.seed))
-    data = SignedData(A=A, y=y)
+    if args.dataset == "synthetic":
+        F = meta_graph_generation("cyclic", 3, 0.05, False)
+        F[0, 1] = -abs(F[0, 1])
+        A, y = SDSBM(args.num_nodes, 3, 0.1, F, eta=0.1,
+                     rng=np.random.default_rng(args.seed))
+        data = SignedData(A=A, y=y)
+    else:
+        data = load_signed_real_data(args.dataset,
+                                     sparsify_level=args.sparsify_level)
     clock.mark("graph")
     n = data.num_nodes
     datasets = link_class_split(data, splits=1, task=args.task,

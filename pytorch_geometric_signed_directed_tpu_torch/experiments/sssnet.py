@@ -3,7 +3,8 @@
 Counterpart of ``pytorch_geometric_signed_directed_tpu/experiments/
 sssnet.py``: the same flags, defaults and printed lines, plus
 ``--device``.  An SSBM graph (``--dataset ssbm``, size ratio 1.5) cut to
-its largest component, the regularized-adjacency eigenvector features,
+its largest component, or a labelled real signed dataset (K from its
+labels), the regularized-adjacency eigenvector features,
 two node splits, the SIMPA trunk trained on 50 (NLL + 0.1 triplet) + the
 balanced normalized cut, and the test ARI and unhappy ratio of each split.
 ``build_inputs`` makes the graph, features, operators and losses;
@@ -19,7 +20,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import SSBM, SignedData
+from ..data import SSBM, SignedData, load_signed_real_data
 from ..device import resolve_device
 from ..graph import rw_norm_propagator
 from ..nn import SSSNET_node_clustering
@@ -28,7 +29,7 @@ from ..utils import (Prob_Balanced_Normalized_Loss, Unhappy_Ratio,
                      adjusted_rand_score, extract_network)
 from ..utils.general.triplet_loss import (sample_triplets,
                                           triplet_loss_inner_product)
-from ._common import StageClock, add_device_arg, real_dataset, result, run_steps
+from ._common import StageClock, add_device_arg, result, run_steps
 
 # triplets sampled a step, as the JAX experiment
 N_TRIPLETS = 200
@@ -57,14 +58,19 @@ def build_inputs(args, device) -> SimpleNamespace:
     Propagators and the losses' operators on ``device``, with the host
     seconds of each stage."""
     device = resolve_device(device)
-    if args.dataset != "ssbm":
-        raise real_dataset(args.dataset, synthetic="ssbm")
     clock = StageClock(device)
-    (A_p, A_n), labels = SSBM(args.N, args.K, args.p, args.eta,
-                              size_ratio=1.5,
-                              rng=np.random.default_rng(args.seed))
-    A, labels = extract_network((A_p - A_n).tocsr(), labels)
-    data = SignedData(A=A, y=labels)
+    if args.dataset == "ssbm":
+        (A_p, A_n), labels = SSBM(args.N, args.K, args.p, args.eta,
+                                  size_ratio=1.5,
+                                  rng=np.random.default_rng(args.seed))
+        A, labels = extract_network((A_p - A_n).tocsr(), labels)
+        data = SignedData(A=A, y=labels)
+    else:
+        data = load_signed_real_data(args.dataset)
+        if data.y is None:
+            raise SystemExit(f"{args.dataset} carries no labels; the "
+                             "clustering ARI protocol needs them")
+        args.K = int(np.asarray(data.y).max()) + 1
     clock.mark("graph")
     data.set_spectral_adjacency_reg_features(k=args.K)
     clock.mark("features")

@@ -6,6 +6,7 @@ from .directed import (
     DGCNConv,
     DIGRAC_node_clustering,
     DIMPA,
+    DiGCL,
     DiGCN_Inception_Block,
     DiGCN_Inception_Block_link_prediction,
     DiGCN_Inception_Block_node_classification,
@@ -26,7 +27,7 @@ from .signed import (SDGNN, SGCN, SNEA, GATConv, SGCNConv, SIMPA, SiGAT,
                      SSSNET_node_clustering)
 
 __all__ = ["Conv_Base", "DGCN_link_prediction", "DGCN_node_classification",
-           "DGCNConv", "DIGRAC_node_clustering", "DIMPA",
+           "DGCNConv", "DIGRAC_node_clustering", "DIMPA", "DiGCL",
            "DiGCN_Inception_Block", "DiGCN_Inception_Block_link_prediction",
            "DiGCN_Inception_Block_node_classification",
            "DiGCN_link_prediction", "DiGCN_node_classification", "DiGCNConv",

@@ -208,6 +208,14 @@ class Propagator:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "dense":
+            if self.dense.dtype == torch.bfloat16:
+                # a bf16 operator (``dense_dtype``): x rounds to bf16 and
+                # the product of the bf16 operands is taken and returned
+                # in float32 (each bf16 product is exact in float32), as
+                # the JAX tier's preferred_element_type=float32 does
+                xb = x.to(torch.bfloat16).to(torch.float32)
+                return torch.matmul(self.dense.to(torch.float32),
+                                    xb).to(x.dtype)
             return torch.matmul(self.dense, x)
         if self.mode == "mxu":
             return _CsrSpmm.apply(x, self.csr)
@@ -240,14 +248,22 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}")
 
 
-def propagator_from_coo(A: COO, mode: str = "auto") -> Propagator:
-    """Freeze ``A`` into a Propagator of the given tier (on A's device)."""
+def propagator_from_coo(A: COO, mode: str = "auto",
+                        dense_dtype: Optional[torch.dtype] = None
+                        ) -> Propagator:
+    """Freeze ``A`` into a Propagator of the given tier (on A's device).
+    ``dense_dtype=torch.bfloat16`` stores a dense operator in bf16 (half
+    the memory it holds between calls; each call widens it to float32 for
+    the product), for training that does not need float32 parity."""
     _check_mode(mode)
     if mode == "auto":
         mode = ("dense" if max(A.num_nodes, A.num_cols)
                 <= _DENSE_AUTO_MAX_NODES else "mxu")
     if mode == "dense":
-        return Propagator(coo=None, dense=A.to_dense(), mode="dense")
+        dense = A.to_dense()
+        if dense_dtype is not None:
+            dense = dense.to(dense_dtype)
+        return Propagator(coo=None, dense=dense, mode="dense")
     if mode == "mxu":
         return Propagator(coo=None, dense=None, mode="mxu",
                           csr=_csr_from_coo(A))

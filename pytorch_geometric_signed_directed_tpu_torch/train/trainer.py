@@ -31,7 +31,10 @@ class Trainer:
             set it is called as ``loss_fn(model, generator, *batch)``.
         lr / weight_decay: Adam settings.  ``weight_decay`` is coupled L2,
             as ``torch.optim.Adam(weight_decay=...)``: the decay joins the
-            gradient before the moments (not decoupled AdamW).
+            gradient before the moments (optax's ``add_decayed_weights``
+            before ``adam``).
+        decoupled: take AdamW's decoupled decay instead (optax's
+            ``adamw``).
         rng: seed of the ``torch.Generator`` handed to ``loss_fn`` (for
             dropout), on ``device``.
         device: where the generator lives; None means "cuda".
@@ -39,9 +42,10 @@ class Trainer:
 
     def __init__(self, loss_fn: Callable, lr: float = 1e-3,
                  weight_decay: float = 0.0, rng: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, decoupled: bool = False):
         self.loss_fn = loss_fn
         self.lr, self.weight_decay = lr, weight_decay
+        self.decoupled = decoupled
         self.device = resolve_device(device)
         self.generator = None
         if rng is not None:
@@ -49,7 +53,8 @@ class Trainer:
             self.generator.manual_seed(rng)
 
     def init(self, model: torch.nn.Module) -> TrainState:
-        return TrainState(params=model, opt_state=torch.optim.Adam(
+        opt = torch.optim.AdamW if self.decoupled else torch.optim.Adam
+        return TrainState(params=model, opt_state=opt(
             model.parameters(), lr=self.lr, weight_decay=self.weight_decay))
 
     def step_async(self, state: TrainState, *batch) -> torch.Tensor:

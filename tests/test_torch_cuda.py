@@ -722,3 +722,62 @@ def test_attention_models_on_card_match_the_cpu(card, kind):
     assert scatter_csr.LAUNCHES["csr_scatter_sum"] > before
     for a, b in zip(outs, _attention_model_outputs(kind, "cpu")):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def _gcn_graph(n=9000, e=60000, seed=5):
+    rng = np.random.default_rng(seed)
+    return np.vstack([rng.integers(0, n, e), rng.integers(0, n, e)]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 64])
+def test_k1_on_a_gcn_norm_propagator_on_card(card, width):
+    """DiGCL's operator: ``gcn_norm_propagator(mode="auto")`` above 8,192
+    nodes is the kernel tier; K1 at the encoder's widths against its plain
+    version, the same bits twice, forward and transposed."""
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        gcn_norm_propagator)
+
+    ei, n = _gcn_graph()
+    P = gcn_norm_propagator(ei, None, n, mode="auto", device=card)
+    assert P.mode == "mxu" and not P.csr.blocks
+    for c in (P.csr, P.csr.transposed):
+        x = torch.randn(n, width, device=card)
+        args = (c.rowptr, c.col, c.val, c.val, x, width)
+        got = scatter_csr.csr_dual_spmm(*args, c.row_split)
+        torch.testing.assert_close(
+            got, scatter_csr.csr_dual_spmm_plain(*args), **F32_TOL)
+        assert torch.equal(got, scatter_csr.csr_dual_spmm(*args,
+                                                          c.row_split))
+
+
+def _digcl_step(device, batch_size):
+    """Loss and every parameter gradient of one DiGCL step (the bench
+    cell's model on two views of one operator) on ``device``."""
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        gcn_norm_propagator, in_out_degree)
+    from pytorch_geometric_signed_directed_tpu_torch.nn import DiGCL
+
+    ei, n = _gcn_graph()
+    x = in_out_degree(ei, n)
+    x = torch.from_numpy(x / x.max()).to(device)
+    P = gcn_norm_propagator(ei, None, n, mode="auto", device=device)
+    model = DiGCL(2, "relu", 64, 32, tau=0.4, num_layers=2, device=device,
+                  generator=torch.Generator().manual_seed(0))
+    loss = model.loss(model(x, P), model(0.9 * x, P),
+                      batch_size=batch_size)
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch_size", [0, 2048])
+def test_digcl_step_on_card_matches_the_cpu(card, batch_size):
+    """8 K1 calls a step: 4 forward applies (W=128, 64 for each view) and
+    their transposes in the backward; the batched loss recomputes its
+    blocks in the backward."""
+    before = scatter_csr.LAUNCHES["csr_dual_spmm"]
+    outs = _digcl_step(card, batch_size)
+    assert scatter_csr.LAUNCHES["csr_dual_spmm"] == before + 8
+    for a, b in zip(outs, _digcl_step("cpu", batch_size)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

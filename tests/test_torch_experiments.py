@@ -1,7 +1,9 @@
 """Port experiments vs the JAX package's: the host inputs each builds
 (data, masks or splits, features, Laplacian arrays) are bit-equal; five
 Adam steps from carried-over weights give the same losses and log-probs;
-``main`` prints the JAX experiment's lines; the CLI dispatches."""
+``main`` prints the JAX experiment's lines, on synthetic graphs and on
+real-dataset files written in each dataset's schema; the CLI
+dispatches."""
 import re
 import subprocess
 import sys
@@ -9,11 +11,13 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from sklearn.metrics import adjusted_rand_score as sk_ari
 
 import pytorch_geometric_signed_directed_tpu.experiments as jx_experiments
+from pytorch_geometric_signed_directed_tpu.data import load_real as jx_load
 from pytorch_geometric_signed_directed_tpu.data import (
     DSBM as jx_DSBM, DirectedData as JxDirectedData, SDSBM as jx_SDSBM,
     SSBM as jx_SSBM, SignedData as JxSignedData)
@@ -22,7 +26,7 @@ from pytorch_geometric_signed_directed_tpu.graph import (
     in_out_degree as jx_in_out_degree)
 from pytorch_geometric_signed_directed_tpu.nn import (
     DGCN_link_prediction as JxDGCNLink,
-    DIGRAC_node_clustering as JxDIGRAC,
+    DIGRAC_node_clustering as JxDIGRAC, DiGCL as JxDiGCL,
     DiGCN_Inception_Block_link_prediction as JxInceptionLink,
     DiGCN_link_prediction as JxDiGCNLink,
     MSGNN_link_prediction as JxMSGNNLink,
@@ -30,8 +34,11 @@ from pytorch_geometric_signed_directed_tpu.nn import (
     MagNet_link_prediction as JxMagNetLink,
     MagNet_node_classification as JxMagNetNode,
     SSSNET_node_clustering as JxSSSNET)
+from pytorch_geometric_signed_directed_tpu.experiments.digcl_node import (
+    curriculum_alpha as jx_curriculum_alpha)
 from pytorch_geometric_signed_directed_tpu.spectral import (
     appr_directed_adj as jx_appr_directed_adj,
+    cal_fast_appr as jx_cal_fast_appr,
     magnet_propagators as jx_magnet_propagators,
     second_directed_adj as jx_second_directed_adj)
 from pytorch_geometric_signed_directed_tpu.train import Trainer as JxTrainer
@@ -48,10 +55,12 @@ from pytorch_geometric_signed_directed_tpu.utils.general.triplet_loss import (
 import pytorch_geometric_signed_directed_tpu_torch.__main__ as cli
 from pytorch_geometric_signed_directed_tpu_torch.convert import (
     state_dict_from_jax)
+from pytorch_geometric_signed_directed_tpu_torch.data import schema_files
 from pytorch_geometric_signed_directed_tpu_torch.experiments import (
-    EXPERIMENTS, NOT_PORTED, _directed_link, dgcn_link, digcn_inception_link,
-    digcn_link, digrac, magnet_link, magnet_node, msgnn_link, msgnn_node,
-    run, sssnet)
+    EXPERIMENTS, _directed_link, dgcn_link, digcl_node,
+    digcn_inception_link, digcn_link, digrac, magnet_link, magnet_node,
+    msgnn_link, msgnn_node, run, sssnet)
+from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 N = 80
@@ -595,6 +604,90 @@ def test_sssnet_five_steps_match_jax(fixed_eigs, split):
     assert set(r["host_seconds"]) == {"samplers"}
 
 
+# --- digcl_node (on the schema files of ``schema_dir``) --------------------
+
+def jx_digcl_view(alpha, edge_index, n, w):
+    ei, v = jx_cal_fast_appr(alpha, edge_index, n, w)
+    return jx_graph.gcn_norm_propagator(ei, v, n, mode="dense")
+
+
+def test_digcl_node_inputs_bit_equal(in_schema_dir):
+    args = digcl_node.parser().parse_args(["--epochs", "30", "--device",
+                                           "cpu"])
+    got = digcl_node.build_inputs(args, "cpu")
+    data = jx_load.load_directed_real_data("cora_ml", name="cora_ml")
+    for name in ("edge_index", "edge_weight", "y", "train_mask", "val_mask",
+                 "test_mask"):
+        assert_same(getattr(got.data, name), getattr(data, name), name)
+    assert_same(got.x.numpy(), np.asarray(data.x, np.float32))
+    n = data.num_nodes
+    P1 = jx_digcl_view(0.1, data.edge_index, n, data.edge_weight)
+    assert got.P1.mode == "dense"
+    assert_same(got.P1.dense.numpy(), np.asarray(P1.dense))
+    # the log curriculum's views: one operator per distinct alpha, the
+    # first at alpha 1.7
+    alphas = [digcl_node.curriculum_alpha("log", e, 30) for e in range(30)]
+    assert alphas == [float(jx_curriculum_alpha("log", e, 30))
+                      for e in range(30)]
+    assert alphas[0] == pytest.approx(1.7)
+    for a in (alphas[0], alphas[11], alphas[-1]):
+        mine = digcl_node.view(got, got.data.edge_index,
+                               got.data.edge_weight, a, got.views)
+        assert_same(mine.dense.numpy(),
+                    np.asarray(jx_digcl_view(a, data.edge_index, n,
+                                       data.edge_weight).dense))
+    assert len(got.views) == 3
+    assert set(got.seconds) == {"load", "features", "views"}
+
+
+def test_digcl_node_five_steps_match_jax(in_schema_dir):
+    """Five steps from the JAX weights on the same dropped-feature inputs
+    (masks from numpy) and the curriculum's views, optax's coupled L2
+    beside the port's Trainer; then the embedding the probe reads."""
+    args = digcl_node.parser().parse_args(["--epochs", "5"])
+    inputs = digcl_node.build_inputs(args, "cpu")
+    data = jx_load.load_directed_real_data("cora_ml", name="cora_ml")
+    n, x = data.num_nodes, np.asarray(data.x, np.float32)
+    P1 = jx_digcl_view(0.1, data.edge_index, n, data.edge_weight)
+    alphas = [digcl_node.curriculum_alpha("log", e, 5) for e in range(5)]
+    jviews = [jx_digcl_view(a, data.edge_index, n, data.edge_weight)
+              for a in alphas]
+    views = [digcl_node.view(inputs, data.edge_index, data.edge_weight, a,
+                             inputs.views) for a in alphas]
+    rng = np.random.default_rng(0)
+    xs = [(np.where(rng.random(x.shape[1]) < 0.3, 0.0, x).astype(np.float32),
+           np.where(rng.random(x.shape[1]) < 0.4, 0.0, x).astype(np.float32))
+          for _ in range(5)]
+    jm = JxDiGCL(in_channels=x.shape[1], activation="relu", num_hidden=64,
+                 num_proj_hidden=32, tau=0.4, num_layers=2)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), P1,
+                     method=JxDiGCL.warmup)
+    model = load(digcl_node.make_model(args, x.shape[1], "cpu", 0, "relu"),
+                 params)
+    tx = optax.chain(optax.add_decayed_weights(5e-4), optax.adam(1e-3))
+    opt = tx.init(params)
+    jlosses = []
+    for (x1, x2), P2 in zip(xs, jviews):
+        def jf(p):
+            return jm.apply(p, jm.apply(p, x1, P1), jm.apply(p, x2, P2),
+                            method=JxDiGCL.loss)
+
+        loss, grads = jax.value_and_grad(jf)(params)
+        updates, opt = tx.update(grads, opt, params)
+        params = optax.apply_updates(params, updates)
+        jlosses.append(float(loss))
+    trainer = Trainer(digcl_node.loss_function(inputs.P1), lr=1e-3,
+                      weight_decay=5e-4, device="cpu")
+    state = trainer.init(model)
+    losses = [trainer.step(state, torch.from_numpy(x1), torch.from_numpy(x2),
+                           P2) for (x1, x2), P2 in zip(xs, views)]
+    np.testing.assert_allclose(losses, jlosses, **TOL)
+    with torch.no_grad():
+        z = model(inputs.x, inputs.P1).numpy()
+    np.testing.assert_allclose(z, np.asarray(jm.apply(params, x, P1)),
+                               **TOL)
+
+
 # --- main and the CLI ------------------------------------------------------
 
 def template(text):
@@ -617,6 +710,17 @@ MAIN_ARGS = {
                                "--splits", "1"],
     "digcn_inception_link": SYNTHETIC + ["--num_nodes", "80", "--epochs",
                                          "5", "--splits", "1"],
+    "link_sign_direction_tasks": SYNTHETIC + ["--num_nodes", "100",
+                                              "--epochs", "5"],
+    # the experiments that read only real data, on the schema files of
+    # ``schema_dir``
+    "dgcn_node": ["--dataset", "telegram", "--epochs", "3"],
+    "digcn_node": ["--dataset", "cora_ml", "--epochs", "3"],
+    "digcn_inception_node": ["--dataset", "telegram", "--epochs", "3"],
+    "digcl_node": ["--epochs", "4", "--splits", "2"],
+    "digcl_link": ["--dataset", "telegram", "--epochs", "4", "--splits",
+                   "1"],
+    "link_sign_prediction": ["--epochs", "3"],
 }
 # host stages each experiment reports; printed lines beside its accuracies
 STAGES = {"digrac": {"graph", "features", "operators"},
@@ -624,12 +728,52 @@ STAGES = {"digrac": {"graph", "features", "operators"},
           "dgcn_link": {"graph", "link_split", "operators", "layout"},
           "digcn_link": {"graph", "link_split", "operators", "layout"},
           "digcn_inception_link": {"graph", "link_split", "operators",
-                                   "layout"}}
-SUMMARY_LINES = {"msgnn_link": 0, "digrac": 0}
+                                   "layout"},
+          "dgcn_node": {"load", "features", "operators", "layout"},
+          "digcn_node": {"load", "features", "operators", "layout"},
+          "digcn_inception_node": {"load", "features", "operators", "layout"},
+          "digcl_node": {"load", "features", "views", "probe"},
+          "digcl_link": {"load", "link_split", "views", "probe"},
+          "link_sign_prediction": {"load", "link_split", "operators",
+                                   "probe"}}
+STAGES["link_sign_direction_tasks"] = STAGES.get("msgnn_link", {
+    "graph", "laplacian", "layout"})
+SUMMARY_LINES = {"msgnn_link": 0, "digrac": 0, "link_sign_direction_tasks": 0,
+                 "link_sign_prediction": 0}
+
+
+@pytest.fixture(scope="module")
+def schema_dir(tmp_path_factory):
+    """Small graphs in the schema of each real dataset the experiments
+    read, written once for the module."""
+    r = str(tmp_path_factory.mktemp("datasets"))
+    schema_files.write_citation(r, "cora_ml", num_nodes=700,
+                                num_edges=2500, num_classes=3,
+                                num_features=40)
+    schema_files.write_citation(r, "citeseer", num_nodes=700,
+                                num_edges=2000, num_classes=3,
+                                num_features=40, seed=1)
+    schema_files.write_telegram(r, num_nodes=60, num_edges=600,
+                                num_classes=3)
+    schema_files.write_signed_csv(r, num_nodes=200, num_pos=900, num_neg=200)
+    schema_files.write_sssnet(r, num_nodes=40, num_edges=300, num_classes=3)
+    schema_files.write_digrac(r, num_nodes=150, num_edges=900)
+    return r
+
+
+@pytest.fixture
+def in_schema_dir(schema_dir, monkeypatch):
+    """Run from ``schema_dir`` (the dispatchers' default root "./"), with
+    the processed-array cache off and no other search path."""
+    monkeypatch.chdir(schema_dir)
+    monkeypatch.setenv("PGSD_TPU_NO_CACHE", "1")
+    monkeypatch.delenv("PGSD_TPU_DATA", raising=False)
+    monkeypatch.setattr(jx_load, "_SEARCH_PATHS", ["", "datasets"])
+    return schema_dir
 
 
 @pytest.mark.parametrize("name", sorted(MAIN_ARGS))
-def test_main_prints_the_jax_lines(name, capsys, fixed_eigs):
+def test_main_prints_the_jax_lines(name, capsys, fixed_eigs, in_schema_dir):
     argv = MAIN_ARGS[name]
     out = run(name, argv + ["--device", "cpu"])
     got = capsys.readouterr().out
@@ -657,30 +801,54 @@ def test_without_device_the_experiments_need_cuda(name, monkeypatch):
     ("msgnn_node", "bitcoin_alpha"), ("msgnn_link", "bitcoin_alpha"),
     ("digrac", "blog"), ("sssnet", "sampson"), ("dgcn_link", "telegram"),
     ("digcn_link", "cora_ml"), ("digcn_inception_link", "citeseer")])
-def test_a_real_dataset_raises(name, dataset):
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        run(name, ["--dataset", dataset, "--device", "cpu"])
+def test_a_real_dataset_prints_the_jax_lines(name, dataset, capsys,
+                                             fixed_eigs, in_schema_dir):
+    """Each experiment on a real dataset's schema files prints the JAX
+    experiment's lines.  bitcoin_alpha has no node labels: msgnn_node's
+    node split fails on it in both packages, with the same error."""
+    argv = ["--dataset", dataset, "--epochs", "2"]
+    if name in ("magnet_link", "digcn_link", "digcn_inception_link"):
+        argv += ["--splits", "1"]
+    if name == "msgnn_node":
+        with pytest.raises(IndexError):
+            run(name, argv + ["--device", "cpu"])
+        with pytest.raises(IndexError):
+            jx_experiments.run(name, argv)
+        return
+    out = run(name, argv + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    jx_experiments.run(name, argv)
+    want = capsys.readouterr().out
+    assert template(got) == template(want)
+    assert out["inputs"].num_edges > 0
+    if name == "digrac":
+        # no labels: the score line, and the score as the run's value
+        assert got.startswith(f"{dataset}: imbalance loss")
+        assert out["runs"][0]["ari"] is None
 
 
 def test_registry_and_cli(capsys):
-    assert set(EXPERIMENTS) == {"magnet_node", "magnet_link", "msgnn_node",
-                                "msgnn_link", "digrac", "dgcn_link",
-                                "digcn_link", "digcn_inception_link",
-                                "sssnet"}
-    assert "sssnet" not in NOT_PORTED
-    # every experiment of the JAX package is either ported or named as not
-    assert set(EXPERIMENTS) | set(NOT_PORTED) == set(
-        jx_experiments.EXPERIMENTS)
-    assert not set(EXPERIMENTS) & set(NOT_PORTED)
+    # every experiment of the JAX package is ported
+    assert set(EXPERIMENTS) == set(jx_experiments.EXPERIMENTS)
     cli.main(["--list"])
     listing = capsys.readouterr().out
     assert all(name in listing for name in EXPERIMENTS)
-    # the node experiments of DGCN and DiGCN read only real data
-    for name in ("dgcn_node", "digcn_node", "digcn_inception_node"):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main([name])
     with pytest.raises(SystemExit, match="unknown experiment"):
         cli.main(["no_such_experiment"])
+
+
+def test_both_registries_resolve_every_name_to_the_same_module():
+    for name, (module, _) in jx_experiments.EXPERIMENTS.items():
+        assert EXPERIMENTS[name][0] == module, name
+    assert EXPERIMENTS["link_sign_direction_tasks"][0] == "msgnn_link"
+
+
+def test_link_sign_direction_tasks_runs_msgnn_link(capsys):
+    out = cli.main(["link_sign_direction_tasks", "--dataset", "synthetic",
+                    "--num_nodes", "80", "--epochs", "2", "--device",
+                    "cpu"])
+    assert "four_class_signed_digraph test acc" in capsys.readouterr().out
+    assert out["runs"][0]["steps"] == 2
 
 
 def test_python_m_runs_an_experiment(tmp_path):

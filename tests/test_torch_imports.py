@@ -1,9 +1,12 @@
 """The port stands alone: it imports torch, never JAX or the JAX package,
 and it runs on the card unless the caller asks for the CPU."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -60,7 +63,22 @@ ATTENTION_MODULES = (
     "nn/signed/motif_stack.py", "nn/signed/sigat.py", "nn/signed/sdgnn.py")
 
 
-@pytest.mark.parametrize("module", SIGNED_MODULES + ATTENTION_MODULES)
+# DiGCL, the logistic probes, the real-data loaders and the experiments
+# that read them
+REAL_DATA_MODULES = (
+    "utils/general/logistic.py", "utils/general/evaluation.py",
+    "utils/directed/digcl_utils.py", "nn/directed/digcl.py",
+    "data/load_real.py", "data/schema_files.py",
+    "experiments/digcl_node.py", "experiments/digcl_link.py",
+    "experiments/_directed_node.py", "experiments/dgcn_node.py",
+    "experiments/digcn_node.py", "experiments/digcn_inception_node.py",
+    "experiments/_signed_embedding.py",
+    "experiments/run_link_sign_prediction.py",
+    "experiments/run_link_sign_direction_tasks.py")
+
+
+@pytest.mark.parametrize("module", SIGNED_MODULES + ATTENTION_MODULES
+                         + REAL_DATA_MODULES)
 def test_signed_modules_import_nothing_forbidden(module):
     path = PORT / module
     assert path.is_file()
@@ -137,6 +155,62 @@ print("ok", float(loss))
     assert "ok" in proc.stdout
 
 
+def test_digcl_and_the_real_data_path_run_with_jax_and_sklearn_blocked(
+        tmp_path):
+    """In a fresh interpreter that cannot import JAX, flax, scikit-learn or
+    the JAX package: digcl_node on cora_ml's schema (the numpy one-vs-rest
+    grid probes it), link_sign_prediction on bitcoin_alpha's (the numpy
+    lbfgs probe and metrics) and the sign/direction tasks with SGCN."""
+    code = f"""
+import sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None      # import raises, find_spec gives None
+import os
+from pytorch_geometric_signed_directed_tpu_torch.data import schema_files
+schema_files.write_citation(".", "cora_ml", num_nodes=560, num_edges=1500,
+                            num_classes=2, num_features=12)
+schema_files.write_signed_csv(".", num_nodes=80, num_pos=300, num_neg=60)
+os.environ["PGSD_TPU_NO_CACHE"] = "1"
+from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+    run, run_link_sign_direction_tasks)
+run("digcl_node", ["--epochs", "2", "--splits", "1", "--device", "cpu"])
+run("link_sign_prediction", ["--epochs", "2", "--device", "cpu"])
+run_link_sign_direction_tasks.main(["--method", "sgcn", "--epochs", "2",
+                                    "--runs", "1", "--device", "cpu"])
+assert not any(k.split(".")[0] in {FORBIDDEN!r} and m is not None
+               for k, m in sys.modules.items())
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "DiGCL (log): acc" in proc.stdout
+    assert "auc" in proc.stdout and "sgcn four_class" in proc.stdout
+
+
+_SCHEMA = None
+
+
+def _schema_dir() -> str:
+    """Tiny files in the schema of each dataset the real-data entry points
+    read by default, written once a process."""
+    global _SCHEMA
+    if _SCHEMA is None:
+        from pytorch_geometric_signed_directed_tpu_torch.data import (
+            schema_files)
+
+        _SCHEMA = tempfile.TemporaryDirectory()
+        r = _SCHEMA.name
+        schema_files.write_citation(r, "cora_ml", num_nodes=600,
+                                    num_edges=900, num_classes=2,
+                                    num_features=6)
+        schema_files.write_telegram(r, num_nodes=30, num_edges=150,
+                                    num_classes=2)
+        schema_files.write_signed_csv(r, num_nodes=40, num_pos=120,
+                                      num_neg=30)
+    return _SCHEMA.name
+
+
 def _entry_points():
     from pytorch_geometric_signed_directed_tpu_torch import graph
     from pytorch_geometric_signed_directed_tpu_torch.experiments import run
@@ -171,6 +245,11 @@ def _entry_points():
         magnet_operator_arrays, magnet_propagators, magnetic_pair,
         magnetic_template)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
+    from pytorch_geometric_signed_directed_tpu_torch.nn import DiGCL
+    from pytorch_geometric_signed_directed_tpu_torch.nn.directed import (
+        DiGCL_Encoder)
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        run_link_sign_direction_tasks)
 
     ei = np.array([[0, 1, 2], [1, 2, 0]])
     one = np.ones(3)
@@ -186,6 +265,18 @@ def _entry_points():
         return go
 
     synthetic = ("--dataset", "synthetic", "--num_nodes", "40")
+
+    def real(name, *argv, main=None):
+        """An experiment on the schema files of ``_schema_dir``, found
+        through $PGSD_TPU_DATA."""
+        def go(device=None):
+            dev = [] if device is None else ["--device", device]
+            env = {"PGSD_TPU_DATA": _schema_dir(), "PGSD_TPU_NO_CACHE": "1"}
+            with mock.patch.dict(os.environ, env):
+                if main is not None:
+                    return main([*argv, "--epochs", "1", *dev])
+                return run(name, [*argv, "--epochs", "1", *dev])
+        return go
 
     return {
         "magnet_propagators": lambda **kw: magnet_propagators(ei, **kw),
@@ -294,6 +385,19 @@ def _entry_points():
         "SDRLayer": lambda **kw: SDRLayer(2, 4, **kw),
         "SDGNN": lambda **kw: SDGNN(3, in_dim=4, out_dim=4, init_emb=emb,
                                     **kw),
+        "DiGCL": lambda **kw: DiGCL(2, "relu", 4, 3, 0.5, 2, **kw),
+        "DiGCL_Encoder": lambda **kw: DiGCL_Encoder(2, 4, **kw),
+        "experiment digcl_node": real("digcl_node", "--splits", "1"),
+        "experiment digcl_link": real("digcl_link", "--dataset", "telegram",
+                                      "--splits", "1"),
+        "experiment dgcn_node": real("dgcn_node"),
+        "experiment digcn_node": real("digcn_node"),
+        "experiment digcn_inception_node": real("digcn_inception_node"),
+        "experiment link_sign_prediction": real("link_sign_prediction"),
+        "experiment magnet_node (telegram)": real("magnet_node"),
+        "run_link_sign_direction_tasks": real(
+            None, "--method", "sgcn", "--runs", "1",
+            main=run_link_sign_direction_tasks.main),
     }
 
 
