@@ -141,6 +141,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    run_link_sign_direction_tasks on its SDSBM with MSGNN and SGCN; each
    prints its cuts, host seconds, ms/step, losses and metrics; the dense
    tier launches nothing, SNEA 3 K1 a step.
+12. Captured training: ``train.scan_node_training``'s epoch (a training
+   step and an evaluation forward with the best-validation selection,
+   ``train.SplitRun``) captured as a CUDA graph and replayed, on
+   magnet_mxu (K1; 2 splits, 50 epochs), bsr (K5; 2 splits, 50 epochs)
+   and magnet_node's streamed operator at N=9,000 (K2; 1 split, 30
+   epochs), by the reference recipe of scripts/reference_protocol_
+   magnet.py (Adam at lr 1e-2, coupled L2 5e-4) on random 60/20/20
+   masks.  Against an eager loop of the same epochs from the same init,
+   masks and optimizer, whose first epoch runs with every host sync an
+   error: every
+   epoch's loss and the selections must agree bit for bit, and the eager
+   epoch and the capture must launch what the layouts imply for a step
+   and an evaluation forward.  Prints ms an epoch eager and captured,
+   the capture's seconds, and the device time and idle share over 10
+   traced replays.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -233,7 +248,13 @@ REAL_RUNS = (
                                        "msgnn", "--runs", "1"]),
     ("run_link_sign_direction_tasks", ["--dataset", "synthetic", "--method",
                                        "sgcn", "--runs", "1"]))
-# steps traced by torch.profiler for each phase-8, -9 and -10 path's
+# phase 12: scan_node_training's captured epoch against an eager loop on
+# magnet_mxu, bsr and magnet_node's streamed operator (splits, epochs), by
+# the JAX reference recipe of scripts/reference_protocol_magnet.py: Adam
+# at lr 1e-2 with coupled L2 5e-4, dropout off
+CAPTURED = (("magnet_mxu", 2, 50), ("bsr", 2, 50), ("magnet_node", 1, 30))
+CAPTURED_LR, CAPTURED_WD = 1e-2, 5e-4
+# steps traced by torch.profiler for each phase-8, -9, -10 and -12 path's
 # device time
 PROFILE_STEPS = 10
 # f32: the kernels sum in compensated float32, the plain versions in
@@ -1931,22 +1952,18 @@ def csr_of(P):
     return P.csr
 
 
-def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
-                   batch=()):
-    """Traces ``steps`` more steps with torch.profiler (after 2 untraced),
-    each given ``batch``: device ms a step, the idle share of an untraced
-    step of ``ms_step`` ms (1 - device ms / ms_step), and the kernels that
-    take the most device time."""
+def traced_device_ms(name, step, steps):
+    """Traces ``steps`` calls of ``step`` with torch.profiler: the device
+    ms a call, the kernels a call, and the five kernels that take the most
+    device time as (ms a call, name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
-        trainer.step_async(state, *batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            trainer.step_async(state, *batch)
+            step()
         torch.cuda.synchronize()
     # device work only: user annotations also appear on the device
     # timeline and overlap their kernels
@@ -1958,14 +1975,27 @@ def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    device_ms = sum(by_name.values()) / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"  device: {device_ms:.4f} ms a step, {len(kernels) / steps:.1f} "
+    return (sum(by_name.values()) / 1e3 / steps, len(kernels) / steps,
+            [(t / 1e3 / steps, n) for n, t in top])
+
+
+def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
+                   batch=()):
+    """Traces ``steps`` more steps with torch.profiler (after 2 untraced),
+    each given ``batch``: device ms a step, the idle share of an untraced
+    step of ``ms_step`` ms (1 - device ms / ms_step), and the kernels that
+    take the most device time."""
+    for _ in range(2):
+        trainer.step_async(state, *batch)
+    device_ms, per_step, top = traced_device_ms(
+        name, lambda: trainer.step_async(state, *batch), steps)
+    log(f"  device: {device_ms:.4f} ms a step, {per_step:.1f} "
         f"kernels; idle share {1 - device_ms / ms_step:.3f} of a "
         f"{ms_step:.3f} ms step; most: " + "; ".join(
-            f"{t / 1e3 / steps:.4f} {n[:60]}" for n, t in top))
+            f"{t:.4f} {n[:60]}" for t, n in top))
     return dict(device_ms=device_ms, idle=1 - device_ms / ms_step,
-                kernels_per_step=len(kernels) / steps)
+                kernels_per_step=per_step)
 
 
 def train_path(name, loss_fn, model, steps, per_step, smi, edges):
@@ -3025,6 +3055,213 @@ def digcl_phase(smi):
     return runs, cases
 
 
+# ---------------------------------------------------------------------------
+# captured training: scan_node_training's epoch as a CUDA graph
+
+
+def random_masks(n, splits, seed):
+    """[3, splits, n] float32 train / validation / test masks: each split
+    a random 60 / 20 / 20 partition of the nodes."""
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((3, splits, n), np.float32)
+    for s in range(splits):
+        parts = np.split(rng.permutation(n), [int(0.6 * n), int(0.8 * n)])
+        for k, part in enumerate(parts):
+            masks[k, s, part] = 1.0
+    return masks
+
+
+def captured_cell(name):
+    """The apply function, ``init(split)``, labels, node and input edge
+    counts, the K1/K2/K5 calls an epoch (a training step and an evaluation
+    forward, from the layouts) and the layout's text of one phase-12
+    cell."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        magnet_node)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnet_propagators)
+
+    if name == "magnet_node":
+        args = magnet_node.parser().parse_args(
+            ["--dataset", "synthetic", "--num_nodes", str(EXPERIMENT_N),
+             "--dropout", "0", "--device", DEV])
+        inputs = magnet_node.build_inputs(args, DEV)
+        log_host(inputs.seconds)
+        x, y, lap, n = inputs.x, inputs.y, inputs.lap, inputs.data.num_nodes
+        edges, K = inputs.num_edges, args.K
+
+        def init(s):
+            return magnet_node.make_model(args, inputs, s)
+    else:
+        n, deg = (N, 30) if name == "magnet_mxu" else (BSR_GRAPH["nodes"],
+                                                       BSR_GRAPH["avg_deg"])
+        ei, w, x_np, y_np = slice_graph(n, deg, seed=0)
+        lap = magnet_propagators(ei, w, q=0.25, num_nodes=n,
+                                 mode="auto" if name == "magnet_mxu"
+                                 else "bsr", device=DEV)
+        x = torch.from_numpy(x_np).to(DEV)
+        y = torch.from_numpy(y_np).to(DEV)
+        edges, K = ei.shape[1], 2
+
+        def init(s):
+            return make_model(DEV, seed=s)
+    if name == "bsr":
+        if lap.re.mode != "bsr":
+            raise AssertionError("mode='bsr' did not build bsr operators")
+        # 4 applies at width 2 and 4 at 32 forward, 4 transposed at 32
+        # backward; 8 in the evaluation forward
+        per_epoch, text = {"bsr_spmm": 12 + 8}, \
+            f"bsr, {lap.re.bsr.blocks.shape[0]} blocks an operator"
+    else:
+        D = lap.dual
+        if D is None or D.mode != "mxu":
+            raise AssertionError(f"{name}: not on the kernel tier")
+        per_epoch, text = experiment_launches(D, K, 2, 1, 1), layout_text(D)
+
+    def apply_fn(model, training, generator):
+        return model(x, x, lap, training, generator)
+
+    return apply_fn, init, y, n, edges, per_epoch, text
+
+
+def captured_path(name, splits, epochs, smi):
+    """One phase-12 cell: ``splits`` splits of ``epochs`` epochs, first as
+    an eager loop (its first epoch with every host sync an error), then
+    captured
+    (``SplitRun``: one eager epoch, the capture, ``epochs - 1`` replays)
+    from the same init, masks and optimizer (both time the epochs after
+    the first, by CUDA events); requires the same losses
+    and selections bit for bit and the eager epoch's launches in each
+    replay; traces ``PROFILE_STEPS`` replays of split 0 for the device
+    time an epoch and the idle share."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.train import (
+        SplitRun, adam)
+
+    t0 = time.perf_counter()
+    apply_fn, init, y, n, edges, per_epoch, text = captured_cell(name)
+    log(f"captured {name}: N={n} input edges {edges}; {text}; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    masks = torch.from_numpy(random_masks(n, splits, seed=12)).to(DEV)
+    tx = adam(CAPTURED_LR, CAPTURED_WD)
+
+    def split_run(s):
+        return SplitRun(apply_fn, init(s), tx, y, masks[0, s], masks[1, s],
+                        masks[2, s], epochs)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    eager, eager_ms = [], []
+    for s in range(splits):
+        run = split_run(s)
+        a, b = events()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        # the first epoch, untimed as the captured run's eager one, with
+        # every host sync an error
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run.epoch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        a.record()
+        for _ in range(epochs - 1):
+            run.epoch()
+        b.record()
+        b.synchronize()
+        eager_ms.append(a.elapsed_time(b) / (epochs - 1))
+        got = {k: v - before[k] for k, v in launch_counts().items()
+               if v != before[k]}
+        want = {k: v * epochs for k, v in per_epoch.items()}
+        if got != want:
+            raise AssertionError(f"captured {name}: the eager loop launched "
+                                 f"{got}, the layouts imply {want}")
+        eager.append((run.losses.clone(), run.results()))
+        del run
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    cap_ms, capture_s, prof = [], [], None
+    for s in range(splits):
+        run = split_run(s)
+        run.capture()
+        capture_s.append(run.capture_seconds)
+        for got, label in ((run.launches, "its eager epoch"),
+                           (run.launches_per_replay, "the capture")):
+            if got != per_epoch:
+                raise AssertionError(
+                    f"captured {name} split {s}: {label} launched {got}, "
+                    f"the layouts imply {per_epoch} an epoch")
+        replays = epochs - 1
+        if s == 0:
+            prof = traced_device_ms(f"captured {name}", run.graph.replay,
+                                    PROFILE_STEPS)
+            replays -= PROFILE_STEPS
+        a, b = events()
+        a.record()
+        for _ in range(replays):
+            run.graph.replay()
+        b.record()
+        b.synchronize()
+        cap_ms.append(a.elapsed_time(b) / replays)
+        losses, res = eager[s]
+        diff = float((run.losses - losses).abs().max())
+        if not (torch.equal(run.losses, losses)
+                and torch.equal(run.results(), res)):
+            raise AssertionError(
+                f"captured {name} split {s}: the captured run differs from "
+                f"the eager loop (largest loss difference {diff}; results "
+                f"{run.results().tolist()} against {res.tolist()})")
+        r = res.tolist()
+        log(f"  split {s}: loss {float(losses[0]):.6f} -> "
+            f"{float(losses[-1]):.6f}, best val {r[0]:.4f}, best test "
+            f"{r[1]:.4f}, final test {r[2]:.4f}; captured = eager bit for "
+            f"bit over {epochs} losses (largest difference {diff})")
+        check_losses(f"captured {name} split {s}", losses.tolist())
+        del run
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {k: 2 * v * splits for k, v in per_epoch.items()}
+    if launches != want:
+        raise AssertionError(f"captured {name}: {launches} wrapper calls, "
+                             f"expected one eager epoch and one capture a "
+                             f"split: {want}")
+    device_ms, kernels, top = prof
+    e_ms, c_ms = statistics.median(eager_ms), statistics.median(cap_ms)
+    log(f"  on {smi}: eager {e_ms:.4f} ms/epoch, captured {c_ms:.4f} "
+        f"ms/epoch ({e_ms / c_ms:.2f}x; medians of {splits} splits: eager "
+        f"{[round(v, 4) for v in eager_ms]}, captured "
+        f"{[round(v, 4) for v in cap_ms]}); capture "
+        f"{[round(v, 3) for v in capture_s]} s; launches {per_epoch} an "
+        f"epoch, eager and in each replay; {launches} wrapper calls in the "
+        f"captured run")
+    log(f"  device {device_ms:.4f} ms an epoch over {PROFILE_STEPS} traced "
+        f"replays, {kernels:.1f} kernels; idle share captured "
+        f"{1 - device_ms / c_ms:.3f}, eager {1 - device_ms / e_ms:.3f}; "
+        f"most: " + "; ".join(f"{t:.4f} {k[:50]}" for t, k in top))
+    return dict(launches=launches, launches_per_replay=per_epoch,
+                replays=splits * (epochs - 1), eager_ms=e_ms, captured_ms=c_ms,
+                capture_s=capture_s, device_ms=device_ms,
+                idle=1 - device_ms / c_ms, eager_idle=1 - device_ms / e_ms)
+
+
+def captured_phase(smi):
+    """Phase 12: scan_node_training's captured epoch on magnet_mxu (K1),
+    bsr (K5) and magnet_node's streamed operator (K2)."""
+    import torch
+
+    runs = {}
+    for name, splits, epochs in CAPTURED:
+        t0 = time.perf_counter()
+        runs[name] = captured_path(name, splits, epochs, smi)
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main():
     import torch
 
@@ -3050,7 +3287,7 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-11. the paths ------------------------------------------------
+    # ---- 2-12. the paths ------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
@@ -3060,7 +3297,8 @@ def main():
                         ("directed", directed_phase),
                         ("signed", signed_phase),
                         ("attention", attention_phase),
-                        ("digcl", digcl_phase)):
+                        ("digcl", digcl_phase),
+                        ("captured", captured_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -3074,6 +3312,7 @@ def main():
     sig_runs, sig_cases = phases["signed"]
     att_runs, att_cases = phases["attention"]
     dcl_runs, dcl_cases = phases["digcl"]
+    cap_runs = phases["captured"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -3164,7 +3403,25 @@ def main():
              "path": path, "launches_per_step":
                  dcl_runs[path]["per_step"]["csr_dual_spmm"]}
             for path in (f"bench digcl B={BENCH_DIGCL['batches'][0]}",)
-            for width in (128, 64)],
+            for width in (128, 64)] + [
+            # phase 12: the same kernels launched from captured epochs, with
+            # the earlier phases' cases at the widths of these operators;
+            # launches: wrapper calls of the run (an eager epoch and a
+            # capture a split), each replayed launches_per_replay times
+            {**kernel_entry(kname, case, cap_runs[path]["launches"][kname],
+                            source, replaces),
+             "path": f"captured {path}",
+             "launches_per_replay": cap_runs[path]["launches_per_replay"][
+                 kname], "replays": cap_runs[path]["replays"]}
+            for path, kname, case, source, replaces in (
+                ("magnet_mxu", "csr_dual_spmm",
+                 k1_cases[("csr_dual_spmm", 64, torch.float32, "fwd")],
+                 "scatter_csr.cu", "scatter_mxu.py:503"),
+                ("bsr", "bsr_spmm", k5_cases[(32, "fwd")], "bsr_spmm.cu",
+                 "bsr_spmm.py:119"),
+                ("magnet_node", "csr_dual_spmm_accum",
+                 exp_cases[("magnet_node", 128)], "scatter_csr.cu",
+                 "scatter_mxu.py:580"))],
         # K2's own contract and K4: tested, on no path this script drives
         "off_path": [
             # K1 on magnet_node's Laplacian laid out flat: every row cut

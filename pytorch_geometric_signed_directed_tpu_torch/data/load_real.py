@@ -6,8 +6,8 @@ order, float32 weights and features, int64 labels), the same split masks
 and the same ``processed/<name>.npz`` cache (``PGSD_TPU_NO_CACHE=1``
 turns it off).  Differences:
 
-* the signed CSV loader takes the pure-Python parse (the JAX package may
-  take its native one; both give the same arrays);
+* the signed CSV loader takes the native tier's parse (``native``), with
+  no pure-Python fallback;
 * Sampson's features use the numpy standard scaler of
   ``spectral/features.py`` in place of scikit-learn's;
 * ``PGSD_TPU_DATA`` is read at each call, not once at import.
@@ -26,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import scipy.sparse as sp
 
+from .. import native
 from ..spectral.features import standard_scale
 from ..utils.general.node_split import node_class_split
 from .directed_data import DirectedData
@@ -134,24 +135,8 @@ def _sdgnn_build(name: str, root: Optional[str]) -> SignedData:
              "wiki": "wikirfa.csv",
              "slashdot": "slashdot.csv",
              "epinions": "epinions.csv"}[name.lower()]
-    path = _resolve(fname, root)
-    node_map = {}
-    rows, cols, w = [], [], []
-    with open(path) as f:
-        for line in f:
-            x = line.strip().split(",")
-            assert len(x) == 3
-            a, b = x[0], x[1]
-            if a not in node_map:
-                node_map[a] = len(node_map)
-            if b not in node_map:
-                node_map[b] = len(node_map)
-            rows.append(node_map[a])
-            cols.append(node_map[b])
-            w.append(float(x[2]))
-    edge_index = np.vstack([rows, cols]).astype(np.int64)
-    return SignedData(edge_index=edge_index,
-                      edge_weight=np.asarray(w, np.float32))
+    rows, cols, w, _ = native.parse_signed_csv(_resolve(fname, root))
+    return SignedData(edge_index=np.vstack([rows, cols]), edge_weight=w)
 
 
 def SSSNET_real_data(name: str, root: Optional[str] = None) -> SignedData:

@@ -13,6 +13,7 @@ import sys
 import numpy as np
 import torch
 
+from ..device import DeviceLike
 from ..graph import directed_features_in_out, gcn_norm_propagator
 from ..nn import DGCN_node_classification
 from . import _directed_node
@@ -38,6 +39,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--features", choices=("x", "deg"), default="deg")
     add_device_arg(ap)
     return ap
+
+
+def build_propagators(data, n: int, device: DeviceLike = None) -> tuple:
+    """The symmetrized, in and out graphs of ``data`` (its own edge
+    weights), GCN-normalized Propagators on ``device``: the JAX module's
+    public ``build_propagators``."""
+    return tuple(propagator(ei, ew, n, device=device)
+                 for ei, ew in operator_arrays(None, data, data.edge_weight,
+                                               n))
 
 
 def operator_arrays(args, data, w, n):

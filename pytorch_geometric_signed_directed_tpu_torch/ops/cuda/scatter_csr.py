@@ -20,7 +20,8 @@ parallel, and a second launch adds each cut row's pieces in a fixed
 order.  Which rows are cut, and where, is a ``RowSplit`` plan of the
 rowptr (``plan_row_split``): ``ops/layout.py`` builds it once per CSR,
 beside the rowptr, and every entry takes it as ``split``.  Given none, an
-entry plans the rowptr itself, which costs a host sync per call.
+entry plans the rowptr itself, which costs a host sync per call, and
+raises while a CUDA graph is being captured.
 
 Each entry has its plain PyTorch version beside it.  A wrapper takes the
 plain version only for tensors on the CPU (which need no plan); for CUDA
@@ -143,6 +144,12 @@ def plan_row_split(rowptr: torch.Tensor, piece_len: int = PIECE_EDGES,
     device, with one host sync for the piece count."""
     if piece_len < 1:
         raise ValueError(f"piece_len={piece_len} must be positive")
+    if rowptr.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "a kernel wrapper was given no plan (split=) while a CUDA graph "
+            "is being captured: planning reads the piece count on the host, "
+            "which capture forbids.  Pass the operator's plan, which "
+            "ops/layout.py builds once per CSR")
     min_len = piece_len if min_len is None else min_len
     rp = rowptr.long()
     length = rp[1:] - rp[:-1]

@@ -1,7 +1,9 @@
 """Magnetic and signed magnetic Laplacians (host-side numpy/scipy).
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/spectral/
-magnetic.py``: the same arrays for the same input.  For frozen q the
+magnetic.py``: the same arrays for the same input (from
+``NATIVE_MIN_EDGES`` input edges on, both packages build the Laplacian
+host arrays with the native tier).  For frozen q the
 scaled Chebyshev operator pair L_hat = 2L/lambda_max - I is built once and
 frozen into Propagators on a device.  For trainable q the q-independent
 structure is a ``MagneticTemplate``, whose per-edge values are rebuilt for
@@ -17,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike, resolve_device
 from ..ops.coalesce import coalesce_edges
 from ..ops.coo import COO, build_coo
@@ -58,6 +61,11 @@ class MagneticPair:
         return (self.re, self.im)[i]
 
 
+# From this many input edges the host build takes the native tier, as
+# the JAX package does.
+NATIVE_MIN_EDGES = 1 << 20
+
+
 def _remove_self_loops(edge_index, edge_weight):
     edge_index = np.asarray(edge_index)
     mask = edge_index[0] != edge_index[1]
@@ -74,8 +82,13 @@ def _symmetrize(edge_index, edge_weight, num_nodes):
                               dtype=np.float64)
     else:
         edge_weight = np.asarray(edge_weight, dtype=np.float64)
-    edge_index, edge_weight = _remove_self_loops(np.asarray(edge_index),
-                                                 edge_weight)
+    ei_arr = np.asarray(edge_index)
+    if ei_arr.shape[1] >= NATIVE_MIN_EDGES:
+        # one native pass builds both directions' keys and skips self-loops
+        row, col, sym, theta, abs_sym = native.symmetrize(
+            ei_arr[0], ei_arr[1], edge_weight, num_nodes)
+        return row, col, sym / 2.0, theta, abs_sym / 2.0
+    edge_index, edge_weight = _remove_self_loops(ei_arr, edge_weight)
     row0, col0 = edge_index[0], edge_index[1]
     r = np.concatenate([row0, col0])
     c = np.concatenate([col0, row0])
@@ -108,6 +121,17 @@ def _laplacian_core(
     if normalization not in (None, "sym"):
         raise ValueError(f"invalid normalization {normalization!r}")
     num_nodes = _maybe_num_nodes(edge_index, num_nodes)
+    ei_arr = np.asarray(edge_index)
+    if (normalization == "sym" and not return_lambda_max
+            and ei_arr.shape[1] >= NATIVE_MIN_EDGES):
+        # the whole build below (symmetrize, degree, normalization, phase,
+        # diagonal) in one native pass, with the same float64 formulas
+        w_in = (np.ones(ei_arr.shape[1], np.float64) if edge_weight is None
+                else np.asarray(edge_weight, np.float64))
+        deg_mode = 0 if not signed else (1 if absolute_degree else 2)
+        orow, ocol, w_re, w_im = native.magnetic_sym_lap(
+            ei_arr[0], ei_arr[1], w_in, num_nodes, q, deg_mode)
+        return np.stack([orow, ocol]), w_re, w_im
     row, col, sym, theta, abs_sym = _symmetrize(edge_index, edge_weight,
                                                 num_nodes)
 

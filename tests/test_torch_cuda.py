@@ -781,3 +781,111 @@ def test_digcl_step_on_card_matches_the_cpu(card, batch_size):
     assert scatter_csr.LAUNCHES["csr_dual_spmm"] == before + 8
     for a, b in zip(outs, _digcl_step("cpu", batch_size)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def _hub_magnet(device, dropout=0.0):
+    """MagNet (K=2, hidden 8) on the kernel tier of a 3,000-node graph
+    whose node 7 has 2,000 in-edges, so its Laplacian row is cut into
+    pieces; features, labels and masks from a seed."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        MagNet_node_classification)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnet_propagators)
+
+    n = 3000
+    rng = np.random.default_rng(4)
+    row = np.concatenate([rng.integers(0, n, 30_000),
+                          rng.integers(8, n, 2000)])
+    col = np.concatenate([rng.integers(0, n, 30_000), np.full(2000, 7)])
+    keep = row != col
+    ei = np.stack([row[keep], col[keep]])
+    lap = magnet_propagators(ei, np.ones(ei.shape[1]), q=0.25, num_nodes=n,
+                             mode="mxu", device=device)
+    assert lap.dual.row_split.rows.numel() > 0       # a cut row
+    x = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 3, n)).to(device)
+    masks = torch.from_numpy(
+        (rng.random((3, n)) < 0.3).astype(np.float32)).to(device)
+
+    def apply_fn(model, training, generator):
+        return model(x, x, lap, training, generator)
+
+    def init():
+        return MagNet_node_classification(
+            num_features=2, hidden=8, K=2, label_dim=3, activation=True,
+            layer=2, dropout=dropout, device=device,
+            generator=torch.Generator().manual_seed(0))
+
+    return apply_fn, init, y, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_captured_epochs_match_eager_epochs_on_card(card, dropout):
+    """A captured epoch replayed gives the eager loop's losses and
+    selections bit for bit, with the same launches an epoch; with dropout
+    the split's generator advances with each replay as it does eagerly."""
+    from pytorch_geometric_signed_directed_tpu_torch.train import (
+        SplitRun, adam)
+    from pytorch_geometric_signed_directed_tpu_torch.train.scan_trainer \
+        import split_generator
+
+    apply_fn, init, y, masks = _hub_magnet(card, dropout)
+    epochs = 12
+    runs = []
+    for captured in (False, True, True):
+        gen = split_generator(0, 0, card) if dropout else None
+        runs.append(SplitRun(apply_fn, init(), adam(1e-2, 5e-4), y, *masks,
+                             epochs, gen).run(captured))
+    eager, captured, again = runs
+    torch.cuda.synchronize()
+    assert captured.graph is not None and eager.graph is None
+    per_epoch = {"csr_dual_spmm": 10}    # 4 + 2 transposed, 4 to evaluate
+    assert eager.launches == {k: v * epochs for k, v in per_epoch.items()}
+    assert captured.launches == captured.launches_per_replay == per_epoch
+    for run in (captured, again):
+        assert torch.equal(run.losses, eager.losses)
+        assert torch.equal(run.results(), eager.results())
+
+
+@pytest.mark.cuda
+def test_scan_node_training_captures_on_card(card):
+    from pytorch_geometric_signed_directed_tpu_torch.train import (
+        SplitRun, adam, scan_node_training)
+
+    apply_fn, init, y, masks = _hub_magnet(card)
+    got = scan_node_training(apply_fn, lambda s: init(), y.cpu().numpy(),
+                             *(m[None].cpu().numpy() for m in masks),
+                             epochs=8, tx=adam(1e-2, 5e-4))
+    want = SplitRun(apply_fn, init(), adam(1e-2, 5e-4), y, *masks,
+                    8).run(captured=False).results().cpu().numpy()
+    np.testing.assert_array_equal(
+        [got[k][0] for k in ("best_val", "best_test", "final_test",
+                             "final_loss")], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["csr_dual_spmm", "csr_scatter_sum",
+                                   "bsr_matmul"])
+def test_wrapper_refuses_to_plan_under_capture_on_card(card, entry):
+    rowptr, _ = hub_csr(card)
+    nnz = int(rowptr[-1])
+    col = torch.zeros(nnz, dtype=torch.int32, device=card)
+    val = torch.ones(nnz, device=card)
+    x = torch.randn(4, 8, device=card)
+    msgs = torch.randn(nnz, 8, device=card)
+    # made before the capture: a copy from the host is refused under it
+    block_rowptr = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    blocks = torch.randn(1, 128, 128, device=card)
+    x_bsr = torch.randn(128, 8, device=card)
+    call = {
+        "csr_dual_spmm": lambda: scatter_csr.csr_dual_spmm(
+            rowptr, col, val, val, x, 4),
+        "csr_scatter_sum": lambda: scatter_csr.csr_scatter_sum(rowptr, msgs),
+        "bsr_matmul": lambda: bsr_spmm.bsr_matmul(
+            blocks, block_rowptr, col[:1], x_bsr, 128)}[entry]
+    call()                                  # eager: plans, with a sync
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="no plan"):
+        with torch.cuda.graph(graph):
+            call()

@@ -12,6 +12,8 @@ import torch
 
 from pytorch_geometric_signed_directed_tpu import graph as jx_graph
 from pytorch_geometric_signed_directed_tpu.data import DSBM as jx_DSBM
+from pytorch_geometric_signed_directed_tpu.experiments import (
+    dgcn_node as jx_dgcn_node)
 from pytorch_geometric_signed_directed_tpu.nn import (
     DGCN_link_prediction as JxDGCNLink,
     DGCN_node_classification as JxDGCNNode,
@@ -30,6 +32,8 @@ from pytorch_geometric_signed_directed_tpu.utils import (
 from pytorch_geometric_signed_directed_tpu_torch import graph
 from pytorch_geometric_signed_directed_tpu_torch.convert import (
     state_dict_from_jax)
+from pytorch_geometric_signed_directed_tpu_torch.data import DirectedData
+from pytorch_geometric_signed_directed_tpu_torch.experiments import dgcn_node
 from pytorch_geometric_signed_directed_tpu_torch.nn import (
     DGCN_link_prediction, DGCN_node_classification, DiGCN_Inception_Block,
     DiGCN_Inception_Block_link_prediction,
@@ -250,3 +254,19 @@ def test_dropout_acts_only_when_training(cls):
     a = m(x, *ops, True, torch.Generator().manual_seed(1))
     b = m(x, *ops, True, torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and not torch.equal(a, m(x, *ops))
+
+
+def test_dgcn_node_build_propagators():
+    """The JAX experiment module's public ``build_propagators``: the same
+    three operators, on the graph's own (unbinarized) weights."""
+    ei, w, _ = digraph(seed=3)
+    w = w * np.random.default_rng(3).uniform(0.5, 2.0, len(w))
+    data = DirectedData(edge_index=ei, edge_weight=w)
+    got = dgcn_node.build_propagators(data, N, device="cpu")
+    want = jx_dgcn_node.build_propagators(data, N)
+    x = features(f=3, seed=8)
+    assert len(got) == len(want) == 3
+    for P, J in zip(got, want):
+        assert P.mode == J.mode
+        np.testing.assert_allclose(P(t(x)).numpy(), np.asarray(J(x)),
+                                   rtol=1e-6, atol=1e-6)
