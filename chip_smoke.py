@@ -157,6 +157,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the capture's seconds, and the device time and idle share over 10
    traced replays.
 
+13. Sharded paths (parallel/): each on ``local_mesh()`` and on four shards
+   of the one card (``Mesh((cuda:0,) * 4)``), which measures the partition
+   and the per-shard kernel calls at real shard sizes, not multi-card
+   speed.  bench.py's SNEA cell and its SDGNN cell (one GAT a motif) on
+   sharded attention graphs, 30 steps each (K1 ``csr_scatter_sum`` once a
+   shard and attend: SNEA 4 a shard and step, layer 2's pair not fused on
+   a sharded graph; SDGNN 8); the bench SGCN cell's pair and fused dual
+   sharded four ways on the mxu tier, 5 steps (K1 ``csr_dual_spmm`` a
+   shard and apply, 3 applies of each operator and 3 of its transpose a
+   step); the bsr cell's MagNet on its bsr operators sharded 1 and 4 ways
+   (K5 a shard and apply), 30 steps; every first loss equal to the flat
+   model's at 1e-4, every run launching exactly what its shards imply.
+   Holds ``csr_scatter_sum`` on shard 0 of the bench SNEA graphs (W=17,
+   34), of SDGNN's largest motif graph (W=21) and on an edgeless shard,
+   K1 on shard 0 of the sharded SGCN dual (2F=128, 64) and K5 on shard 0
+   of the bsr cell (W=32) against their plain versions.  Then one Adam
+   step on four shards through an NCCL process group of world size 1
+   (``parallel.init_process_mesh``), equal to the controller mesh's bit
+   for bit, and the dense and segment tiers on a (2, 2) data x graph
+   mesh: two trainings from two seeds of 10 steps, each equal to its own
+   single-device run at rtol 1e-4 / atol 1e-5.
+
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
 before and reads them just after, and must launch exactly the kernels its
@@ -169,6 +191,8 @@ limit, one JSON line of kernel measurements, and
 """
 import contextlib
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -254,6 +278,24 @@ REAL_RUNS = (
 # at lr 1e-2 with coupled L2 5e-4, dropout off
 CAPTURED = (("magnet_mxu", 2, 50), ("bsr", 2, 50), ("magnet_node", 1, 30))
 CAPTURED_LR, CAPTURED_WD = 1e-2, 5e-4
+# phase 13: the sharded paths, each on the one-card mesh local_mesh() and
+# on four shards of the one card (Mesh((cuda:0,) * 4)), at the bench cells'
+# own sizes: SNEA and SDGNN per motif (30 steps on SHARDED_SETS sample
+# sets, cycled), SGCN's pair and fused dual on the mxu tier (5 steps), the
+# bsr cell's MagNet (30 steps); the dense and segment tiers on a (2, 2)
+# data x graph mesh (two seeds, 10 steps each); and one step through an
+# NCCL process group of world size 1
+SHARDS = 4
+SHARDED_STEPS = 30
+SHARDED_SETS = 10
+SHARDED_SGCN_STEPS = 5
+DATA_GRAPH_STEPS = 10
+# steps traced for a sharded path's device time (the 4-shard SNEA and SDGNN
+# steps launch 2,300-3,600 kernels, which the profiler is slow to collect)
+SHARDED_PROFILE_STEPS = 3
+# sharded first losses against the flat ones: each shard shifts its
+# softmax by its own largest logit, and sums run in other orders
+SHARDED_TOL = 1e-4
 # steps traced by torch.profiler for each phase-8, -9, -10 and -12 path's
 # device time
 PROFILE_STEPS = 10
@@ -513,7 +555,7 @@ def scatter_kernel_case(rowptr, split, nnz, width, dtype, seed):
     plain_ms = time_ms(lambda: scatter_csr.csr_scatter_sum_plain(rowptr,
                                                                  msgs))
     library_ms = library_device_ms = None
-    if dtype == torch.float32:
+    if dtype == torch.float32 and nnz:
         # yardstick only: one segment_reduce over the same rowptr
         offsets = rowptr.long()
         lib = torch.segment_reduce(msgs, "sum", offsets=offsets, axis=0)
@@ -1998,7 +2040,8 @@ def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
                 kernels_per_step=per_step)
 
 
-def train_path(name, loss_fn, model, steps, per_step, smi, edges):
+def train_path(name, loss_fn, model, steps, per_step, smi, edges,
+               profile_steps=PROFILE_STEPS):
     """``steps`` Adam steps at lr 1e-2 of ``loss_fn`` on ``model``, the
     launch counters set to 0 just before and read just after, each step
     counted around it; requires ``per_step`` launches a step and a falling
@@ -2028,7 +2071,8 @@ def train_path(name, loss_fn, model, steps, per_step, smi, edges):
     log(f"  launches {launches}: {by_step[0]} in each step as counted "
         f"around it")
     return dict(run, launches=launches, per_step=by_step[0], ms_step=ms_step,
-                **device_profile(name, trainer, state, ms_step))
+                **device_profile(name, trainer, state, ms_step,
+                                 steps=profile_steps))
 
 
 def single_cases(P, widths, label, cases, key):
@@ -3262,6 +3306,429 @@ def captured_phase(smi):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharded paths on one card
+
+
+def four_shards():
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+
+    return parallel.Mesh((torch.device(DEV, 0),) * SHARDS)
+
+
+def meshes():
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+
+    return (("1 shard", parallel.local_mesh(device=DEV)),
+            (f"{SHARDS} shards", four_shards()))
+
+
+def check_first_loss(name, got, flat):
+    if abs(got - flat) > SHARDED_TOL * max(1.0, abs(flat)):
+        raise AssertionError(f"{name}: first loss {got} against the flat "
+                             f"{flat}")
+    log(f"  first loss {got:.8f}, flat {flat:.8f} (|diff| "
+        f"{abs(got - flat):.3g})")
+
+
+def shard_text(sg):
+    sizes = [sh.src.numel() for sh in sg.shards]
+    return (f"{len(sizes)} shards of {sg.rows_per_device} rows, edges "
+            f"{sizes}, cut rows "
+            f"{[sh.plan.split.rows.numel() for sh in sg.shards]}")
+
+
+def sharded_attention_runs(name, graphs, make, loss_of, per_shard_step,
+                           smi, edges):
+    """``make()``'s model trained on ``graphs`` sharded on each mesh of
+    ``meshes()``: ``per_shard_step`` K1 calls a shard and step, first
+    losses equal to the flat model's."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+
+    with torch.no_grad():
+        flat = float(loss_of(make(), graphs, 0))
+    runs, sharded = {}, {}
+    for label, mesh in meshes():
+        t0 = time.perf_counter()
+        sg = parallel.shard_attention_graphs(graphs, mesh)
+        torch.cuda.synchronize()
+        host = {"shards": time.perf_counter() - t0}
+        log(f"{name} on {label}: largest graph {shard_text(sg[0])}; "
+            f"sharded in {host['shards']:.2f} s")
+        step = iter(range(10 ** 9))
+
+        def loss_fn(mo, sg=sg, step=step):
+            return loss_of(mo, sg, next(step))
+
+        run = train_path(f"{name} {label}", loss_fn, make(), SHARDED_STEPS,
+                         {"csr_scatter_sum": per_shard_step * mesh.size},
+                         smi, edges, SHARDED_PROFILE_STEPS)
+        check_first_loss(f"{name} {label}", run["losses"][0], flat)
+        runs[f"{name} {label}"] = dict(run, host=host)
+        sharded[label] = sg
+        torch.cuda.empty_cache()
+    return runs, sharded
+
+
+def sharded_snea(smi, cases):
+    """bench.py's SNEA cell on sharded attention graphs: 2 attends in each
+    layer (layer 2's pair on g_cat is not fused on a sharded graph), each
+    one K1 a shard at W = 1 + 16."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SNEA
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        snea_graphs)
+    from pytorch_geometric_signed_directed_tpu_torch.ops.scatter import (
+        build_scatter_plan)
+
+    c = BENCH_SNEA
+    n, dim = c["nodes"], c["dim"]
+    rng = np.random.default_rng(0)
+    pos = np.vstack([rng.integers(0, n, c["e_pos"]),
+                     rng.integers(0, n, c["e_pos"])])
+    neg = np.vstack([rng.integers(0, n, c["e_neg"]),
+                     rng.integers(0, n, c["e_neg"])])
+    init_emb = rng.standard_normal((n, dim)).astype(np.float32)
+    samples, _ = sgcn_samples(pos, neg, n, SHARDED_SETS,
+                              np.random.default_rng(1))
+    graphs = snea_graphs(pos, neg, n, device=DEV)
+    pos_t, neg_t = (torch.from_numpy(a).to(DEV) for a in (pos, neg))
+
+    def make():
+        return SNEA(n, in_dim=dim, out_dim=dim, init_emb=init_emb,
+                    device=DEV, generator=torch.Generator().manual_seed(0))
+
+    def loss_of(mo, gs, i):
+        none, pt, nt = samples[i % len(samples)]
+        return mo.loss(gs, pos_t, neg_t, none, pt, nt)
+
+    runs, sharded = sharded_attention_runs(
+        "sharded bench snea", graphs, make, loss_of, 4, smi,
+        c["e_pos"] + c["e_neg"])
+    path = f"sharded bench snea {SHARDS} shards"
+    sg = sharded[f"{SHARDS} shards"]
+    half = dim // 2
+    attention_case(sg[0].shards[0].plan, 1 + half,
+                   "sharded bench snea g_pos shard 0", path, cases)
+    attention_case(sg[2].shards[0].plan, 2 + 2 * half,
+                   "sharded bench snea g_cat shard 0", path, cases)
+    empty = build_scatter_plan(np.zeros(0, np.int64), sg[0].rows_per_device,
+                               device=DEV)
+    attention_case(empty, 1 + half, "edgeless shard", path, cases)
+    if cases[("edgeless shard", 1 + half)]["max_abs_err"] != 0.0:
+        raise AssertionError("csr_scatter_sum on an edgeless shard")
+    return runs
+
+
+def sharded_sdgnn(smi, cases):
+    """bench.py's SDGNN cell, one GAT a motif graph (4 graphs, 2 layers),
+    on sharded motif graphs: one K1 a shard and GAT at W = 1 + 20."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SDGNN
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        prepare_sdgnn_inputs, split_signed_edges)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral.features \
+        import create_spectral_features
+
+    c = BENCH_MOTIF
+    n, dim = c["nodes"], c["dim"]
+    rng = np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    edges = np.column_stack([
+        rng.integers(0, n, m), rng.integers(0, n, m),
+        np.concatenate([np.ones(c["e_pos"]), -np.ones(c["e_neg"])])
+    ]).astype(np.int64)
+    emb = create_spectral_features(*split_signed_edges(edges), n, dim)
+    inputs = prepare_sdgnn_inputs(n, edges, in_dim=dim, init_emb=emb,
+                                  device=DEV)
+    pos, neg = (torch.from_numpy(a).to(DEV) for a in inputs[:2])
+    extra = [torch.from_numpy(a).to(DEV) for a in inputs[4:]]
+
+    def make():
+        return SDGNN(n, in_dim=dim, out_dim=dim, init_emb=emb, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+
+    def loss_of(mo, gs, i):
+        return mo.loss(gs, pos, neg, *extra)
+
+    runs, sharded = sharded_attention_runs(
+        "sharded bench sdgnn", inputs[3], make, loss_of, 8, smi, m)
+    attention_case(sharded[f"{SHARDS} shards"][0].shards[0].plan, dim + 1,
+                   "sharded sdgnn motif 0 shard 0",
+                   f"sharded bench sdgnn {SHARDS} shards", cases)
+    return runs
+
+
+def shard_layout_text(L):
+    if L.blocks:
+        return f"split, {len(L.blocks)} blocks, nnz={L.col.numel()}"
+    return f"flat, nnz={L.col.numel()}, cut rows {L.row_split.rows.numel()}"
+
+
+def shard_applies(S, k):
+    """(layout, k) for each shard of S and of its transposed partition:
+    k applies each way."""
+    return [(sh.layout, k) for T in (S, S.transposed) for sh in T.shards]
+
+
+def sharded_sgcn(smi, cases):
+    """bench.py's SGCN cell with its pair and its fused dual sharded on the
+    mxu tier four ways: per step 3 applies of each operator and 3 of its
+    transpose, one K1 (or a K2 a block) a shard each."""
+    import torch
+    from types import SimpleNamespace
+
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SGCN
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed.sgcn import (
+        prepare_sgcn_inputs, split_signed_edges)
+
+    c = BENCH_SGCN
+    n, dim = c["nodes"], c["dim"]
+    rng = np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    edge_s = np.column_stack([
+        rng.integers(0, n, m), rng.integers(0, n, m),
+        np.concatenate([np.ones(c["e_pos"]), -np.ones(c["e_neg"])])
+    ]).astype(np.int64)
+    init_emb = rng.standard_normal((n, dim)).astype(np.float32)
+    pos, neg = split_signed_edges(edge_s)
+    samples, _ = sgcn_samples(pos, neg, n, SHARDED_SGCN_STEPS,
+                              np.random.default_rng(1))
+    pos_t, neg_t = (torch.from_numpy(a).to(DEV) for a in (pos, neg))
+    mesh = four_shards()
+    runs = {}
+    for form in ("pair", "fused"):
+        _, _, emb, P_pos, P_neg = prepare_sgcn_inputs(
+            n, edge_s, in_dim=dim, init_emb=init_emb, fused=form == "fused",
+            mode="mxu", device=DEV)
+
+        def make():
+            return SGCN(n, in_dim=dim, out_dim=dim, init_emb=emb,
+                        init_emb_grad=True, device=DEV,
+                        generator=torch.Generator().manual_seed(0))
+
+        def loss_of(mo, a, b, i):
+            none, pt, nt = samples[i % len(samples)]
+            return mo.loss(a, b, pos_t, neg_t, none, pt, nt)
+
+        with torch.no_grad():
+            flat = float(loss_of(make(), P_pos, P_neg, 0))
+        t0 = time.perf_counter()
+        if form == "fused":
+            S_pos, S_neg = parallel.shard_dual(P_pos, mesh), None
+            per_step = count_applies(shard_applies(S_pos.sharded, 3))
+        else:
+            S_pos, S_neg = (parallel.shard_propagator(P, mesh)
+                            for P in (P_pos, P_neg))
+            per_step = count_applies(shard_applies(S_pos.sharded, 3)
+                                     + shard_applies(S_neg.sharded, 3))
+        torch.cuda.synchronize()
+        name = f"sharded bench sgcn {form} {SHARDS} shards"
+        log(f"{name}: sharded in {time.perf_counter() - t0:.2f} s; shard "
+            f"layouts {[shard_layout_text(sh.layout) for sh in S_pos.sharded.shards]}")
+        step = iter(range(10 ** 9))
+
+        def loss_fn(mo, a=S_pos, b=S_neg, step=step):
+            return loss_of(mo, a, b, next(step))
+
+        run = train_path(name, loss_fn, make(), SHARDED_SGCN_STEPS,
+                         per_step, smi, m, SHARDED_PROFILE_STEPS)
+        check_first_loss(name, run["losses"][0], flat)
+        runs[name] = run
+        if form == "fused":
+            sh = S_pos.sharded.shards[0]
+            if not sh.layout.blocks:
+                L = sh.layout
+                view = SimpleNamespace(
+                    rowptr=L.rowptr, col=L.col, val_a=sh.val, val_b=sh.val_b,
+                    num_nodes=S_pos.sharded.rows_per_device, num_cols=n,
+                    row_split=L.row_split)
+                for width in (2 * dim, dim):
+                    r = dual_kernel_case(view, width, torch.float32,
+                                         seed=width)
+                    r["shape"] = f"sharded sgcn dual shard 0: {r['shape']}"
+                    r["path"] = name
+                    cases[("sharded sgcn dual shard 0", width)] = r
+                    log_case(f"csr_dual_spmm sharded sgcn dual shard 0 "
+                             f"2F={width} float32", r)
+        del P_pos, P_neg, S_pos, S_neg
+        torch.cuda.empty_cache()
+    return runs
+
+
+def free_port():
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_bsr(smi, cases):
+    """The bsr cell's MagNet on its bsr operators sharded 1 and 4 ways
+    (whole block rows a shard, K5 a shard and apply: 12 a shard and step);
+    the dense and segment tiers on a (2, 2) data x graph mesh; one step
+    through an NCCL process group of world size 1 against the controller's
+    mesh, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        bsr_spmm, launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        distributed)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnet_propagators)
+
+    cfg = BSR_GRAPH
+    n = cfg["nodes"]
+    ei, w, x_np, y_np = slice_graph(n, cfg["avg_deg"], seed=cfg["seed"])
+    e = ei.shape[1]
+    x = torch.from_numpy(x_np).to(DEV)
+    y = torch.from_numpy(y_np).to(DEV)
+    lap = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="bsr",
+                             device=DEV)
+
+    def loss_fn(mo, L):
+        return F.nll_loss(mo(x, x, L), y)
+
+    with torch.no_grad():
+        flat = float(loss_fn(make_model(DEV, seed=0), lap))
+    runs, four = {}, None
+    for label, mesh in meshes():
+        t0 = time.perf_counter()
+        lap_s = parallel.shard_magnet_laplacian(lap, mesh)
+        torch.cuda.synchronize()
+        B = lap_s.re.sharded
+        name = f"sharded bsr {label}"
+        log(f"{name}: {len(B.shards)} shards of {B.rows_per_device} rows, "
+            f"blocks {[b.blocks.shape[0] for b in B.shards]}, pieces "
+            f"{[b.split.pieces.shape[0] for b in B.shards]}; sharded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        run = train_path(name, lambda mo, L=lap_s: loss_fn(mo, L),
+                         make_model(DEV, seed=0), SHARDED_STEPS,
+                         {"bsr_spmm": 12 * mesh.size}, smi, e,
+                         SHARDED_PROFILE_STEPS)
+        check_first_loss(name, run["losses"][0], flat)
+        runs[name] = run
+        four = lap_s
+    b = four.re.sharded.shards[0]
+    r = bsr_kernel_case(b, 32, seed=32)
+    xb = torch.randn(n, 32, device=DEV)
+    r["device_ms"] = back_to_back_ms(lambda: bsr_spmm.bsr_matmul(
+        b.blocks, b.block_rowptr, b.block_cols, xb, b.num_rows, b.split))
+    r["shape"] = f"sharded bsr shard 0: {r['shape']}"
+    r["path"] = f"sharded bsr {SHARDS} shards"
+    cases[("sharded bsr shard 0", 32)] = r
+    log_case("bsr_spmm sharded bsr shard 0 W=32", r)
+
+    # one step through NCCL (world size 1) against the controller's mesh
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        pmesh = parallel.init_process_mesh(SHARDS, device=DEV)
+        if pmesh.process.backend != ("nccl" if DEV == "cuda" else "gloo"):
+            raise AssertionError(f"process mesh on {pmesh.process.backend}")
+        steps = {}
+        for label, mesh in (("controller", four_shards()),
+                            ("NCCL process group", pmesh)):
+            lap_s = parallel.shard_magnet_laplacian(lap, mesh)
+            model = make_model(DEV, seed=0)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = loss_fn(model, lap_s)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = launch_counts()
+            check_launches(launches, {"bsr_spmm": 12 * SHARDS}, 1, label)
+            steps[label] = (loss.detach(), [p.detach().clone()
+                                            for p in model.parameters()])
+            log(f"  one step on the {label} mesh: loss "
+                f"{float(loss.detach()):.8f}, {ms:.3f} ms (first call)")
+        (la, pa), (lb, pb) = steps.values()
+        if not torch.equal(la, lb) or not all(
+                torch.equal(u, v) for u, v in zip(pa, pb)):
+            raise AssertionError("the NCCL process mesh's step differs from "
+                                 "the controller's")
+        log("  NCCL process group (world size 1): loss and parameters equal "
+            "the controller mesh's bit for bit")
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del lap, four
+    torch.cuda.empty_cache()
+
+    # the dense and segment tiers on a (2, 2) data x graph mesh
+    mesh22 = parallel.Mesh((torch.device(DEV, 0),) * 4, shape=(2, 2),
+                           axis_names=("data", "graph"))
+    for tier in ("dense", "segment"):
+        L = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode=tier,
+                               device=DEV)
+        for i in range(mesh22.axis_size("data")):
+            sub = mesh22.submesh(data=i)
+            want = train(make_model(DEV, seed=i), x, y, L, DATA_GRAPH_STEPS)
+            got = train(make_model(DEV, seed=i), x, y,
+                        parallel.shard_magnet_laplacian(L, sub),
+                        DATA_GRAPH_STEPS)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-4,
+                                       atol=1e-5)
+            log(f"  {tier} on data row {i} of the (2, 2) mesh ({sub.size} "
+                f"graph shards): {DATA_GRAPH_STEPS} losses equal the single "
+                f"device's at rtol 1e-4 (first {got[0][0]:.6f}, last "
+                f"{got[0][-1]:.6f}); median "
+                f"{statistics.median(got[2][1:]):.3f} ms/step against "
+                f"{statistics.median(want[2][1:]):.3f}")
+        del L
+        torch.cuda.empty_cache()
+    return runs
+
+
+def sharded_phase(smi):
+    """Phase 13: the sharded paths on one card."""
+    import torch
+
+    cases, runs = {}, {}
+    for name, path in (("snea", sharded_snea), ("sdgnn", sharded_sdgnn),
+                       ("sgcn", sharded_sgcn), ("bsr", sharded_bsr)):
+        t0 = time.perf_counter()
+        runs.update(path(smi, cases))
+        torch.cuda.empty_cache()
+        log(f"  sharded {name}: {time.perf_counter() - t0:.1f} s")
+    return runs, cases
+
+
+def sharded_entries(runs, cases):
+    """The ``kernels`` entries of phase 13, with the launches of the
+    sharded run each case belongs to."""
+    out = []
+    for key, r in cases.items():
+        run = runs[r["path"]]
+        name, source, replaces, library = {
+            "sharded bsr shard 0": ("bsr_spmm", "bsr_spmm.cu",
+                                    "bsr_spmm.py:119", "torch.sparse.mm"),
+            "sharded sgcn dual shard 0": (
+                "csr_dual_spmm", "scatter_csr.cu", "scatter_mxu.py:503",
+                "2x torch.sparse.mm"),
+        }.get(key[0], ("csr_scatter_sum", "scatter_csr.cu",
+                       "scatter_mxu.py:503", "torch.segment_reduce"))
+        out.append({**kernel_entry(name, r, run["launches"][name], source,
+                                   replaces),
+                    "path": r["path"], "launches_per_step":
+                        run["per_step"][name], "library": library})
+    return out
+
+
 def main():
     import torch
 
@@ -3287,7 +3754,7 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-12. the paths ------------------------------------------------
+    # ---- 2-13. the paths ------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
@@ -3298,7 +3765,8 @@ def main():
                         ("signed", signed_phase),
                         ("attention", attention_phase),
                         ("digcl", digcl_phase),
-                        ("captured", captured_phase)):
+                        ("captured", captured_phase),
+                        ("sharded", sharded_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -3313,6 +3781,7 @@ def main():
     att_runs, att_cases = phases["attention"]
     dcl_runs, dcl_cases = phases["digcl"]
     cap_runs = phases["captured"]
+    shd_runs, shd_cases = phases["sharded"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -3421,7 +3890,10 @@ def main():
                  "bsr_spmm.py:119"),
                 ("magnet_node", "csr_dual_spmm_accum",
                  exp_cases[("magnet_node", 128)], "scatter_csr.cu",
-                 "scatter_mxu.py:580"))],
+                 "scatter_mxu.py:580"))]
+        # phase 13: K1 csr_scatter_sum, K1 csr_dual_spmm and K5 on shards of
+        # the sharded paths, with their runs' launches
+        + sharded_entries(shd_runs, shd_cases),
         # K2's own contract and K4: tested, on no path this script drives
         "off_path": [
             # K1 on magnet_node's Laplacian laid out flat: every row cut

@@ -3,7 +3,7 @@
 Counterpart of ``pytorch_geometric_signed_directed_tpu/nn/signed/
 gat_conv.py``: the PyG GATConv inside SiGAT and SDGNN, as gathers and the
 attention aggregate of ``snea_conv`` on an ``AttnGraph`` with a self-loop
-a node built in.
+a node built in, or ``parallel.sharded_attention_apply`` on a sharded one.
 """
 from typing import Optional
 
@@ -49,9 +49,24 @@ class GATConv(nn.Module):
         self.bias = nn.Parameter(zeros((out_dim,)).to(device))
 
     def forward(self, x: torch.Tensor, g: AttnGraph) -> torch.Tensor:
+        """``g``: an ``AttnGraph`` or a ``parallel.ShardedAttnGraph`` (K1
+        a shard, whatever the aggregate)."""
+        from ...parallel.attn_shard import (ShardedAttnGraph,
+                                            sharded_attention_apply)
+
         h = self.linear(x)
         a_src = (h @ self.att_src)[:, 0]
         a_dst = (h @ self.att_dst)[:, 0]
+        if isinstance(g, ShardedAttnGraph):
+            from ...parallel.mesh import shard_input
+
+            hs, a_s, a_d = (shard_input(t, g.mesh) for t in (h, a_src, a_dst))
+
+            def edge_fn(src, dst, ep, valid):
+                return (leaky_relu(a_s[src] + a_d[dst], self.negative_slope),
+                        hs[src])
+
+            return sharded_attention_apply(g, edge_fn) + self.bias
         logits = leaky_relu(a_src[g.src] + a_dst[g.dst], self.negative_slope)
         out = attention_softmax_aggregate(g, logits, h[g.src],
                                           self.aggregate)

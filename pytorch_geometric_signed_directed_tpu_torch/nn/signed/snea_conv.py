@@ -14,6 +14,10 @@ is softmaxed by destination and weights the messages.  Two aggregates:
     (the JAX package's ``"xla"`` backend, which it selects by a module
     global).
 
+Both accept a ``parallel.ShardedAttnGraph`` in place of an ``AttnGraph``:
+each attend then runs ``parallel.sharded_attention_apply`` (K1 a shard,
+whatever the aggregate), and the pair is two attends.
+
 Faithful to the reference's message function: the aggregated message is
 alpha * x_i, the *destination* feature selected per edge type, not the
 source feature.
@@ -159,7 +163,26 @@ def _select(sel, table_b, table_u, index):
 
 def _attend(x1, x2, g: AttnGraph, alpha: nn.Linear, aggregate: str):
     """One attention propagate of x1 (balanced edges) and x2 (unbalanced
-    edges): [N, F]."""
+    edges): [N, F].  ``g`` may be a ``parallel.ShardedAttnGraph``."""
+    from ...parallel.attn_shard import (ShardedAttnGraph,
+                                        sharded_attention_apply)
+
+    if isinstance(g, ShardedAttnGraph):
+        from ...parallel.mesh import shard_input
+
+        x1s = shard_input(x1, g.mesh)
+        x2s = x1s if x2 is x1 else shard_input(x2, g.mesh)
+        w = shard_input(alpha.weight, g.mesh)
+        b = None if alpha.bias is None else shard_input(alpha.bias, g.mesh)
+
+        def edge_fn(src, dst, ep, valid):
+            sel = (ep == 1)[:, None]
+            h_j = _select(sel, x1s, x2s, src)
+            h_i = _select(sel, x1s, x2s, dst)
+            edge_h = torch.cat([h_j, h_i], dim=-1)
+            return torch.tanh(nn.functional.linear(edge_h, w, b))[:, 0], h_i
+
+        return sharded_attention_apply(g, edge_fn)
     sel = (g.edge_p == 1)[:, None]
     h_j = _select(sel, x1, x2, g.src)
     h_i = _select(sel, x1, x2, g.dst)
@@ -206,7 +229,8 @@ class SNEAConv(nn.Module):
     selecting the balanced or unbalanced message.  Returns [balanced |
     unbalanced], each ``out_dim`` wide.  ``aggregate``: ``"mxu"`` (K1) or
     ``"segment"``; the first takes the fused pair path where
-    ``4 out_dim <= PAIR_FUSION_MAX_LANES``."""
+    ``4 out_dim <= PAIR_FUSION_MAX_LANES`` and g_cat is a flat
+    ``AttnGraph`` (a sharded one takes two attends)."""
 
     def __init__(self, in_dim: int, out_dim: int, first_aggr: bool,
                  use_bias: bool = True, aggregate: str = "mxu", *,
@@ -238,7 +262,7 @@ class SNEAConv(nn.Module):
             out_u = _attend(h_u, h_u, g_neg, self.alpha_u, agg)
         else:
             h_b, h_u = x[..., :self.in_dim], x[..., self.in_dim:]
-            if self.fused:
+            if self.fused and isinstance(g_cat, AttnGraph):
                 out_b, out_u = _attend_pair(
                     self.lin_b(h_b), self.lin_b(h_u), self.lin_u(h_u),
                     self.lin_u(h_b), g_cat, self.alpha_b, self.alpha_u)

@@ -17,9 +17,9 @@ mode strings are the JAX package's, so both take the same arguments:
                    (ops/cuda/bsr_spmm.cu, the port of the TPU kernel K5).
   * ``auto``     — ``dense`` up to 8192 nodes, else ``mxu``.
 
-``mxu_sharded`` operators come from parallel/ (``shard_propagator``,
-``shard_dual``): the kernel tier over an owner-computes row partition of
-a device mesh.
+Operators sharded by parallel/ (``shard_propagator``, ``shard_dual``)
+carry their shards in ``sharded``: the kernel tier becomes
+``mxu_sharded``, the dense, segment and bsr tiers keep their modes.
 
 Every tier is differentiable; on ``mxu`` the backward is the forward of
 the transposed operator, built at preparation time.
@@ -181,11 +181,24 @@ def _csr_apply(A: CSR, x: torch.Tensor) -> torch.Tensor:
 # Single operators
 
 
+def _dense_apply(dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if dense.dtype == torch.bfloat16:
+        # a bf16 operator (``dense_dtype``): x rounds to bf16 and the
+        # product of the bf16 operands is taken and returned in float32
+        # (each bf16 product is exact in float32), as the JAX tier's
+        # preferred_element_type=float32 does
+        xb = x.to(torch.bfloat16).to(torch.float32)
+        return torch.matmul(dense.to(torch.float32), xb).to(x.dtype)
+    return torch.matmul(dense, x)
+
+
 @dataclass(frozen=True)
 class Propagator:
     """A frozen linear operator ``x -> A @ x`` with a fixed tier.
-    ``sharded`` (a parallel.mxu_shard.ShardedMXU) holds the operator of
-    the ``mxu_sharded`` tier."""
+    ``sharded`` holds the shards of an operator sharded across a mesh
+    (parallel/): a parallel.mxu_shard.ShardedMXU on ``mxu_sharded``, a
+    parallel.sharded.ShardedDense, ShardedSegment or ShardedBSR on the
+    dense, segment and bsr tiers."""
 
     coo: Optional[COO]
     dense: Optional[torch.Tensor]
@@ -196,33 +209,27 @@ class Propagator:
 
     @property
     def num_nodes(self) -> int:
+        if self.sharded is not None:
+            return self.sharded.num_rows
         if self.mode == "dense":
             return self.dense.shape[0]
         if self.mode == "mxu":
             return self.csr.num_rows
-        if self.mode == "mxu_sharded":
-            return self.sharded.num_rows
         if self.mode == "bsr":
             return self.bsr.num_rows
         return self.coo.num_nodes
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mode == "dense":
-            if self.dense.dtype == torch.bfloat16:
-                # a bf16 operator (``dense_dtype``): x rounds to bf16 and
-                # the product of the bf16 operands is taken and returned
-                # in float32 (each bf16 product is exact in float32), as
-                # the JAX tier's preferred_element_type=float32 does
-                xb = x.to(torch.bfloat16).to(torch.float32)
-                return torch.matmul(self.dense.to(torch.float32),
-                                    xb).to(x.dtype)
-            return torch.matmul(self.dense, x)
-        if self.mode == "mxu":
-            return _CsrSpmm.apply(x, self.csr)
         if self.mode == "mxu_sharded":
             from ..parallel.mxu_shard import sharded_mxu_spmm
 
             return sharded_mxu_spmm(self.sharded, x)
+        if self.sharded is not None:
+            return self.sharded.apply(x)
+        if self.mode == "dense":
+            return _dense_apply(self.dense, x)
+        if self.mode == "mxu":
+            return _CsrSpmm.apply(x, self.csr)
         if self.mode == "bsr":
             return bsr_spmm(self.bsr, x)
         return spmm_coo(self.coo, x)
@@ -286,8 +293,9 @@ class DualPropagator:
     int32 and its plan ``row_split`` (flat) or ``blocks`` (column-split or
     streamed, as in CSR).
     ``segment``: int64 ``row`` and ``col`` sorted by (row, col).
-    ``val_a``/``val_b`` are float32 in the same order.  ``mxu_sharded``:
-    ``sharded`` (a parallel.mxu_shard.ShardedMXU) holds both.
+    ``val_a``/``val_b`` are float32 in the same order.  A pair sharded
+    across a mesh holds both in ``sharded``: a parallel.mxu_shard.ShardedMXU
+    (``mxu_sharded``) or a parallel.sharded.ShardedSegment (``segment``).
     ``transposed`` is the pair's transpose, whose forward is this pair's
     backward."""
 
@@ -393,12 +401,12 @@ def _dual_forward_stacked(D: DualPropagator, x: torch.Tensor) -> torch.Tensor:
             f"dual_spmm_stacked needs an even lane-stacked width, got "
             f"{x.shape[1]}")
     fa = x.shape[1] // 2
+    if D.sharded is not None:
+        from ..parallel.sharded import sharded_dual_forward
+
+        return sharded_dual_forward(D.sharded, x)
     if D.mode == "mxu":
         return _layout_apply(D, D.val_a, D.val_b, D.num_nodes, x, fa)
-    if D.mode == "mxu_sharded":
-        from ..parallel.mxu_shard import sharded_forward
-
-        return sharded_forward(D.sharded, x)
     lane = torch.arange(2 * fa, device=x.device) < fa
     msgs = x[D.col] * torch.where(lane[None, :], D.val_a[:, None],
                                   D.val_b[:, None])
@@ -451,6 +459,9 @@ def dual_spmm_stacked_trainable(D: DualPropagator,
     half (an SDDMM): the generic path for operator values that carry
     gradients, such as ``template_dual``'s.  Flat ``mxu`` layouts and the
     segment tier only."""
+    if D.sharded is not None:
+        raise ValueError("trainable operator values need an unsharded "
+                         "pair; shard a MagneticTemplate instead")
     if D.hot_ids is not None or D.streamed:
         raise ValueError("trainable operator values need a flat layout or "
                          "the segment tier; use template_dual_apply on "

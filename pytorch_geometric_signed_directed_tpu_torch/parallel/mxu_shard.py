@@ -9,7 +9,9 @@ kernel of each shard on its device against the replicated input (K1, or K2
 on a split shard), then ``all_gather`` puts the row blocks back together;
 the backward is the same on the transposed partition.  The TPU's
 window/chunk geometry and its stacking of per-device plans have no
-counterpart: each shard is a plain CSR.
+counterpart: each shard is a plain CSR.  On a mesh that spans processes
+(parallel/distributed.py) a process builds and runs only its own shards,
+and the gather and sum go through ``torch.distributed``.
 
 Trainable-q templates shard the same way, carrying (a_norm, theta) in the
 value slots; their backward runs the fused scatter + SDDMM kernel (K3) per
@@ -49,7 +51,9 @@ class MxuShard:
 
 @dataclass(frozen=True)
 class ShardedMXU:
-    """An operator (or a fused pair) partitioned by output rows."""
+    """An operator (or a fused pair) partitioned by output rows:
+    ``shards`` are this process's (``mesh.local``), every shard on a
+    controller's mesh."""
 
     shards: Tuple[MxuShard, ...]
     num_rows: int
@@ -60,33 +64,36 @@ class ShardedMXU:
 
     @property
     def n_devices(self) -> int:
-        return len(self.shards)
+        return self.mesh.size
 
     @property
     def hot_ids(self) -> Tuple[Optional[torch.Tensor], ...]:
-        """Each shard's hot table (None where the shard is unsplit)."""
+        """Each local shard's hot table (None where the shard is
+        unsplit)."""
         return tuple(s.layout.hot_ids for s in self.shards)
 
 
 def build_sharded_mxu(row, col, val, num_rows: int, num_cols: int,
-                      mesh: Mesh, val_b=None, with_transpose: bool = True,
+                      mesh: Mesh, axis: str = "graph", val_b=None,
+                      with_transpose: bool = True,
                       col_split: bool = True) -> ShardedMXU:
-    """Host-side builder from valid COO arrays (numpy).  ``col_split=False``
-    keeps every shard unsplit (trainable-value layouts, whose fused
-    backward runs on flat CSRs)."""
+    """Host-side builder from valid COO arrays (numpy), sharded across
+    ``axis``.  ``col_split=False`` keeps every shard unsplit
+    (trainable-value layouts, whose fused backward runs on flat CSRs)."""
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
     val = np.asarray(val, np.float32)
     val_b = None if val_b is None else np.asarray(val_b, np.float32)
     t = None
     if with_transpose:
-        t = build_sharded_mxu(col, row, val, num_cols, num_rows, mesh,
+        t = build_sharded_mxu(col, row, val, num_cols, num_rows, mesh, axis,
                               val_b=val_b, with_transpose=False,
                               col_split=col_split)
-    rows_per = -(-max(num_rows, 1) // mesh.size)
+    rows_per = -(-max(num_rows, 1) // mesh.graph_axis(axis))
     owner = row // rows_per
     shards = []
-    for d, dev in enumerate(mesh.devices):
+    for d in mesh.local:
+        dev = mesh.devices[d]
         m = owner == d
         L, p = build_layout(row[m] - d * rows_per, col[m], rows_per,
                             num_cols, dev, col_split=col_split, stream=False)
@@ -107,7 +114,7 @@ def sharded_forward(S: ShardedMXU, x: torch.Tensor) -> torch.Tensor:
     controller."""
     fa = x.shape[1] if S.shards[0].val_b is None else x.shape[1] // 2
     outs = []
-    for sh, dev in zip(S.shards, S.mesh.devices):
+    for sh, dev in zip(S.shards, S.mesh.local_devices):
         vb = sh.val if sh.val_b is None else sh.val_b
         outs.append(_layout_apply(sh.layout, sh.val, vb, S.rows_per_device,
                                   x.to(dev), fa))
@@ -180,7 +187,7 @@ def _coo_from_dual(d) -> tuple:
 # Sharded trainable-q templates
 
 
-def build_sharded_template(tmpl, mesh: Mesh):
+def build_sharded_template(tmpl, mesh: Mesh, axis: str = "graph"):
     """Re-partition a built mxu MagneticTemplate across the mesh: a
     MagneticTemplate of mode "mxu_sharded" whose ``sharded`` carries
     (a_norm, theta) in its (val, val_b) slots, every shard unsplit.  Apply
@@ -192,7 +199,7 @@ def build_sharded_template(tmpl, mesh: Mesh):
     a = tmpl.a_norm.cpu().numpy()[valid]
     th = tmpl.theta.cpu().numpy()[valid]
     S = build_sharded_mxu(rows, col, a, tmpl.num_nodes, tmpl.num_nodes, mesh,
-                          val_b=th, col_split=False)
+                          axis, val_b=th, col_split=False)
     return MagneticTemplate(a_norm=None, theta=None, row=None, col=None,
                             num_nodes=tmpl.num_nodes, mode="mxu_sharded",
                             sharded=S)
@@ -201,7 +208,7 @@ def build_sharded_template(tmpl, mesh: Mesh):
 def _sharded_template_forward(S: ShardedMXU, q, x: torch.Tensor):
     fa = x.shape[1] // 2
     outs = []
-    for sh, dev in zip(S.shards, S.mesh.devices):
+    for sh, dev in zip(S.shards, S.mesh.local_devices):
         va, vb, _, _ = _template_terms(sh.val, sh.val_b, q.to(dev))
         outs.append(_layout_apply(sh.layout, va, vb, S.rows_per_device,
                                   x.to(dev), fa))
@@ -227,7 +234,8 @@ class _ShardedTemplateApply(torch.autograd.Function):
         fa = x.shape[1] // 2
         x_pad = F.pad(x.float(), (0, 0, 0, rp * T.n_devices - x.shape[0]))
         outs, partials = [], []
-        for d, (sh, dev) in enumerate(zip(T.shards, T.mesh.devices)):
+        for d, sh in zip(T.mesh.local, T.shards):
+            dev = T.mesh.devices[d]
             va, vb, wa, wb = _template_terms(sh.val, sh.val_b, q.to(dev))
             out, acc = dual_scatter_sddmm(
                 sh.layout, g.to(device=dev, dtype=mdt).contiguous(), va, vb,

@@ -343,7 +343,9 @@ class MagneticTemplate:
     the transposed layout's order (cos is even and sin odd in theta, so the
     formulas give the transposed operator's values unchanged).
     ``mxu_sharded`` (parallel.build_sharded_template) holds a
-    parallel.mxu_shard.ShardedMXU in ``sharded``."""
+    parallel.mxu_shard.ShardedMXU in ``sharded``; a dense or segment
+    template sharded by parallel.shard_magnet_laplacian keeps its mode and
+    holds a parallel.sharded.ShardedDense or ShardedSegment there."""
 
     a_norm: Optional[torch.Tensor]
     theta: Optional[torch.Tensor]
@@ -431,19 +433,27 @@ def magnetic_template(
         mode="segment")
 
 
-def _template_values(tmpl: MagneticTemplate, q):
-    ang = 2.0 * math.pi * q * tmpl.theta
-    re_vals = -tmpl.a_norm * torch.cos(ang)
+def _edge_values(a_norm, theta, q):
+    ang = 2.0 * math.pi * q * theta
+    re_vals = -a_norm * torch.cos(ang)
     # plus: L_im's edge values are -a_norm*sin, and the conv applies L^T
     # (antisymmetric imaginary part -> negate; see magnet_operator_arrays)
-    im_vals = tmpl.a_norm * torch.sin(ang)
+    im_vals = a_norm * torch.sin(ang)
     return re_vals, im_vals
+
+
+def _template_values(tmpl: MagneticTemplate, q):
+    return _edge_values(tmpl.a_norm, tmpl.theta, q)
 
 
 def template_propagators(tmpl: MagneticTemplate,
                          q) -> Tuple[Propagator, Propagator]:
-    """(L_hat_re, L_hat_im) for phase ``q`` on a dense or segment template;
-    the values carry q's gradient through autograd."""
+    """(L_hat_re, L_hat_im) for phase ``q`` on a dense or segment template
+    (sharded or not); the values carry q's gradient through autograd."""
+    if tmpl.sharded is not None and tmpl.mode in ("dense", "segment"):
+        from ..parallel.sharded import sharded_template_propagators
+
+        return sharded_template_propagators(tmpl, q)
     re_vals, im_vals = _template_values(tmpl, q)
     if tmpl.mode == "dense":
         return (Propagator(coo=None, dense=re_vals, mode="dense"),

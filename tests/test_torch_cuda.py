@@ -889,3 +889,120 @@ def test_wrapper_refuses_to_plan_under_capture_on_card(card, entry):
     with pytest.raises(RuntimeError, match="no plan"):
         with torch.cuda.graph(graph):
             call()
+
+
+# --- the sharded paths: four shards on one card ------------------------------
+
+def four_shards(card):
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+
+    return parallel.Mesh((card,) * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [17, 34])
+def test_scatter_sum_per_shard_on_card(card, width):
+    """K1 ``csr_scatter_sum`` on each shard's CSR of a four-shard mesh
+    (N=1000: rows_per 250; destinations below 600, so shard 3 has no
+    edge and its rowptr is all zeros) against the plain version, the
+    same bits twice; then the sharded apply against the flat one."""
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        snea_conv)
+
+    rng = np.random.default_rng(width)
+    n = 1000
+    ei = np.vstack([rng.integers(0, n, 20000), rng.integers(0, 600, 20000)])
+    ei[1, :3000] = 7                                    # a row to cut
+    g = snea_conv.build_attention_graph([(ei, 0, False)], n, device=card)
+    sg = parallel.shard_attention_graph(g, four_shards(card))
+    sizes = [sh.src.numel() for sh in sg.shards]
+    assert sizes[3] == 0 and min(sizes[:3]) > 0
+    for sh in sg.shards:
+        p = sh.plan
+        msgs = torch.randn(p.row_ids.numel(), width, device=card)
+        before = scatter_csr.LAUNCHES["csr_scatter_sum"]
+        got = scatter_csr.csr_scatter_sum(p.rowptr, msgs, p.split)
+        assert scatter_csr.LAUNCHES["csr_scatter_sum"] == before + 1
+        torch.testing.assert_close(
+            got, scatter_csr.csr_scatter_sum_plain(p.rowptr, msgs),
+            **F32_TOL)
+        assert torch.equal(got, scatter_csr.csr_scatter_sum(
+            p.rowptr, msgs, p.split))
+        if not msgs.shape[0]:
+            assert got.shape == (250, width) and not got.any()
+    x = torch.randn(n, width, device=card)
+    w = torch.randn(width, device=card)
+    flat = snea_conv.attention_softmax_aggregate(g, x[g.src] @ w, x[g.src])
+    before = scatter_csr.LAUNCHES["csr_scatter_sum"]
+    out = parallel.sharded_attention_apply(
+        sg, lambda s, d, ep, valid: (x[s] @ w, x[s]))
+    assert scatter_csr.LAUNCHES["csr_scatter_sum"] == before + 4
+    torch.testing.assert_close(out, flat, **F32_TOL)
+    assert not out[750:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 32])
+def test_bsr_per_shard_on_card(card, width):
+    """K5 on each shard of a four-shard bsr operator (N=1000: 8 block rows,
+    2 a shard, with their own plans) against the plain version, the same
+    bits twice; the sharded apply and its backward (K5 on the transposed
+    partition) against the flat operator."""
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+
+    rng = np.random.default_rng(width)
+    n = 1000
+    ei = np.vstack([rng.integers(0, n, 8000), rng.integers(0, 700, 8000)])
+    P = spmm.make_propagator(ei[0], ei[1], None, n, mode="bsr", device=card)
+    S = parallel.shard_propagator(P, four_shards(card))
+    assert S.mode == "bsr"
+    x = torch.randn(n, width, device=card)
+    for b in S.sharded.shards + S.sharded.transposed.shards:
+        got = bsr_spmm.bsr_matmul(b.blocks, b.block_rowptr, b.block_cols, x,
+                                  b.num_rows, b.split)
+        torch.testing.assert_close(
+            got, bsr_spmm.bsr_matmul_plain(b.blocks, b.block_rowptr,
+                                           b.block_cols, x, b.num_rows),
+            **F32_TOL)
+        assert torch.equal(got, bsr_spmm.bsr_matmul(
+            b.blocks, b.block_rowptr, b.block_cols, x, b.num_rows, b.split))
+    xs = x.clone().requires_grad_(True)
+    before = bsr_spmm.LAUNCHES["bsr_spmm"]
+    out = S(xs)
+    (out ** 2).sum().backward()
+    assert bsr_spmm.LAUNCHES["bsr_spmm"] == before + 8
+    xf = x.clone().requires_grad_(True)
+    ref = P(xf)
+    (ref ** 2).sum().backward()
+    torch.testing.assert_close(out, ref, **F32_TOL)
+    torch.testing.assert_close(xs.grad, xf.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_snea_forward_on_card(card):
+    """SNEA on attention graphs sharded four ways on one card: the forward
+    against the flat one (each shard shifts by its own largest logit, so
+    they agree to rounding), and 4 ``csr_scatter_sum`` a shard and
+    forward (two attends in each layer: no fused pair on a sharded
+    g_cat)."""
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SNEA
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        snea_graphs)
+
+    rng = np.random.default_rng(0)
+    n = 2000
+    pos = np.vstack([rng.integers(0, n, 20000), rng.integers(0, n, 20000)])
+    neg = np.vstack([rng.integers(0, n, 5000), rng.integers(0, n, 5000)])
+    emb = rng.standard_normal((n, 32)).astype(np.float32)
+    graphs = snea_graphs(pos, neg, n, device=card)
+    sgraphs = parallel.shard_attention_graphs(graphs, four_shards(card))
+    model = SNEA(n, in_dim=32, out_dim=32, init_emb=emb, device=card,
+                 generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        flat = model(graphs)
+        before = scatter_csr.LAUNCHES["csr_scatter_sum"]
+        out = model(sgraphs)
+        assert scatter_csr.LAUNCHES["csr_scatter_sum"] == before + 4 * 4
+    torch.testing.assert_close(out, flat, rtol=1e-4, atol=1e-5)

@@ -77,8 +77,14 @@ REAL_DATA_MODULES = (
     "experiments/run_link_sign_direction_tasks.py")
 
 
+# the multi-device layer
+PARALLEL_MODULES = (
+    "parallel/mesh.py", "parallel/distributed.py", "parallel/mxu_shard.py",
+    "parallel/sharded.py", "parallel/edge_spmm.py", "parallel/attn_shard.py")
+
+
 @pytest.mark.parametrize("module", SIGNED_MODULES + ATTENTION_MODULES
-                         + REAL_DATA_MODULES)
+                         + REAL_DATA_MODULES + PARALLEL_MODULES)
 def test_signed_modules_import_nothing_forbidden(module):
     path = PORT / module
     assert path.is_file()
@@ -283,6 +289,8 @@ def _entry_points():
         "magnetic_template": lambda **kw: magnetic_template(ei, **kw),
         "make_mesh": lambda **kw: make_mesh(**kw),
         "local_mesh": lambda **kw: local_mesh(**kw),
+        "make_mesh(shape=(2, 2))": lambda **kw: make_mesh(
+            shape=(2, 2), axis_names=("data", "graph"), **kw),
         "make_propagator": lambda **kw: make_propagator(ei[0], ei[1], **kw),
         "dual_propagator": lambda **kw: dual_propagator(
             ei[0], ei[1], one, one, mode="segment", **kw),
