@@ -144,9 +144,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 12. Captured training: ``train.scan_node_training``'s epoch (a training
    step and an evaluation forward with the best-validation selection,
    ``train.SplitRun``) captured as a CUDA graph and replayed, on
-   magnet_mxu (K1; 2 splits, 50 epochs), bsr (K5; 2 splits, 50 epochs)
-   and magnet_node's streamed operator at N=9,000 (K2; 1 split, 30
-   epochs), by the reference recipe of scripts/reference_protocol_
+   magnet_mxu (K1; 2 splits, 50 epochs), bsr (K5; 2 splits, 50 epochs),
+   magnet_node's streamed operator at N=9,000 (K2; 1 split, 30
+   epochs) and trainable-q MagNet on the magnet_mxu graph's template
+   (2 splits, 50 epochs each): flat (K1's ``csr_pair_spmm`` forward, K1
+   dx) and sharded on ``local_mesh()`` (K1 a shard forward, K3
+   ``csr_dual_sddmm`` a shard backward, so K3 runs inside the graph), by
+   the reference recipe of scripts/reference_protocol_
    magnet.py (Adam at lr 1e-2, coupled L2 5e-4) on random 60/20/20
    masks.  Against an eager loop of the same epochs from the same init,
    masks and optimizer, whose first epoch runs with every host sync an
@@ -178,6 +182,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    for bit, and the dense and segment tiers on a (2, 2) data x graph
    mesh: two trainings from two seeds of 10 steps, each equal to its own
    single-device run at rtol 1e-4 / atol 1e-5.
+14. DIGRAC at WikiTalk scale: ``main`` of scripts/giant_digrac_torch.py
+   (the port's giant_digrac: the giant graph, degree features, K=5,
+   hidden 32, hop 2, the JAX script's ``Prob_Imbalance_Loss(5)``, bf16
+   messages, 30 Adam steps and 10 traced), with the four single
+   operators and then with the fused duals; every operator is
+   column-split (all but A and Aᵀ of the pair, 7.2M nonzeros, also
+   streamed), so every apply is K2, at W=32 and 5 (pair)
+   and 2F=64 and 2K=10 (fused).  Each loss must fall, each step must
+   launch the K2 calls the layouts imply, and the first losses of the two
+   forms, taken again with f32 messages from the same weights, must agree
+   at 1e-5.  Holds K2 on block 0 of P_s (W=32), of the walk dual (2F=64),
+   of P_A (W=5) and of the A dual (2K=10) against its plain version, f32
+   and bf16, timed beside its bound and one (or two) cuSPARSE ``addmm``.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -190,6 +207,7 @@ limit, one JSON line of kernel measurements, and
 {"ok": true, "device": {...}}.
 """
 import contextlib
+import importlib.util
 import json
 import os
 import socket
@@ -276,7 +294,20 @@ REAL_RUNS = (
 # magnet_mxu, bsr and magnet_node's streamed operator (splits, epochs), by
 # the JAX reference recipe of scripts/reference_protocol_magnet.py: Adam
 # at lr 1e-2 with coupled L2 5e-4, dropout off
-CAPTURED = (("magnet_mxu", 2, 50), ("bsr", 2, 50), ("magnet_node", 1, 30))
+CAPTURED = (("magnet_mxu", 2, 50), ("bsr", 2, 50), ("magnet_node", 1, 30),
+            ("trainable_q_flat", 2, 50), ("trainable_q_sharded", 2, 50))
+# trainable-q MagNet (K=2, 2 layers) on the magnet_mxu graph's template:
+# wrapper calls of a training step and of an evaluation forward.  Flat:
+# the pair forward is one csr_pair_spmm an apply (2F=4 in layer 1, 2F=64
+# in layer 2, two each); the backward's dx is one csr_dual_spmm an apply
+# whose input needs a gradient (layer 1's second, both of layer 2); dq
+# needs no kernel.  Sharded: one csr_dual_spmm a shard forward and one
+# csr_dual_sddmm a shard backward an apply (K3 gives dx and dq together,
+# so layer 1's first apply runs it too)
+TRAINABLE_Q_STEP = {"flat": {"csr_pair_spmm": 4, "csr_dual_spmm": 3},
+                    "sharded": {"csr_dual_spmm": 4, "csr_dual_sddmm": 4}}
+TRAINABLE_Q_EVAL = {"flat": {"csr_pair_spmm": 4},
+                    "sharded": {"csr_dual_spmm": 4}}
 CAPTURED_LR, CAPTURED_WD = 1e-2, 5e-4
 # phase 13: the sharded paths, each on the one-card mesh local_mesh() and
 # on four shards of the one card (Mesh((cuda:0,) * 4)), at the bench cells'
@@ -296,6 +327,14 @@ SHARDED_PROFILE_STEPS = 3
 # sharded first losses against the flat ones: each shard shifts its
 # softmax by its own largest logit, and sums run in other orders
 SHARDED_TOL = 1e-4
+# phase 14: scripts/giant_digrac_torch.py's main on the giant graph (its
+# defaults), pair then fused, 30 steps; K2 is held on block 0 of these
+# operators at these widths (W of a single operator, 2F of a dual): the
+# walk at hidden 32 and its dual at 64, the imbalance volumes at K=5 and
+# their dual at 2K=10
+GIANT_DIGRAC = dict(k=5, hop=2, hidden=32, seed=0)
+GIANT_DIGRAC_CASES = {"pair": (("P_s", 32), ("P_A", 5)),
+                      "fused": (("walk dual", 64), ("A dual", 10))}
 # steps traced by torch.profiler for each phase-8, -9, -10 and -12 path's
 # device time
 PROFILE_STEPS = 10
@@ -374,24 +413,23 @@ def slice_graph(n, avg_deg, seed):
     return edge_index, w, (x / max(x.max(), 1.0)).astype(np.float32), labels
 
 
+def giant_digrac_script():
+    """scripts/giant_digrac_torch.py as a module, loaded once."""
+    name = "giant_digrac_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "scripts", name + ".py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules[name] = module
+    return sys.modules[name]
+
+
 def powerlaw_digraph(n, e, alpha, seed):
-    """The giant bench's graph generator, copied from
-    scripts/bench_giant.py (bit-equal for the same seed): Zipf(alpha)
-    endpoints, self-loops dropped, node ids randomly relabelled."""
-    rng = np.random.default_rng(seed)
-    w = (np.arange(1, n + 1, dtype=np.float64)) ** -alpha
-    cdf = np.cumsum(w)
-    cdf /= cdf[-1]
-
-    def zipf_ids(k):
-        return np.searchsorted(cdf, rng.random(k)).astype(np.int64)
-
-    row, col = zipf_ids(e), zipf_ids(e)
-    keep = row != col
-    row, col = row[keep], col[keep]
-    # random node relabeling: hubs land at arbitrary ids
-    relabel = rng.permutation(n)
-    return relabel[row], relabel[col]
+    """The giant bench's graph generator: scripts/giant_digrac_torch.py's
+    copy of scripts/bench_giant.py's (bit-equal for the same seed)."""
+    return giant_digrac_script().powerlaw_digraph(n, e, alpha, seed)
 
 
 def make_model(device, seed=0, trainable_q=False):
@@ -698,19 +736,6 @@ def magnet_mxu_phase(smi):
 
 # ---------------------------------------------------------------------------
 # giant: K2 on the column-split and streamed layouts
-
-
-def row_lengths(d):
-    """Edges of each row of one direction of a kernel-tier dual."""
-    import torch
-
-    if not d.blocks:
-        return (d.rowptr[1:] - d.rowptr[:-1]).long()
-    deg = torch.zeros(d.num_nodes, dtype=torch.long, device=d.col.device)
-    for b in d.blocks:
-        rows = b.rowptr.numel() - 1
-        deg[b.row0:b.row0 + rows] += (b.rowptr[1:] - b.rowptr[:-1]).long()
-    return deg
 
 
 def per_apply(d):
@@ -1091,7 +1116,7 @@ def giant_phase(smi):
                                  f"column-split")
         if not d.streamed or len(d.blocks) < 2:
             raise AssertionError(f"giant {name} direction is not streamed")
-        lengths = row_lengths(d)
+        lengths = giant_digrac_script().row_lengths(d)
         largest[name] = int(lengths.max())
         hot_edges = d.blocks[d.hot_blocks - 1].e1
         log(f"giant {name}: {len(d.blocks)} blocks ({d.hot_blocks} hot, "
@@ -1716,16 +1741,8 @@ def trainable_q_phase(smi, frozen_ms):
     x = torch.from_numpy(x_np).to(DEV)
     y = torch.from_numpy(y_np).to(DEV)
     runs = {}
-    # per step, flat: the pair forward is one csr_pair_spmm per apply
-    # (2F=4 in layer 1, 2F=64 in layer 2, two each); the backward's dx is
-    # one csr_dual_spmm per apply whose input needs a gradient (layer 1's
-    # second, 2F=4, and both of layer 2, 2F=64); dq needs no kernel.
-    # sharded: one csr_dual_spmm forward and one csr_dual_sddmm backward
-    # per apply (K3 gives dx and dq together, so layer 1's first runs it
-    # too).
-    for name, lap, expected in (
-            ("flat", tmpl, {"csr_pair_spmm": 4, "csr_dual_spmm": 3}),
-            ("sharded", tmpl_s, {"csr_dual_spmm": 4, "csr_dual_sddmm": 4})):
+    for name, lap in (("flat", tmpl), ("sharded", tmpl_s)):
+        expected = TRAINABLE_Q_STEP[name]
         model = make_model(DEV, seed=0, trainable_q=True)
         losses, launches, step_ms, wall = train(model, x, y, lap, STEPS)
         check_launches(launches, expected, STEPS, f"trainable_q {name}")
@@ -1947,7 +1964,7 @@ def experiment_phase(smi):
             # every row (~2,560 entries) is cut
             F = dual_with_knobs(inputs.arrays, D.num_nodes,
                                 STREAM_THRESHOLD_EDGES=D.col.numel() + 1)
-            rows = int((row_lengths(F) > 0).sum())
+            rows = int((giant_digrac_script().row_lengths(F) > 0).sum())
             cut = F.row_split.rows.numel()
             if F.blocks or cut != rows:
                 raise AssertionError(f"magnet_node flat: {cut} of {rows} "
@@ -1994,34 +2011,6 @@ def csr_of(P):
     return P.csr
 
 
-def traced_device_ms(name, step, steps):
-    """Traces ``steps`` calls of ``step`` with torch.profiler: the device
-    ms a call, the kernels a call, and the five kernels that take the most
-    device time as (ms a call, name)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    # device work only: user annotations also appear on the device
-    # timeline and overlap their kernels
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        raise AssertionError(f"{name}: the trace holds no device kernels")
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (sum(by_name.values()) / 1e3 / steps, len(kernels) / steps,
-            [(t / 1e3 / steps, n) for n, t in top])
-
-
 def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
                    batch=()):
     """Traces ``steps`` more steps with torch.profiler (after 2 untraced),
@@ -2030,8 +2019,8 @@ def device_profile(name, trainer, state, ms_step, steps=PROFILE_STEPS,
     take the most device time."""
     for _ in range(2):
         trainer.step_async(state, *batch)
-    device_ms, per_step, top = traced_device_ms(
-        name, lambda: trainer.step_async(state, *batch), steps)
+    device_ms, per_step, top = giant_digrac_script().traced_device_ms(
+        lambda: trainer.step_async(state, *batch), steps)
     log(f"  device: {device_ms:.4f} ms a step, {per_step:.1f} "
         f"kernels; idle share {1 - device_ms / ms_step:.3f} of a "
         f"{ms_step:.3f} ms step; most: " + "; ".join(
@@ -3115,17 +3104,53 @@ def random_masks(n, splits, seed):
     return masks
 
 
+def trainable_q_cell(form):
+    """The phase-12 cell of trainable-q MagNet on the magnet_mxu graph's
+    template, ``form`` "flat" or "sharded" (on ``local_mesh()``): as
+    ``captured_cell`` returns it."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        local_mesh, shard_magnet_laplacian)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnetic_template)
+
+    ei, w, x_np, y_np = slice_graph(N, 30, seed=0)
+    tmpl = magnetic_template(ei, w, num_nodes=N, mode="auto", device=DEV)
+    if tmpl.mode != "mxu" or tmpl.blocks:
+        raise AssertionError("mode='auto' did not pick a flat mxu template")
+    text = f"template {layout_text(tmpl)}"
+    if form == "sharded":
+        tmpl = shard_magnet_laplacian(tmpl, local_mesh(DEV))
+        if tmpl.mode != "mxu_sharded" or tmpl.sharded.n_devices != 1:
+            raise AssertionError("local_mesh() did not shard onto one card")
+        text = f"one-card sharded {text}"
+    x = torch.from_numpy(x_np).to(DEV)
+    y = torch.from_numpy(y_np).to(DEV)
+    step, ev = TRAINABLE_Q_STEP[form], TRAINABLE_Q_EVAL[form]
+    per_epoch = {k: step.get(k, 0) + ev.get(k, 0) for k in {*step, *ev}}
+
+    def apply_fn(model, training, generator):
+        return model(x, x, tmpl, training, generator)
+
+    def init(s):
+        return make_model(DEV, seed=s, trainable_q=True)
+
+    return apply_fn, init, y, N, ei.shape[1], per_epoch, text
+
+
 def captured_cell(name):
     """The apply function, ``init(split)``, labels, node and input edge
-    counts, the K1/K2/K5 calls an epoch (a training step and an evaluation
-    forward, from the layouts) and the layout's text of one phase-12
-    cell."""
+    counts, the K1/K2/K3/K5 calls an epoch (a training step and an
+    evaluation forward, from the layouts) and the layout's text of one
+    phase-12 cell."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.experiments import (
         magnet_node)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
         magnet_propagators)
 
+    if name.startswith("trainable_q_"):
+        return trainable_q_cell(name[len("trainable_q_"):])
     if name == "magnet_node":
         args = magnet_node.parser().parse_args(
             ["--dataset", "synthetic", "--num_nodes", str(EXPERIMENT_N),
@@ -3242,8 +3267,8 @@ def captured_path(name, splits, epochs, smi):
                     f"the layouts imply {per_epoch} an epoch")
         replays = epochs - 1
         if s == 0:
-            prof = traced_device_ms(f"captured {name}", run.graph.replay,
-                                    PROFILE_STEPS)
+            prof = giant_digrac_script().traced_device_ms(
+                run.graph.replay, PROFILE_STEPS)
             replays -= PROFILE_STEPS
         a, b = events()
         a.record()
@@ -3294,7 +3319,9 @@ def captured_path(name, splits, epochs, smi):
 
 def captured_phase(smi):
     """Phase 12: scan_node_training's captured epoch on magnet_mxu (K1),
-    bsr (K5) and magnet_node's streamed operator (K2)."""
+    bsr (K5), magnet_node's streamed operator (K2) and trainable-q MagNet,
+    flat (K1's pair forward and dx) and sharded (K1 a shard forward, K3 a
+    shard backward)."""
     import torch
 
     runs = {}
@@ -3729,6 +3756,117 @@ def sharded_entries(runs, cases):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: DIGRAC at WikiTalk scale (K2 at the imbalance widths)
+
+
+def giant_digrac_run(script, form, smi, cases):
+    """``script.main`` (scripts/giant_digrac_torch.py) at its full size in
+    ``form`` "pair" or "fused", the launch counters set to 0 just before
+    and read just after; requires a falling loss and, in each step and in
+    all, the K2 calls its layouts imply; holds K2 on block 0 of two of its
+    operators (``GIANT_DIGRAC_CASES``) against its plain version in f32
+    and bf16; and takes the first loss again with f32 messages and
+    "highest" precision, from the same initial weights."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+
+    name = f"giant digrac {form}"
+    report = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        rc = script.main(fused=form == "fused", device=DEV, report=report,
+                         **GIANT_DIGRAC)
+    finally:
+        # main sets both process-wide, as the JAX script does
+        spmm.set_message_dtype(None)
+        spmm.set_matmul_precision("highest")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    check_losses(name, report["losses"])
+    if rc != 0:
+        raise AssertionError(f"{name}: main returned {rc}")
+    P_s, P_t, A = report["ops"]
+    named = dict((label, script.kernel_view(op))
+                 for label, op in script.named_operators(P_s, P_t, A))
+    for label, d in named.items():
+        for way, dd in (("", d), (" transposed", d.transposed)):
+            if not dd.blocks or dd.hot_ids is None:
+                raise AssertionError(f"{name} {label}{way}: not column-split "
+                                     f"(the K2 path)")
+    ops = list(named.values())
+    k, hop, hidden, seed = (GIANT_DIGRAC[a] for a in ("k", "hop", "hidden",
+                                                      "seed"))
+    walks, adj = (ops[:1], ops[1:]) if form == "fused" else (ops[:2],
+                                                             ops[2:])
+    per_step = count_applies(both_ways(walks, hop) + both_ways(adj))
+    steps = len(report["losses"]) + script.PROFILE_STEPS
+    if any(s != per_step for s in report["launches"]) or \
+            launches != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(
+            f"{name}: launched {launches} in {steps} steps (by step "
+            f"{report['launches'][:2]}...), the layouts imply {per_step} a "
+            f"step")
+    with torch.no_grad():
+        model = script.make_model(report["x"].shape[1], hidden, k, hop,
+                                  seed, DEV)
+        first_f32 = float(script.imbalance_loss(model, P_s, P_t, A,
+                                                report["x"], k))
+    ms_step = statistics.median(report["step_ms"][1:])
+    e = report["summary"]["e"]
+    log(f"{name} on {smi}: median {ms_step:.3f} ms/step (mean "
+        f"{report['summary']['step_seconds'] * 1e3:.3f}, first step "
+        f"{report['step_ms'][0]:.3f}), {e / (ms_step / 1e3):.1f} input "
+        f"edges/s; device {report['device_ms']:.4f} ms a step, idle "
+        f"{report['idle']:.3f}; peak {report['peak_bytes'] / 2 ** 30:.3f} "
+        f"GiB; loss {report['losses'][0]:.6f} -> {report['losses'][-1]:.6f}"
+        f" (f32 messages at the same init: {first_f32:.8f}); launches "
+        f"{per_step} a step, {launches} in {steps} steps; host s " +
+        ", ".join(f"{k} {v:.2f}" for k, v in
+                  report["host_seconds"].items()))
+    for label, width in GIANT_DIGRAC_CASES[form]:
+        d = named[label]
+        single = form == "pair"
+        D = single_view(d) if single else d
+        table = D.hot_ids.numel() if D.hot_blocks else D.num_cols
+        for dtype in (torch.float32, torch.bfloat16):
+            r = accum_kernel_case(
+                D, D.blocks[0], table, width, dtype, seed=width,
+                what=f"block 0 of the giant digrac {label}", single=single)
+            cases[(form, label, width, dtype)] = r
+            log_case(f"csr_dual_spmm_accum giant digrac {label} "
+                     f"{'W' if single else '2F'}={width} {str(dtype)[6:]}",
+                     r)
+    return dict(launches=launches, per_step=per_step, ms_step=ms_step,
+                first_f32=first_f32, first=report["losses"][0],
+                device_ms=report["device_ms"], idle=report["idle"],
+                peak_bytes=report["peak_bytes"])
+
+
+def giant_digrac_phase(smi):
+    """Phase 14: the port's giant_digrac, pair then fused: their first
+    losses with f32 messages agree at 1e-5."""
+    import torch
+
+    script = giant_digrac_script()
+    runs, cases = {}, {}
+    for form in ("pair", "fused"):
+        t0 = time.perf_counter()
+        runs[form] = giant_digrac_run(script, form, smi, cases)
+        torch.cuda.empty_cache()
+        log(f"  giant digrac {form}: {time.perf_counter() - t0:.1f} s")
+    a, b = runs["pair"]["first_f32"], runs["fused"]["first_f32"]
+    if abs(a - b) > 1e-5:
+        raise AssertionError(f"giant digrac: the first losses of the pair "
+                             f"and fused forms differ: {a} vs {b}")
+    log(f"  first loss with f32 messages: pair {a:.8f}, fused {b:.8f} "
+        f"(|diff| {abs(a - b):.3g} <= 1e-5); with bf16 messages "
+        f"{runs['pair']['first']:.8f}, {runs['fused']['first']:.8f}")
+    return runs, cases
+
+
 def main():
     import torch
 
@@ -3754,7 +3892,7 @@ def main():
     for name, text in build.BUILD_LOG.items():
         print(f"--- nvcc {name}\n{text}", file=sys.stderr)
 
-    # ---- 2-13. the paths ------------------------------------------------
+    # ---- 2-14. the paths ------------------------------------------------
     phases = {}
     for name, phase in (("magnet_mxu", magnet_mxu_phase),
                         ("giant", giant_phase), ("bsr", bsr_phase),
@@ -3766,7 +3904,8 @@ def main():
                         ("attention", attention_phase),
                         ("digcl", digcl_phase),
                         ("captured", captured_phase),
-                        ("sharded", sharded_phase)):
+                        ("sharded", sharded_phase),
+                        ("giant_digrac", giant_digrac_phase)):
         t0 = time.perf_counter()
         phases[name] = phase(smi)
         torch.cuda.empty_cache()
@@ -3782,6 +3921,7 @@ def main():
     dcl_runs, dcl_cases = phases["digcl"]
     cap_runs = phases["captured"]
     shd_runs, shd_cases = phases["sharded"]
+    gd_runs, gd_cases = phases["giant_digrac"]
     flat_launches = tq_runs["flat"][0]
     sharded_launches = tq_runs["sharded"][0]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
@@ -3890,10 +4030,33 @@ def main():
                  "bsr_spmm.py:119"),
                 ("magnet_node", "csr_dual_spmm_accum",
                  exp_cases[("magnet_node", 128)], "scatter_csr.cu",
-                 "scatter_mxu.py:580"))]
+                 "scatter_mxu.py:580"),
+                # trainable q: phase 6's cases on the same template (the
+                # dx and sharded-forward calls: phase 2's on the Laplacian
+                # of the same graph)
+                ("trainable_q_flat", "csr_pair_spmm",
+                 tq_cases[("csr_pair_spmm", 64, torch.float32)],
+                 "scatter_csr.cu", "scatter_mxu.py:503"),
+                ("trainable_q_flat", "csr_dual_spmm",
+                 k1_cases[("csr_dual_spmm", 64, torch.float32, "fwd")],
+                 "scatter_csr.cu", "scatter_mxu.py:503"),
+                ("trainable_q_sharded", "csr_dual_spmm",
+                 k1_cases[("csr_dual_spmm", 64, torch.float32, "fwd")],
+                 "scatter_csr.cu", "scatter_mxu.py:503"),
+                ("trainable_q_sharded", "csr_dual_sddmm",
+                 tq_cases[("csr_dual_sddmm", 64, torch.float32)],
+                 "dual_sddmm.cu", "scatter_mxu.py:741"))]
         # phase 13: K1 csr_scatter_sum, K1 csr_dual_spmm and K5 on shards of
         # the sharded paths, with their runs' launches
-        + sharded_entries(shd_runs, shd_cases),
+        + sharded_entries(shd_runs, shd_cases) + [
+            # phase 14: K2 on block 0 of the giant DIGRAC operators, with
+            # the launches of their runs (30 steps and 10 traced)
+            {**kernel_entry("csr_dual_spmm_accum", r,
+                            gd_runs[form]["launches"]["csr_dual_spmm_accum"],
+                            "scatter_csr.cu", "scatter_mxu.py:580"),
+             "path": f"giant digrac {form}", "launches_per_step":
+                 gd_runs[form]["per_step"]["csr_dual_spmm_accum"]}
+            for (form, _, _, _), r in gd_cases.items()],
         # K2's own contract and K4: tested, on no path this script drives
         "off_path": [
             # K1 on magnet_node's Laplacian laid out flat: every row cut

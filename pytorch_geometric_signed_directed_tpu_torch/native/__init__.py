@@ -115,6 +115,17 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """True when the library builds (or is built) and loads: the JAX
+    binding's ``available``.  The entry points still raise where it is
+    False, with g++'s output."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def parse_signed_csv(path: str) -> Tuple[np.ndarray, np.ndarray,
                                          np.ndarray, int]:
     """``(rows, cols, weights, num_nodes)`` of an ``a,b,w`` CSV edge list:

@@ -4,16 +4,22 @@ Counterpart of ``pytorch_geometric_signed_directed_tpu/nn/directed/
 magnet.py``.  The original 1x1 Conv1d head is a Linear over
 concat(real, imag).
 """
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...ops.spmm import Propagator
+from ...spectral.magnetic import MagneticTemplate
 from ..dropout import dropout
 from ..inits import linear
 from .complex_relu import complex_relu
 from .magnet_conv import MagNetConv
+
+# what the models' forward takes as ``lap``: an operator pair (a
+# MagneticPair unpacks as one) or a trainable-q template
+Lap = Union[Tuple[Propagator, Propagator], MagneticTemplate]
 
 
 class _MagNetTrunk(nn.Module):

@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 
 from ...device import DeviceLike
-from ..directed.magnet import _MagNetTrunk
+from ..directed.magnet import Lap, _MagNetTrunk  # noqa: F401
 from ..normalize import l2_normalize
 from .msconv import MSConv
 

@@ -57,8 +57,9 @@ class Prob_Imbalance_Loss:
         second_max_vol = torch.sort(vol).values[-2] + eps
         W = P.T @ AP  # [K, K] pairwise flows: W[k, l] = P_k^T A P_l
 
-        iu, ju = (torch.from_numpy(a).to(P.device)
-                  for a in np.triu_indices(K, k=1))
+        # np.triu_indices(K, k=1)'s pairs, made on P's device: a copy
+        # from host memory would make the step wait for the device
+        iu, ju = torch.triu_indices(K, K, offset=1, device=P.device)
         w_kl, w_lk = W[iu, ju], W[ju, iu]
         diff = (w_kl - w_lk).abs()
         denom_pair = w_kl + w_lk

@@ -186,6 +186,38 @@ def test_hub_row_sums_are_compensated_on_card(card, accum):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [5, 10])
+def test_accumulate_on_a_hub_row_at_the_imbalance_widths_on_card(card, width,
+                                                                 dtype):
+    """K2 at the widths of DIGRAC's imbalance volumes (A P at W=5, the A
+    dual at 2K=10: not multiples of 4) on one row of 300,000 edges cut
+    into pieces, into a non-zero output: both round each message alike,
+    so the compensated float32 sum stays at the plain version's float64
+    sum, and rows without edges keep their values."""
+    e, m = 300_000, 5000
+    gen = torch.Generator(device=card).manual_seed(width)
+    rowptr = torch.tensor([0, 0, e, e], dtype=torch.int32, device=card)
+    split = scatter_csr.plan_row_split(rowptr)
+    assert split.rows.tolist() == [1]
+    col = torch.randint(0, m, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    va = torch.rand(e, generator=gen, device=card) / e ** 0.5
+    vb = torch.rand(e, generator=gen, device=card) / e ** 0.5
+    x = torch.rand(m, width, generator=gen, device=card)
+    if dtype == "bf16":
+        x = x.to(torch.bfloat16)
+    out0 = torch.randn(5, width, generator=gen, device=card)
+    args = (rowptr, col, va, vb, x, width // 2)
+    got = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), 1, split)
+    want = scatter_csr.csr_dual_spmm_accum_plain(*args, out0, 1)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert torch.equal(got[[0, 1, 3, 4]], out0[[0, 1, 3, 4]])
+    again = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), 1, split)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["split", "streamed", "split_streamed"])
 def test_layouts_match_flat_layout_on_card(card, kind, monkeypatch):
     """The split and streamed duals on the card (K2, one launch per block)
@@ -846,6 +878,84 @@ def test_captured_epochs_match_eager_epochs_on_card(card, dropout):
     for run in (captured, again):
         assert torch.equal(run.losses, eager.losses)
         assert torch.equal(run.results(), eager.results())
+
+
+def _trainable_q_magnet(device, sharded):
+    """Trainable-q MagNet (K=2, hidden 8, q from 0.25) on the mxu template
+    of a 3,000-node graph with a 2,000-edge hub row, flat or sharded on
+    the one-card mesh; features, labels and masks from a seed."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        MagNet_node_classification)
+    from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+        local_mesh, shard_magnet_laplacian)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        magnetic_template)
+
+    n = 3000
+    rng = np.random.default_rng(6)
+    row = np.concatenate([rng.integers(0, n, 30_000),
+                          rng.integers(8, n, 2000)])
+    col = np.concatenate([rng.integers(0, n, 30_000), np.full(2000, 7)])
+    tmpl = magnetic_template(np.stack([row, col]), None, num_nodes=n,
+                             mode="mxu", device=device)
+    if sharded:
+        tmpl = shard_magnet_laplacian(tmpl, local_mesh(device))
+    x = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, 3, n)).to(device)
+    masks = torch.from_numpy(
+        (rng.random((3, n)) < 0.3).astype(np.float32)).to(device)
+
+    def apply_fn(model, training, generator):
+        return model(x, x, tmpl, training, generator)
+
+    def init():
+        return MagNet_node_classification(
+            num_features=2, hidden=8, K=2, label_dim=3, activation=True,
+            layer=2, trainable_q=True, device=device,
+            generator=torch.Generator().manual_seed(0))
+
+    return apply_fn, init, y, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [False, True], ids=["flat", "sharded"])
+def test_captured_trainable_q_epochs_match_eager_epochs_on_card(card,
+                                                                sharded):
+    """The trainable-q epoch captured and replayed: flat (K1's pair
+    forward, K1 dx) and sharded (K1 a shard forward, K3 a shard
+    backward, so K3 runs inside the graph); the eager loop's losses,
+    selections and trained q bit for bit, the same launches an epoch, and
+    the first eager epoch makes no host sync."""
+    from pytorch_geometric_signed_directed_tpu_torch.train import (
+        SplitRun, adam)
+
+    apply_fn, init, y, masks = _trainable_q_magnet(card, sharded)
+    epochs = 12
+    first = SplitRun(apply_fn, init(), adam(1e-2, 5e-4), y, *masks, epochs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first.epoch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    runs = [SplitRun(apply_fn, init(), adam(1e-2, 5e-4), y, *masks,
+                     epochs).run(captured) for captured in (False, True, True)]
+    eager, captured, again = runs
+    torch.cuda.synchronize()
+    assert captured.graph is not None and eager.graph is None
+    # 2 layers of K=2 applies: forward and evaluation 4 each; flat dx for
+    # the 3 applies whose input needs a gradient, sharded K3 for all 4
+    per_epoch = ({"csr_dual_spmm": 8, "csr_dual_sddmm": 4} if sharded
+                 else {"csr_pair_spmm": 8, "csr_dual_spmm": 3})
+    assert eager.launches == {k: v * epochs for k, v in per_epoch.items()}
+    assert captured.launches == captured.launches_per_replay == per_epoch
+    q_eager = torch.cat([c.q.detach() for c in eager.model.convs])
+    assert not torch.equal(q_eager, torch.full_like(q_eager, 0.25))
+    for run in (captured, again):
+        assert torch.equal(run.losses, eager.losses)
+        assert torch.equal(run.results(), eager.results())
+        assert torch.equal(torch.cat([c.q.detach()
+                                      for c in run.model.convs]), q_eager)
 
 
 @pytest.mark.cuda

@@ -91,6 +91,59 @@ def test_signed_modules_import_nothing_forbidden(module):
     assert [m for m in _imports(path) if _forbidden(m)] == []
 
 
+JAX = ROOT / "pytorch_geometric_signed_directed_tpu"
+# JAX module names the port deliberately does without, with the reason
+NOT_PORTED = {
+    # the port's SNEAConv, GATConv and motif layers take aggregate= per
+    # model, where the JAX package switches a module global
+    ("nn/signed/snea_conv.py", "AGGREGATE_BACKEND"),
+}
+
+
+def _top_level_names(path: pathlib.Path, bound_by_imports: bool):
+    """Public names a module defines at top level (functions, classes,
+    assignments), and with ``bound_by_imports`` those its imports bind."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else \
+                [node.target]
+            names.update(n.id for t in targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+        elif bound_by_imports and isinstance(node, (ast.Import,
+                                                    ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+JAX_MODULES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py")
+                     if p.relative_to(JAX).parts[:2] != ("ops", "pallas"))
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_port_module_has_the_jax_modules_public_names(module):
+    """Each module of the JAX package (its Pallas kernels aside) has a
+    counterpart file in the port whose top-level names (defined or
+    imported) hold every public name the JAX module defines."""
+    port = PORT / module
+    assert port.is_file(), f"no counterpart of {module}"
+    want = _top_level_names(JAX / module, bound_by_imports=False)
+    have = _top_level_names(port, bound_by_imports=True)
+    missing = {n for n in want - have if (module, n) not in NOT_PORTED}
+    assert missing == set()
+
+
+def test_the_port_scripts_import_nothing_forbidden():
+    for script in ("giant_digrac_torch.py", "dryrun_multiprocess_torch.py",
+                   "profile_torch_magnet_step.py"):
+        path = ROOT / "scripts" / script
+        assert [m for m in _imports(path) if _forbidden(m)] == [], script
+
+
 def test_sssnet_and_sgcn_run_with_jax_and_sklearn_blocked():
     """In a fresh interpreter that cannot import JAX, flax, scikit-learn or
     the JAX package: the sssnet experiment and an SGCN loss on the CPU."""

@@ -13,17 +13,24 @@ import torch
 
 from pytorch_geometric_signed_directed_tpu.nn import (
     MagNet_node_classification as JxMagNetNode)
+from pytorch_geometric_signed_directed_tpu.parallel import (
+    make_mesh as jx_make_mesh,
+    shard_magnet_laplacian as jx_shard_magnet_laplacian)
 from pytorch_geometric_signed_directed_tpu.spectral import (
-    magnet_propagators as jx_magnet_propagators)
+    magnet_propagators as jx_magnet_propagators,
+    magnetic_template as jx_magnetic_template)
 from pytorch_geometric_signed_directed_tpu.train import (
+    masked_nll as jx_masked_nll,
     scan_node_training as jx_scan_node_training)
 
 from pytorch_geometric_signed_directed_tpu_torch.convert import (
     state_dict_from_jax)
 from pytorch_geometric_signed_directed_tpu_torch.nn import (
     MagNet_node_classification)
+from pytorch_geometric_signed_directed_tpu_torch.parallel import (
+    make_mesh, shard_magnet_laplacian)
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
-    magnet_propagators)
+    magnet_propagators, magnetic_template)
 from pytorch_geometric_signed_directed_tpu_torch.train import (
     SplitRun, adam, scan_node_training)
 
@@ -197,3 +204,91 @@ def test_adam_factory_matches_optax(decoupled):
         opt.step()
     np.testing.assert_allclose(param.detach().numpy(), np.asarray(p),
                                rtol=1e-6, atol=1e-6)
+
+
+# --- trainable q: the template's applies through scan_node_training -------
+
+TQ_EPOCHS = 8
+# q's gradient is a sum over every edge whose terms cancel: on split 1 it
+# changes sign from epoch to epoch (|g| from 3e-3 to 0.2), and Adam
+# divides it by its running RMS, so float32 sums taken in other orders
+# move q by ~1e-4 in 8 epochs; a tenth of one step of lr 1e-2 bounds it
+Q_TOL = dict(rtol=0, atol=1e-3)
+
+
+def tq_jax_model():
+    return JxMagNetNode(num_features=2, hidden=8, K=1, label_dim=3,
+                        activation=True, layer=2, trainable_q=True)
+
+
+def jax_final_q(jmodel, jparams, jlap, x, y, train_masks, tx):
+    """q of each layer of each split after ``TQ_EPOCHS`` steps of JAX's
+    scan body (the loss, its gradient and the optax update): the JAX
+    function returns no parameters."""
+    @jax.jit
+    def step(p, s, mask_tr):
+        def loss_fn(pp):
+            return jx_masked_nll(jmodel.apply(pp, x, x, jlap), y, mask_tr)
+
+        u, s = tx.update(jax.grad(loss_fn)(p), s, p)
+        return optax.apply_updates(p, u), s
+
+    qs = []
+    for params, mask_tr in zip(jparams, train_masks):
+        opt_state = tx.init(params)
+        for _ in range(TQ_EPOCHS):
+            params, opt_state = step(params, opt_state, mask_tr)
+        sd = state_dict_from_jax(jax.device_get(params))
+        qs.append([float(sd[f"convs.{i}.q"].reshape(())) for i in range(2)])
+    return qs
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["flat", "sharded"])
+def test_trainable_q_matches_jax_scan_node_training(sharded, setup):
+    """MagNet with trainable q on the mxu template: flat (K1's pair
+    forward, K1 dx) and sharded on the 8-shard CPU mesh (K1 a shard
+    forward, K3 a shard backward), through both packages'
+    ``scan_node_training`` from JAX's initial weights: the losses, the
+    selections and the trained q."""
+    ei, w, x, y, masks = (setup[k] for k in ("ei", "w", "x", "y", "masks"))
+    jtmpl = jx_magnetic_template(ei, w, num_nodes=N, mode="mxu")
+    tmpl = magnetic_template(ei, w, num_nodes=N, mode="mxu", device="cpu")
+    jmesh = jx_make_mesh(8)
+    if sharded:
+        jtmpl = jx_shard_magnet_laplacian(jtmpl, jmesh)
+        tmpl = shard_magnet_laplacian(tmpl, make_mesh(8, device="cpu"))
+        assert tmpl.mode == jtmpl.mode == "mxu_sharded"
+    jmodel = tq_jax_model()
+    tx = optax.chain(optax.add_decayed_weights(WD), optax.adam(LR))
+    keys = jax.random.split(jax.random.PRNGKey(0), SPLITS)
+    with jmesh:
+        want = jx_scan_node_training(
+            lambda p, training, key: jmodel.apply(p, x, x, jtmpl),
+            lambda key: jmodel.init(key, x, x, jtmpl), y, *masks,
+            epochs=TQ_EPOCHS, tx=tx, seed=0)
+        jparams = [jmodel.init(k, x, x, jtmpl) for k in keys]
+        want_q = jax_final_q(jmodel, jparams, jtmpl, x, y, masks[0], tx)
+
+    xt = torch.from_numpy(x)
+    models = []
+
+    def init_fn(split):
+        model = MagNet_node_classification(
+            num_features=2, hidden=8, K=1, label_dim=3, activation=True,
+            layer=2, trainable_q=True, device="cpu")
+        model.load_state_dict(state_dict_from_jax(jax.device_get(
+            jparams[split])))
+        models.append(model)
+        return model
+
+    got = scan_node_training(
+        lambda m, training, gen: m(xt, xt, tmpl, training, gen), init_fn, y,
+        *masks, epochs=TQ_EPOCHS, tx=adam(LR, WD), device="cpu")
+    for k in ("best_val", "best_test", "final_test"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"],
+                               **LOSS_TOL)
+    got_q = [[float(c.q.detach()) for c in m.convs] for m in models]
+    np.testing.assert_allclose(got_q, want_q, **Q_TOL)
+    # q left its starting value 0.25 in every layer of every split
+    assert all(abs(q - 0.25) > 1e-3 for qs in got_q for q in qs)
