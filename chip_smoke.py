@@ -24,7 +24,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    layouts, holds the apply and K2 alone against their plain versions,
    runs every CSR entry (K1/K2, the pair entries, K3 and K4) on a
    synthetic CSR with the graph's largest row (324,064 edges) and rows
-   around the piece length at which the kernels cut rows, times the apply
+   around the piece length at which the kernels cut rows, holds the dual
+   (plain and accumulate, W = 1, 5, 10, 32, 64) and ``csr_scatter_sum``
+   (every width 1 to 40, message rows 16-byte aligned or not) on a CSR
+   of one- and two-edge rows beside a hub row and rows around the
+   kernels' row-block length, times the apply
    in the flat, split and split+streamed
    layouts, checks the forward against the segment tier, and trains 10
    steps with bf16 messages.
@@ -989,6 +993,87 @@ def hub_row_cases(table_rows, width=64):
     return cases
 
 
+def short_row_cases(table_rows):
+    """The kernels' row blocks: a CSR of 200,000 one- and two-edge rows (a
+    tenth empty) beside a hub row of 100,000 edges, rows of the block
+    length and one edge more, and uncut rows of 64 to 1,024 edges (which
+    csr_scatter_sum walks a warp a row at V = 1).  The dual, plain and
+    accumulate, at W = 1, 5, 10, 32 and 64, and ``csr_scatter_sum`` at
+    every width from 1 to 40 and at 64 with message rows 16-byte aligned
+    and not, f32 and bf16: against the plain version, the same bits twice,
+    rows without edges 0 or untouched."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    T = scatter_csr.BLOCK_EDGES
+    rng = np.random.default_rng(10)
+    short = rng.integers(1, 3, 200_000) * (rng.random(200_000) > 0.1)
+    lengths = np.concatenate([short[:100_000], [100_000, T, T + 1],
+                              [64, 65, 100, 300, 1024], short[100_000:]]
+                             ).astype(np.int64)
+    rowptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32)).to(DEV)
+    split = scatter_csr.plan_row_split(rowptr)
+    n, e = len(lengths), int(lengths.sum())
+    empty = torch.from_numpy(lengths == 0).to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    col = torch.randint(0, table_rows, (e,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    va, vb = torch.randn(2, e, generator=gen, device=DEV)
+    log(f"short-row CSR: rows={n} edges={e} row blocks="
+        f"{split.blocks.shape[0]} mid rows={split.mids.numel()} walked rows="
+        f"{split.walks.numel()} cut rows={split.rows.numel()}")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        for width in (1, 5, 10, 32, 64):
+            x = torch.randn(table_rows, width, generator=gen,
+                            device=DEV).to(dtype)
+            out0 = torch.randn(n, width, generator=gen, device=DEV)
+            args = (rowptr, col, va, vb, x, width // 2)
+            for name, kernel, plain in (
+                    ("csr_dual_spmm",
+                     lambda: scatter_csr.csr_dual_spmm(*args, split),
+                     lambda: scatter_csr.csr_dual_spmm_plain(*args)),
+                    ("csr_dual_spmm_accum",
+                     lambda: scatter_csr.csr_dual_spmm_accum(
+                         *args, out0.clone(), 0, split),
+                     lambda: scatter_csr.csr_dual_spmm_accum_plain(*args,
+                                                                   out0))):
+                got = kernel()
+                torch.testing.assert_close(got, plain(), **tol)
+                same_bits(got, kernel(), name)
+                untouched = (torch.equal(got[empty], out0[empty])
+                             if name.endswith("accum")
+                             else bool(torch.all(got[empty] == 0)))
+                if not untouched:
+                    raise AssertionError(f"short-row CSR {name} W={width}: "
+                                         f"a row without edges changed")
+                key = (name, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0),
+                                 float((got - plain()).abs().max()))
+        flat = torch.randn(e * 64 + 1, generator=gen, device=DEV).to(dtype)
+        for width in [*range(1, 41), 64]:
+            for base in (0, 1):
+                msgs = flat[base:base + e * width].view(e, width)
+                got = scatter_csr.csr_scatter_sum(rowptr, msgs, split)
+                want = scatter_csr.csr_scatter_sum_plain(rowptr, msgs)
+                torch.testing.assert_close(got, want, **tol)
+                same_bits(got, scatter_csr.csr_scatter_sum(rowptr, msgs,
+                                                           split),
+                          "csr_scatter_sum")
+                if not bool(torch.all(got[empty] == 0)):
+                    raise AssertionError(f"short-row CSR csr_scatter_sum "
+                                         f"W={width}: an empty row not 0")
+                key = ("csr_scatter_sum", str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0),
+                                 float((got - want).abs().max()))
+    log("short-row CSR: every case agrees with its plain version and "
+        "repeats bit for bit; max abs err " +
+        ", ".join(f"{k[0]} {k[1]} {v:.3g}" for k, v in worst.items()))
+
+
 def hub_sddmm_cases(rowptr, split, col, terms, g, out0, empty, dtype):
     """K3 and K4 on the hub CSR: against the plain version, the same bits
     twice, rows without edges 0 (K3) or untouched (K4); f32 times."""
@@ -1172,6 +1257,7 @@ def giant_phase(smi):
     k2_own = scatter_accum_case(D.blocks[0], 64, seed=4)
     log_case("csr_scatter_accum block 0 W=64 float32", k2_own)
     hub_row_cases(D.hot_ids.numel())
+    short_row_cases(D.hot_ids.numel())
 
     # one apply at the path's widest shape, in each layout
     spmm.set_message_dtype("bf16")

@@ -79,12 +79,194 @@
 //     and a row's chain is about edges / (P * depth) latencies.  The P
 //     strided sums meet in a butterfly of warp shuffles in float64, in a
 //     fixed order: the same bits in every call.
+//
+// Short rows.  A group per row waits out a chain of dependent loads
+// (rowptr, the row's edges, the x rows, the store) for every row, which
+// on the giant DIGRAC blocks (1.2-2.4M rows of ~2.3 edges) made K2 6x its
+// byte bound and slower than one cuSPARSE addmm.  So the plan also holds
+// row blocks (CSR-Adaptive's): runs of consecutive uncut rows of at most
+// kBlockEdges / 2 edges each, fewer than kBlockEdges edges and at most
+// kBlockRows rows in all, built once per CSR with the cut rows
+// (scatter_csr.py, plan_row_split), and the list of the other uncut rows
+// ("mid" rows).  Blocks are made only where such short rows are most of
+// the rows.  A warp takes one block:
+//   * its (first row, end row, first edge, end edge) in one 16-byte load;
+//   * the block's rowptr slice and its (col, va, vb) with cp.async into
+//     shared memory, and in the accumulate mode the prior out rows (one
+//     contiguous span of 16-byte copies), all in flight at once;
+//   * then every x row the block's edges need, 16-byte cp.async where x
+//     rows are whole 16-byte lines (4-byte copies else);
+//   * then (row, lane) pairs, several rows' lanes a warp at narrow widths
+//     (W=5, 10): each thread sums its row's edges for its lane in edge
+//     order, compensated as the group path does, and stores once.
+// So a block costs about three latencies instead of three a row.  Mid rows
+// keep a group each (the walk above, over the list) and cut rows their
+// pieces.  The dual takes the block path up to kTile lanes; wider x and
+// the pair keep a group per row for every row.
+//
+// Messages at widths off a multiple of 4, or from a base that is not
+// 16-byte aligned (pgsd_csr_scatter with V = 1), take csr_span_kernel at
+// every width.  Up to kSpanWidth lanes, a row block's messages are one
+// contiguous span, which a warp copies into shared memory with 16-byte
+// cp.async from its first 16-byte boundary (the head and tail, under 16
+// bytes, by plain loads); (row, lane) pairs then sum down the staged tile
+// in edge order, compensated, each folded once into float64.  A mid row
+// of at most kWalkEdges edges gives a thread to each of its (row, column)
+// pairs, which walks its column down the row's edges with 8 loads in
+// flight: neighbouring threads read neighbouring lanes, so the loads
+// coalesce whatever the width, and no lane idles (a warp a mid row,
+// staged, lost to this walk on the bench SNEA graph's rows of ~25 edges).
+// A longer uncut row (the plan lists them: RowSplit.walks), and each
+// piece of a cut row, takes a second kernel (csr_walk_kernel, launched
+// only where there are any): a warp a tile of 32 columns, its 64 pairs
+// (column, edge slot) pairs, 64 / C slots for a tile of C columns.  So a
+// row of hundreds of edges at a narrow width does not wait out one
+// thread's chain of loads, and long rows do not crowd into the warps of
+// their neighbours' columns (at W = 1 a warp of pairs holds 32 rows).  At
+// W = 1 and above kSpanWidth nothing is staged: every uncut row that is
+// not walked by a warp is walked by threads.
+//
+// kBlockEdges, kBlockRows and kWalkEdges were chosen by timing builds of
+// other values (-DPGSD_BLOCK_EDGES=16, -DPGSD_BLOCK_ROWS=16,
+// -DPGSD_WALK_EDGES=32 and 128) against these in turns on an H100
+// (scripts/ab_kernel_variants.py --only giant_digrac,odd; PERF.md):
+// blocks of 16 edges lost 20-31% on the giant DIGRAC blocks and 13-21% on
+// the epinions-size SNEA graph, blocks of 16 rows up to 10% and 2%; a
+// thread's walk of up to 32 edges lost 21-34% on the bench SNEA graph at
+// W=17 and 34 (and won 4-6% on rows of 40-1,024 edges at W=1 and 5), of
+// up to 128 edges 13-16% on those rows at W=1 and 5.
 
 #include "csr_common.cuh"
 
 namespace {
 
 using namespace pgsd;
+
+// ---------------------------------------------------------------------------
+// The plan's row blocks (scatter_csr.py: RowSplit.blocks and .mids) and
+// the asynchronous copies that stage them
+
+// The row-block shape (see the header).  Macros only so that
+// scripts/ab_kernel_variants.py can build other shapes with -D to time
+// them; scatter_csr.py's bind() refuses a build whose shape is not its
+// BLOCK_EDGES and BLOCK_ROWS.
+#ifndef PGSD_BLOCK_EDGES
+#define PGSD_BLOCK_EDGES 32
+#endif
+#ifndef PGSD_BLOCK_ROWS
+#define PGSD_BLOCK_ROWS 32
+#endif
+constexpr int kBlockEdges = PGSD_BLOCK_EDGES;  // most edges of a block
+constexpr int kBlockRows = PGSD_BLOCK_ROWS;    // most rows of a block
+
+// The longest uncut row whose columns a thread each walks alone at V = 1
+// (pgsd_csr_scatter); the plan lists longer ones (WALK_EDGES), which a
+// warp each walks.  A macro for the same reason.
+#ifndef PGSD_WALK_EDGES
+#define PGSD_WALK_EDGES 64
+#endif
+constexpr int kWalkEdges = PGSD_WALK_EDGES;
+constexpr int kTile = 32;        // widest x of the dual's block path
+constexpr int kWarps = kBlock / 32;
+
+struct Blocks {
+  const int4* blocks;  // [n_blocks] (first row, end row, first edge, end edge)
+  const int* mids;     // [n_mids] the uncut rows in no block
+  const int* walks;    // [n_walks] the uncut rows of more than kWalkEdges
+  int n_blocks;
+  int n_mids;
+  int n_walks;
+};
+
+inline Blocks blocks_of(const void* blocks, int n_blocks, const void* mids,
+                        int n_mids, const void* walks, int n_walks) {
+  return Blocks{static_cast<const int4*>(blocks),
+                static_cast<const int*>(mids),
+                static_cast<const int*>(walks), n_blocks, n_mids, n_walks};
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async: copies from device to shared memory that the thread does not
+// wait for; cp_async_wait<N>() waits until at most N committed groups of
+// this thread are still in flight (a __syncwarp after it shows the copies
+// to the rest of the warp).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warp-wide: starts the copy of the n elements at src into dst (16-byte
+// aligned) and returns where element 0 lands, dst + (src's offset in its
+// 16-byte line): the 16-byte lines by cp.async (the caller commits), the
+// head and tail below 16 bytes by plain loads.
+template <typename T>
+__device__ __forceinline__ const T* stage_span(unsigned char* dst,
+                                               const T* src, int n,
+                                               int lane) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a1 = a0 + (uintptr_t)n * sizeof(T);
+  const uintptr_t b0 = (a0 + 15) & ~(uintptr_t)15;
+  const uintptr_t b1 = a1 & ~(uintptr_t)15;
+  T* d = reinterpret_cast<T*>(dst + (a0 & 15));
+  int head = n, lines = 0, tail = n;  // [0, head) and [tail, n) plain
+  if (b0 <= b1) {
+    head = (int)((b0 - a0) / sizeof(T));
+    lines = (int)((b1 - b0) / 16);
+    tail = (int)((b1 - a0) / sizeof(T));
+  }
+  unsigned char* dl = reinterpret_cast<unsigned char*>(d) + (b0 - a0);
+  for (int c = lane; c < lines; c += 32)
+    cp_async16(dl + 16 * c, reinterpret_cast<const void*>(b0 + 16 * (uintptr_t)c));
+  if (lane < head) d[lane] = src[lane];
+  if (tail + lane < n) d[tail + lane] = src[tail + lane];
+  return d;
+}
+
+// q / d for 0 <= q < 4096 and 1 <= d <= 64, by a float reciprocal: (q +
+// 0.5) / d lies at least 0.5 / d from an integer and the float product
+// errs by under 2^-10, so truncation is exact (an integer division by a
+// runtime divisor costs about twenty instructions).
+struct Div {
+  float inv;
+  __device__ __forceinline__ explicit Div(int d) : inv(1.0f / d) {}
+  __device__ __forceinline__ int operator()(int q) const {
+    return __float2int_rz(((float)q + 0.5f) * inv);
+  }
+};
+
+// A warp's shared memory in the dual's block path (widths up to kTile);
+// the accumulate mode also stages the block's prior out rows, one
+// contiguous span, with 16 bytes to spare for its offset in its line.
+template <typename T, bool ACCUM>
+struct __align__(16) BlockStage {
+  float prior[ACCUM ? kBlockRows * kTile + 4 : 4];
+  T x[kBlockEdges * kTile];  // x[col[j], l] at j * width + l
+  int col[kBlockEdges];
+  float va[kBlockEdges];
+  float vb[kBlockEdges];
+  int rp[kBlockRows + 1];  // rowptr[first row + i]
+};
 
 // The message source of pgsd_csr_dual_spmm: message l of edge e is
 // round(sel_l(va, vb)[e] * x[col[e], l]).  A group stages a chunk of C
@@ -98,6 +280,19 @@ struct DualSource {
   static constexpr int MIN_CTAS = min_ctas<KS>();
   static constexpr int S = D > G ? D / G : 1;  // edges a thread loads a chunk
   static constexpr int C = G * S;              // edges of a chunk
+  // the block path takes widths up to kTile (KS == 1: G >= width, one
+  // CTA lane tile); wider rows gain less from it than the group's walk,
+  // which loads KS lanes a thread
+  static constexpr bool kBlocks = KS == 1;
+  static constexpr int kStageBytes = kBlock * S * (int)sizeof(int4);
+  using Value = T;
+  // the CTA's dynamic shared memory: the walk's stage, or with row blocks
+  // the warps' block stages if larger
+  template <bool ACCUM>
+  static constexpr int smem(bool blocks) {
+    constexpr int b = kWarps * (int)sizeof(BlockStage<T, ACCUM>);
+    return blocks && kBlocks && b > kStageBytes ? b : kStageBytes;
+  }
   const int* col;
   const float* va;
   const float* vb;
@@ -151,12 +346,12 @@ struct DualSource {
     }
   }
 
-  // Adds the messages of edges [e0, e1) to (acc, cmp), in edge order.
+  // Adds the messages of edges [e0, e1) to (acc, cmp), in edge order;
+  // `smem` is the CTA's shared memory (at least kStageBytes).
   __device__ __forceinline__ void sum(int e0, int e1, int width, int f0,
-                                      float (&acc)[KS],
-                                      float (&cmp)[KS]) const {
-    __shared__ int4 stage[kBlock * S];
-    int4* edges = stage + (threadIdx.x / G) * C;  // this group's chunk
+                                      float (&acc)[KS], float (&cmp)[KS],
+                                      unsigned char* smem) const {
+    int4* edges = reinterpret_cast<int4*>(smem) + (threadIdx.x / G) * C;
     const int t = threadIdx.x % G;
     const unsigned mask = group_mask<G>();
     int4 q[S];
@@ -174,20 +369,155 @@ struct DualSource {
       __syncwarp(mask);  // every read of the chunk before the next is staged
     }
   }
+
+  // Starts the copies of x[col[j], l], j < ne, l < width, into st.x:
+  // 16-byte cp.async when the x rows are whole 16-byte lines, else 4-byte
+  // ones (bf16 in pairs of lanes); bf16 x of an odd width, or not 4-byte
+  // aligned, by plain loads, 8 a thread in flight.
+  template <bool ACCUM>
+  __device__ __forceinline__ void gather(BlockStage<T, ACCUM>& st, int ne,
+                                         int width, int lane) const {
+    constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte copy
+    constexpr int kE = 4 / sizeof(T);   // elements of a 4-byte copy
+    const uintptr_t base = reinterpret_cast<uintptr_t>(x);
+    if (width % kV == 0 && (base & 15) == 0) {
+      const int per = width / kV;
+      const Div div(per);
+      for (int q = lane; q < ne * per; q += 32) {
+        const int j = div(q), c = (q - j * per) * kV;
+        cp_async16(&st.x[j * width + c], x + (int64_t)st.col[j] * width + c);
+      }
+    } else if (width % kE == 0 && (base & 3) == 0) {
+      const int per = width / kE;
+      const Div div(per);
+      for (int q = lane; q < ne * per; q += 32) {
+        const int j = div(q), c = (q - j * per) * kE;
+        cp_async4(&st.x[j * width + c], x + (int64_t)st.col[j] * width + c);
+      }
+    } else {
+      constexpr int B = 8;
+      const Div div(width);
+      for (int q0 = lane; q0 < ne * width; q0 += 32 * B) {
+        T v[B];
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+          const int q = q0 + 32 * u;
+          if (q < ne * width) {
+            const int j = div(q);
+            v[u] = x[(int64_t)st.col[j] * width + q - j * width];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+          const int q = q0 + 32 * u;
+          if (q < ne * width) st.x[q] = v[u];
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  // The block path (width <= kTile): this warp sums the rows of block
+  // `blk` into out (see the header).  Pair p = lane + 32 k is (row p /
+  // width, lane p % width), element p of the block's out rows.  ACCUM:
+  // each row from its prior value (staged with the block's edges), and
+  // rows without edges are left alone.
+  template <bool ACCUM>
+  __device__ __forceinline__ void block(const int4 blk,
+                                        const int* __restrict__ rowptr,
+                                        BlockStage<T, ACCUM>& st,
+                                        float* __restrict__ out, int width,
+                                        int row0) const {
+    const int lane = threadIdx.x & 31;
+    const int r0 = blk.x, nr = blk.y - blk.x, e0 = blk.z, ne = blk.w - blk.z;
+    float* ob = out + ((int64_t)row0 + r0) * width;
+    for (int i = lane; i <= nr; i += 32) cp_async4(&st.rp[i], rowptr + r0 + i);
+    if (lane < ne) {
+      cp_async4(&st.col[lane], col + e0 + lane);
+      cp_async4(&st.va[lane], va + e0 + lane);
+      cp_async4(&st.vb[lane], vb + e0 + lane);
+    }
+    const float* prior =
+        ACCUM ? stage_span(reinterpret_cast<unsigned char*>(st.prior), ob,
+                           nr * width, lane)
+              : nullptr;
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    gather(st, ne, width, lane);
+    cp_async_wait<0>();
+    __syncwarp();
+    const Div div(width);
+    for (int p = lane; p < nr * width; p += 32) {
+      const int r = div(p);
+      const int l = p - r * width;
+      const int ja = st.rp[r] - e0, jb = st.rp[r + 1] - e0;
+      if (ACCUM && ja == jb) continue;
+      const bool lo = l < fa;
+      float acc = ACCUM ? prior[p] : 0.f, cmp = 0.f;
+      for (int j = ja; j < jb; ++j)
+        kahan_add(acc, cmp,
+                  round_msg<T>(__fmul_rn(lo ? st.va[j] : st.vb[j],
+                                         to_f32(st.x[j * width + l]))));
+      ob[p] = acc;
+    }
+    __syncwarp();  // every read of the stage before the warp's next block
+  }
 };
 
-// CTAs [0, piece CTAs) sum one piece per group into `partial`; the rest
-// sum one row of at most piece_len edges per group into `out`.  A source
-// keeps Src::NS sums a lane; sum s of lane f lands in column s * width + f
-// of out (row stride NS * width) and of the partials.  ACCUM: start from
-// out[row0 + row] and leave rows without edges alone.
+// What the row kernel needs of a source beyond its walk: whether it takes
+// the plan's row blocks, and the shared memory of its walk and its blocks
+// (PairSource keeps its own).
+template <class Src>
+struct Traits {
+  static constexpr bool kDual = false;
+  static constexpr bool kBlocks = false;
+  template <bool ACCUM>
+  static constexpr int smem(bool) { return 0; }
+};
+
+template <typename T, int G, int KS>
+struct Traits<DualSource<T, G, KS>> {
+  static constexpr bool kDual = true;
+  static constexpr bool kBlocks = DualSource<T, G, KS>::kBlocks;
+  template <bool ACCUM>
+  static constexpr int smem(bool blocks) {
+    return DualSource<T, G, KS>::template smem<ACCUM>(blocks);
+  }
+};
+
+// CTAs [0, piece CTAs) sum one piece per group into `partial`; the next
+// ones sum one row of at most piece_len edges per group into `out`: the
+// plan's mid rows for a source that takes blocks, else every row (cut
+// ones skipped); the last ones, for a source that takes blocks, one row
+// block per warp.  A source keeps Src::NS sums a lane; sum s of lane f
+// lands in column s * width + f of out (row stride NS * width) and of the
+// partials.  ACCUM: start from out[row0 + row] and leave rows without
+// edges alone.
 template <class Src, int G, int KS, bool ACCUM>
 __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
-    Src src, const int* __restrict__ rowptr, Split sp,
+    Src src, const int* __restrict__ rowptr, Split sp, Blocks bp,
     float* __restrict__ out, int n_rows, int width, int row0) {
+  using Tr = Traits<Src>;
   constexpr int NS = Src::NS;
   constexpr int kSlots = kBlock / G;  // groups of a CTA
+  extern __shared__ __align__(16) unsigned char smem[];  // Tr::smem<ACCUM>
   const int piece_ctas = (sp.n_pieces + kSlots - 1) / kSlots;
+  const int n_listed = Tr::kBlocks ? bp.n_mids : n_rows;
+  const int row_ctas = (n_listed + kSlots - 1) / kSlots;
+  if ((int)blockIdx.x >= piece_ctas + row_ctas) {
+    if constexpr (Tr::kBlocks) {
+      const int b = (blockIdx.x - piece_ctas - row_ctas) * kWarps +
+                    threadIdx.x / 32;
+      if (b < bp.n_blocks)
+        src.template block<ACCUM>(
+            bp.blocks[b], rowptr,
+            reinterpret_cast<BlockStage<typename Src::Value, ACCUM>*>(
+                smem)[threadIdx.x / 32],
+            out, width, row0);
+    }
+    return;
+  }
   const int f0 = blockIdx.y * (G * KS) + threadIdx.x % G;
   const int64_t stride = (int64_t)NS * width;
   float acc[NS * KS], cmp[NS * KS];
@@ -197,7 +527,8 @@ __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
     const int p = blockIdx.x * kSlots + threadIdx.x / G;
     if (p >= sp.n_pieces) return;  // the whole group leaves together
     const int2 pc = sp.pieces[p];
-    src.sum(pc.x, pc.y, width, f0, acc, cmp);
+    if constexpr (Tr::kDual) src.sum(pc.x, pc.y, width, f0, acc, cmp, smem);
+    else src.sum(pc.x, pc.y, width, f0, acc, cmp);
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
 #pragma unroll
@@ -211,8 +542,9 @@ __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
     }
     return;
   }
-  const int row = (blockIdx.x - piece_ctas) * kSlots + threadIdx.x / G;
-  if (row >= n_rows) return;
+  const int i = (blockIdx.x - piece_ctas) * kSlots + threadIdx.x / G;
+  if (i >= n_listed) return;
+  const int row = Tr::kBlocks ? bp.mids[i] : i;
   const int start = rowptr[row];
   const int end = rowptr[row + 1];
   if (end - start > sp.piece_len) return;  // a cut row: its pieces sum it
@@ -228,7 +560,8 @@ __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
       }
     }
   }
-  src.sum(start, end, width, f0, acc, cmp);
+  if constexpr (Tr::kDual) src.sum(start, end, width, f0, acc, cmp, smem);
+  else src.sum(start, end, width, f0, acc, cmp);
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
 #pragma unroll
@@ -240,22 +573,42 @@ __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
 }
 
 template <bool ACCUM, int G, int KS, class Src>
-void launch_rows(Src src, const int* rowptr, const Split& sp, float* out,
-                 int n, int w, int row0, cudaStream_t s) {
+void launch_rows(Src src, const int* rowptr, const Split& sp,
+                 const Blocks& bp, float* out, int n, int w, int row0,
+                 cudaStream_t s) {
+  using Tr = Traits<Src>;
   constexpr int kSlots = kBlock / G;
-  const dim3 grid((sp.n_pieces + kSlots - 1) / kSlots + (n + kSlots - 1) / kSlots,
+  const int listed = Tr::kBlocks ? bp.n_mids : n;
+  const int block_ctas = Tr::kBlocks ? (bp.n_blocks + kWarps - 1) / kWarps : 0;
+  const dim3 grid((sp.n_pieces + kSlots - 1) / kSlots +
+                      (listed + kSlots - 1) / kSlots + block_ctas,
                   (w + G * KS - 1) / (G * KS));
+  if (grid.x == 0) return;
+  const int smem = Tr::template smem<ACCUM>(bp.n_blocks > 0);
+  if (smem > 48 * 1024) {
+    // above 48 KB a kernel takes dynamic shared memory only when told so,
+    // once per device (not a stream operation: capture allows it)
+    static bool raised[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 64 && !raised[dev]) {
+      cudaFuncSetAttribute(csr_rows_kernel<Src, G, KS, ACCUM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      raised[dev] = true;
+    }
+  }
   csr_rows_kernel<Src, G, KS, ACCUM>
-      <<<grid, kBlock, 0, s>>>(src, rowptr, sp, out, n, w, row0);
+      <<<grid, kBlock, smem, s>>>(src, rowptr, sp, bp, out, n, w, row0);
 }
 
 template <typename T, bool ACCUM>
 void dual_dispatch(const int* rowptr, const int* col, const float* va,
                    const float* vb, const T* x, int fa, const Split& sp,
-                   float* out, int n, int w, int row0, cudaStream_t s) {
+                   const Blocks& bp, float* out, int n, int w, int row0,
+                   cudaStream_t s) {
 #define PGSD_DUAL(G, KS)                                                    \
   launch_rows<ACCUM, G, KS>(DualSource<T, G, KS>{col, va, vb, x, fa}, rowptr, \
-                            sp, out, n, w, row0, s)
+                            sp, bp, out, n, w, row0, s)
   PGSD_DISPATCH_WIDTH(w, PGSD_DUAL);
 #undef PGSD_DUAL
 }
@@ -263,12 +616,12 @@ void dual_dispatch(const int* rowptr, const int* col, const float* va,
 template <typename T, bool ACCUM>
 void pair_dispatch(const int* rowptr, const int* col, const float* va,
                    const float* vb, const float* wa, const float* wb,
-                   const T* x, int fa, const Split& sp, float* out, int n,
-                   int w, int row0, cudaStream_t s) {
+                   const T* x, int fa, const Split& sp, const Blocks& bp,
+                   float* out, int n, int w, int row0, cudaStream_t s) {
 #define PGSD_PAIR(G, KS)                                                     \
   launch_rows<ACCUM, G, KS>(                                                 \
-      PairSource<T, G, KS, true>{col, va, vb, wa, wb, x, fa}, rowptr, sp, out, \
-      n, w, row0, s)
+      PairSource<T, G, KS, true>{col, va, vb, wa, wb, x, fa}, rowptr, sp, bp, \
+      out, n, w, row0, s)
   PGSD_DISPATCH_WIDTH(w, PGSD_PAIR);
 #undef PGSD_PAIR
 }
@@ -276,31 +629,24 @@ void pair_dispatch(const int* rowptr, const int* col, const float* va,
 // ---------------------------------------------------------------------------
 // pgsd_csr_scatter: one warp a row (or piece) of row-ordered messages
 
-// V lanes of one message, as float: one 16-byte load (VEC) or V scalar
-// loads of the lanes below width.
-// V lanes of one message, as float: one 16-byte load (VEC) or V scalar
-// loads of the lanes below width.
+// V lanes of one message, as float: one 16-byte load (message rows
+// start 16-byte aligned on this path).
 template <typename T, int V>
-__device__ __forceinline__ void load_lanes(const T* m, int f0, int width,
+__device__ __forceinline__ void load_lanes(const T* m, int f0,
                                            float (&v)[V]) {
-  if constexpr (V * sizeof(T) == 16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(m + f0);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+  static_assert(V * sizeof(T) == 16, "V is 16 bytes of the message type");
+  const uint4 u = *reinterpret_cast<const uint4*>(m + f0);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (sizeof(T) == 4) {
-        v[i] = __uint_as_float(w[i]);
-      } else {
-        const float2 f =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-      }
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      v[i] = __uint_as_float(w[i]);
+    } else {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-      v[i] = f0 + i < width ? to_f32(m[f0 + i]) : 0.f;
   }
 }
 
@@ -341,8 +687,7 @@ __device__ __forceinline__ void strided_sum(const T* msgs, int e0, int e1,
 #pragma unroll
       for (int u = 0; u < D; ++u)
         if (e + u * P < e1)
-          load_lanes<T, V>(msgs + (int64_t)(e + u * P) * width, f0, width,
-                           v[u]);
+          load_lanes<T, V>(msgs + (int64_t)(e + u * P) * width, f0, v[u]);
 #pragma unroll
       for (int u = 0; u < D; ++u)
         if (e + u * P < e1) {
@@ -364,10 +709,7 @@ __device__ __forceinline__ void strided_sum(const T* msgs, int e0, int e1,
 
 // 8 loads of 4 lanes (or 4 of 8) in flight need more than the 64
 // registers a thread has at 4 CTAs of 256 threads per SM.
-template <int V>
-__host__ __device__ constexpr int msg_min_ctas() {
-  return V * msg_depth<V>() >= 32 ? 3 : 4;
-}
+constexpr int kMsgMinCtas = 3;
 
 // CTAs [0, piece CTAs) sum one piece per TL * P threads into `partial`;
 // the rest one row of at most piece_len edges per TL * P threads into
@@ -375,7 +717,7 @@ __host__ __device__ constexpr int msg_min_ctas() {
 // empty row in the accumulate mode) sum nothing but join the fold.  Lane
 // tile blockIdx.y holds lanes [y*TL*V, (y+1)*TL*V).
 template <typename T, int V, int TL, bool ACCUM>
-__global__ void __launch_bounds__(kBlock, msg_min_ctas<V>())
+__global__ void __launch_bounds__(kBlock, kMsgMinCtas)
     csr_msgs_kernel(
     const T* __restrict__ msgs, const int* __restrict__ rowptr, Split sp,
     float* __restrict__ out, int n_rows, int width, int row0) {
@@ -450,30 +792,262 @@ int scatter_dispatch(const int* rowptr, const T* msgs, const Split& sp,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// pgsd_csr_scatter at widths off a multiple of 4, or from a base that is
+// not 16-byte aligned (V = 1; see the header)
+
+constexpr int kSpanWidth = 36;   // widest message of the staged row blocks
+constexpr int kSpanBlock = 128;  // threads of a CTA of this path
+constexpr int kSpanWarps = kSpanBlock / 32;
+
+// A warp's stage: a block's span (fewer than kBlockEdges edges of up to
+// kSpanWidth lanes), with 16 bytes to spare for its offset in its line,
+// and the block's rowptr slice.  Sized for 36 lanes, not 64: the smaller
+// stage leaves room for more warps an SM (timed on an H100 with
+// scripts/ab_kernel_variants.py --only odd).  Wider messages are not
+// staged: every uncut row is walked.
+template <typename T>
+struct __align__(16) SpanStage {
+  unsigned char buf[kBlockEdges * kSpanWidth * sizeof(T) + 16];
+  int rp[kBlockRows + 1];
+};
+
+// One row block per warp, staged as one span: pair p of the warp's pairs
+// lane + 32 k is (row p / width, lane p % width), whose sum lands at
+// element p of the block's out rows.
+template <typename T, bool ACCUM>
+__device__ __forceinline__ void span_block(const int4 blk,
+                                           const T* __restrict__ msgs,
+                                           const int* __restrict__ rowptr,
+                                           SpanStage<T>& st,
+                                           float* __restrict__ out,
+                                           int width, int row0, int lane) {
+  const int r0 = blk.x, nr = blk.y - blk.x, e0 = blk.z, ne = blk.w - blk.z;
+  for (int k = lane; k <= nr; k += 32) cp_async4(&st.rp[k], rowptr + r0 + k);
+  const T* m = stage_span(st.buf, msgs + (int64_t)e0 * width, ne * width,
+                          lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  float* ob = out + ((int64_t)row0 + r0) * width;
+  const Div div(width);
+  for (int p = lane; p < nr * width; p += 32) {
+    const int r = div(p);
+    const int l = p - r * width;
+    const int ja = st.rp[r] - e0, jb = st.rp[r + 1] - e0;
+    if (ACCUM && ja == jb) continue;
+    float acc = 0.f, cmp = 0.f;
+    for (int j = ja; j < jb; ++j)
+      kahan_add(acc, cmp, to_f32(m[j * width + l]));
+    const double s = (double)acc - (double)cmp;
+    ob[p] = (float)(ACCUM ? (double)ob[p] + s : s);
+  }
+}
+
+// One warp sums edges [e0, e1) of one row or piece at its tile of 32
+// columns (blockIdx.y).  The tile's C columns and S = 64 / C edge slots
+// are the warp's 64 pairs q = lane + 32 k (k = 0, 1) as (column q % C,
+// slot q / C): slot s sums its column over edges e0 + s, e0 + s + S, ...
+// in edge order, compensated, with 8 loads of each of the thread's two
+// pairs in flight.  The pairs' float64 sums meet in `fold` (the warp's 64
+// doubles), where the thread of column c adds its slots in slot order and
+// calls store(column, sum).  Every thread of the warp must call it.
+template <typename T, class Store>
+__device__ __forceinline__ void warp_walk(const T* __restrict__ msgs, int e0,
+                                          int e1, int width, double* fold,
+                                          int lane, Store store) {
+  constexpr int D = 8;
+  for (int c0 = 32 * blockIdx.y; c0 < width; c0 += 32 * gridDim.y) {
+    const int C = min(width - c0, 32);
+    const int S = 64 / C;
+    float acc[2] = {0.f, 0.f}, cmp[2] = {0.f, 0.f};
+    int l[2], slot[2];
+    bool live[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = lane + 32 * k;
+      l[k] = c0 + q % C;
+      slot[k] = q / C;
+      live[k] = q < S * C;
+    }
+    for (int e = e0; e < e1; e += S * D) {
+      float v[2][D];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int u = 0; u < D; ++u) {
+          const int j = e + slot[k] + u * S;
+          v[k][u] = live[k] && j < e1
+                        ? to_f32(msgs[(int64_t)j * width + l[k]])
+                        : 0.f;
+        }
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int u = 0; u < D; ++u)
+          if (live[k] && e + slot[k] + u * S < e1)
+            kahan_add(acc[k], cmp[k], v[k][u]);
+    }
+    __syncwarp();  // the last pass's fold has been read
+    fold[lane] = (double)acc[0] - (double)cmp[0];
+    fold[lane + 32] = (double)acc[1] - (double)cmp[1];
+    __syncwarp();
+    for (int c = lane; c < C; c += 32) {
+      double s = fold[c];
+      for (int i = 1; i < S; ++i) s += fold[c + i * C];
+      store(c0 + c, s);
+    }
+  }
+}
+
+// One (row, column) pair per thread: column l walked down edges [e0, e1)
+// in edge order, compensated, 8 loads in flight, stored once at o.
+template <typename T, bool ACCUM>
+__device__ __forceinline__ void walk_pair(const T* __restrict__ msgs,
+                                          int e0, int e1, int l, int width,
+                                          float* o) {
+  constexpr int D = 8;
+  float acc = 0.f, cmp = 0.f;
+  for (int e = e0; e < e1; e += D) {
+    float v[D];
+#pragma unroll
+    for (int u = 0; u < D; ++u)
+      v[u] = e + u < e1 ? to_f32(msgs[(int64_t)(e + u) * width + l]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < D; ++u)
+      if (e + u < e1) kahan_add(acc, cmp, v[u]);
+  }
+  const double s = (double)acc - (double)cmp;
+  *o = (float)(ACCUM ? (double)*o + s : s);
+}
+
+// CTAs [0, block CTAs) take a row block per warp (staged), the rest a
+// (row, column) pair per thread of the listed rows: the plan's mid rows,
+// or with `every` each row (W = 1, where a thread a row needs no stage,
+// and W > kSpanWidth; the plan's blocks are then not read).  Cut rows and
+// rows of more than kWalkEdges edges are left to csr_walk_kernel.
+template <typename T, bool ACCUM>
+__global__ void __launch_bounds__(kSpanBlock) csr_span_kernel(
+    const T* __restrict__ msgs, const int* __restrict__ rowptr, Split sp,
+    Blocks bp, float* __restrict__ out, int n_rows, int width, int row0,
+    int every) {
+  // the warps' stages, dynamic: a launch without blocks takes none, which
+  // leaves room for more warps an SM
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int block_ctas =
+      every ? 0 : (bp.n_blocks + kSpanWarps - 1) / kSpanWarps;
+  const int b = blockIdx.x;
+  if (b < block_ctas) {
+    const int warp = threadIdx.x / 32;
+    const int i = b * kSpanWarps + warp;
+    if (i < bp.n_blocks)
+      span_block<T, ACCUM>(bp.blocks[i], msgs, rowptr,
+                           reinterpret_cast<SpanStage<T>*>(smem)[warp], out,
+                           width, row0, threadIdx.x & 31);
+    return;
+  }
+  const int64_t q = (int64_t)(b - block_ctas) * kSpanBlock + threadIdx.x;
+  const int n_listed = every ? n_rows : bp.n_mids;
+  if (q >= (int64_t)n_listed * width) return;
+  const int i = (int)(q / width);
+  const int row = every ? i : bp.mids[i];
+  const int l = (int)(q - (int64_t)i * width);
+  const int e0 = rowptr[row], e1 = rowptr[row + 1];
+  // a cut row (its pieces sum it), a walked row, or in the accumulate
+  // mode an empty one
+  if (e1 - e0 > kWalkEdges || e1 - e0 > sp.piece_len || (ACCUM && e0 == e1))
+    return;
+  walk_pair<T, ACCUM>(msgs, e0, e1, l, width,
+                      out + ((int64_t)row0 + row) * width + l);
+}
+
+// A warp per piece (into `partial`) and then per walked row (the plan's
+// rows of more than kWalkEdges edges that are not cut, into `out`), and
+// per tile of 32 columns (blockIdx.y): its own kernel, so that its two
+// pairs of 8 loads in flight a thread do not take the registers of
+// csr_span_kernel's many short walks.  (Tiles of 64 columns a warp lost
+// 35% to the parent's scatter at W=34, where S = 1 left 30 of the second
+// pairs idle; timed on an H100 with scripts/ab_kernel_variants.py --only
+// odd.)
+template <typename T, bool ACCUM>
+__global__ void __launch_bounds__(kSpanBlock) csr_walk_kernel(
+    const T* __restrict__ msgs, const int* __restrict__ rowptr, Split sp,
+    Blocks bp, float* __restrict__ out, int width, int row0) {
+  __shared__ double fold[kSpanWarps][64];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
+  const int w = blockIdx.x * kSpanWarps + warp;
+  if (w < sp.n_pieces) {
+    const int2 pc = sp.pieces[w];
+    double* part = sp.partial + (int64_t)w * width;
+    warp_walk(msgs, pc.x, pc.y, width, fold[warp], lane,
+              [&](int c, double s) { part[c] = s; });
+  } else if (w < sp.n_pieces + bp.n_walks) {
+    const int row = bp.walks[w - sp.n_pieces];
+    float* o = out + ((int64_t)row0 + row) * width;
+    warp_walk(msgs, rowptr[row], rowptr[row + 1], width, fold[warp], lane,
+              [&](int c, double s) {
+                o[c] = (float)(ACCUM ? (double)o[c] + s : s);
+              });
+  }
+}
+
+// V = 1: the short rows in one launch, the pieces and walked rows in a
+// second where there are any (see above).
+template <typename T, bool ACCUM>
+int span_dispatch(const int* rowptr, const T* msgs, const Split& sp,
+                  const Blocks& bp, float* out, int n, int w, int row0,
+                  cudaStream_t s) {
+  const bool every = w == 1 || w > kSpanWidth;
+  const int64_t pairs = (int64_t)(every ? n : bp.n_mids) * w;
+  const int64_t gx =
+      (every ? 0 : (bp.n_blocks + kSpanWarps - 1) / kSpanWarps) +
+      (pairs + kSpanBlock - 1) / kSpanBlock;
+  const int smem =
+      every || bp.n_blocks == 0 ? 0 : kSpanWarps * (int)sizeof(SpanStage<T>);
+  if (gx)
+    csr_span_kernel<T, ACCUM><<<(unsigned)gx, kSpanBlock, smem, s>>>(
+        msgs, rowptr, sp, bp, out, n, w, row0, every ? 1 : 0);
+  const int walks = sp.n_pieces + bp.n_walks;
+  if (walks)
+    csr_walk_kernel<T, ACCUM>
+        <<<dim3((walks + kSpanWarps - 1) / kSpanWarps, (w + 31) / 32),
+           kSpanBlock, 0, s>>>(msgs, rowptr, sp, bp, out, w, row0);
+  return 0;
+}
+
 template <typename T, bool ACCUM>
 int scatter_by_vec(const int* rowptr, const void* msgs, const Split& sp,
-                   float* out, int n, int w, int row0, int v, int tl,
-                   cudaStream_t s) {
+                   const Blocks& bp, float* out, int n, int w, int row0,
+                   int v, int tl, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
   const T* m = static_cast<const T*>(msgs);
   if (v == kVec)
     return scatter_dispatch<T, kVec, ACCUM>(rowptr, m, sp, out, n, w, row0,
                                             tl, s);
   if (v == 1)
-    return scatter_dispatch<T, 1, ACCUM>(rowptr, m, sp, out, n, w, row0, tl,
-                                         s);
+    return span_dispatch<T, ACCUM>(rowptr, m, sp, bp, out, n, w, row0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  Pointers are device pointers; `stream`
-// is a cudaStream_t.  The plan (pieces, rows, ptr, counts, piece_len) is
-// scatter_csr.py's RowSplit of this rowptr; `partial` is scratch of
-// n_pieces * (the output's width) doubles.  Each entry launches the row
-// kernel and, if any row is cut, the combine, and returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a geometry it does not
-// take).
+// is a cudaStream_t.  The plan (pieces, rows, ptr, counts, piece_len; row
+// blocks and mid rows) is scatter_csr.py's RowSplit of this rowptr;
+// `partial` is scratch of n_pieces * (the output's width) doubles.  Each
+// entry launches the row kernel and, if any row is cut, the combine, and
+// returns cudaGetLastError() (or cudaErrorInvalidValue for a geometry it
+// does not take).
+
+// The most edges and rows of a row block that the kernels take, and the
+// longest row a thread walks alone (scatter_csr.py's BLOCK_EDGES,
+// BLOCK_ROWS and WALK_EDGES).
+extern "C" void pgsd_csr_block_shape(int* edges, int* rows, int* walk) {
+  *edges = kBlockEdges;
+  *rows = kBlockRows;
+  *walk = kWalkEdges;
+}
 
 extern "C" int pgsd_csr_dual_spmm(const void* rowptr, const void* col,
                                   const void* val_a, const void* val_b,
@@ -482,11 +1056,16 @@ extern "C" int pgsd_csr_dual_spmm(const void* rowptr, const void* col,
                                   int row0, const void* pieces, int n_pieces,
                                   const void* rows, const void* ptr,
                                   int n_long, int piece_len, void* partial,
+                                  const void* blocks, int n_blocks,
+                                  const void* mids, int n_mids,
+                                  const void* walks, int n_walks,
                                   void* stream) {
   if (n_rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Split sp =
       split_of(pieces, n_pieces, rows, ptr, n_long, piece_len, partial);
+  const Blocks bp =
+      blocks_of(blocks, n_blocks, mids, n_mids, walks, n_walks);
   const int* rp = static_cast<const int*>(rowptr);
   const int* c = static_cast<const int*>(col);
   const float* va = static_cast<const float*>(val_a);
@@ -495,22 +1074,23 @@ extern "C" int pgsd_csr_dual_spmm(const void* rowptr, const void* col,
   const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
   const float* xf = static_cast<const float*>(x);
   if (x_is_bf16 && accum)
-    dual_dispatch<__nv_bfloat16, true>(rp, c, va, vb, xh, fa, sp, o, n_rows,
-                                       width, row0, s);
+    dual_dispatch<__nv_bfloat16, true>(rp, c, va, vb, xh, fa, sp, bp, o,
+                                       n_rows, width, row0, s);
   else if (x_is_bf16)
-    dual_dispatch<__nv_bfloat16, false>(rp, c, va, vb, xh, fa, sp, o, n_rows,
-                                        width, row0, s);
+    dual_dispatch<__nv_bfloat16, false>(rp, c, va, vb, xh, fa, sp, bp, o,
+                                        n_rows, width, row0, s);
   else if (accum)
-    dual_dispatch<float, true>(rp, c, va, vb, xf, fa, sp, o, n_rows, width,
-                               row0, s);
+    dual_dispatch<float, true>(rp, c, va, vb, xf, fa, sp, bp, o, n_rows,
+                               width, row0, s);
   else
-    dual_dispatch<float, false>(rp, c, va, vb, xf, fa, sp, o, n_rows, width,
-                                row0, s);
+    dual_dispatch<float, false>(rp, c, va, vb, xf, fa, sp, bp, o, n_rows,
+                                width, row0, s);
   return combine(sp, o, width, row0, accum != 0, s);
 }
 
 // `width` is x's; out has 2 * width columns and `partial` n_pieces *
-// 2 * width doubles.
+// 2 * width doubles.  The pair keeps a group per row for every row (the
+// plan's blocks are not read).
 extern "C" int pgsd_csr_pair_spmm(const void* rowptr, const void* col,
                                   const void* val_a, const void* val_b,
                                   const void* w_a, const void* w_b,
@@ -519,11 +1099,16 @@ extern "C" int pgsd_csr_pair_spmm(const void* rowptr, const void* col,
                                   int row0, const void* pieces, int n_pieces,
                                   const void* rows, const void* ptr,
                                   int n_long, int piece_len, void* partial,
+                                  const void* blocks, int n_blocks,
+                                  const void* mids, int n_mids,
+                                  const void* walks, int n_walks,
                                   void* stream) {
   if (n_rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Split sp =
       split_of(pieces, n_pieces, rows, ptr, n_long, piece_len, partial);
+  const Blocks bp =
+      blocks_of(blocks, n_blocks, mids, n_mids, walks, n_walks);
   const int* rp = static_cast<const int*>(rowptr);
   const int* c = static_cast<const int*>(col);
   const float* va = static_cast<const float*>(val_a);
@@ -534,50 +1119,58 @@ extern "C" int pgsd_csr_pair_spmm(const void* rowptr, const void* col,
   const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
   const float* xf = static_cast<const float*>(x);
   if (x_is_bf16 && accum)
-    pair_dispatch<__nv_bfloat16, true>(rp, c, va, vb, wa, wb, xh, fa, sp, o,
-                                       n_rows, width, row0, s);
+    pair_dispatch<__nv_bfloat16, true>(rp, c, va, vb, wa, wb, xh, fa, sp, bp,
+                                       o, n_rows, width, row0, s);
   else if (x_is_bf16)
-    pair_dispatch<__nv_bfloat16, false>(rp, c, va, vb, wa, wb, xh, fa, sp, o,
-                                        n_rows, width, row0, s);
+    pair_dispatch<__nv_bfloat16, false>(rp, c, va, vb, wa, wb, xh, fa, sp,
+                                        bp, o, n_rows, width, row0, s);
   else if (accum)
-    pair_dispatch<float, true>(rp, c, va, vb, wa, wb, xf, fa, sp, o, n_rows,
-                               width, row0, s);
+    pair_dispatch<float, true>(rp, c, va, vb, wa, wb, xf, fa, sp, bp, o,
+                               n_rows, width, row0, s);
   else
-    pair_dispatch<float, false>(rp, c, va, vb, wa, wb, xf, fa, sp, o, n_rows,
-                                width, row0, s);
+    pair_dispatch<float, false>(rp, c, va, vb, wa, wb, xf, fa, sp, bp, o,
+                                n_rows, width, row0, s);
   return combine(sp, o, 2 * width, row0, accum != 0, s);
 }
 
 // `lanes` (V) and `lane_threads` (TL) are the wrapper's geometry
 // (scatter_csr.py, _msg_geometry): V = 16 bytes of the message type when
-// every row of msgs starts 16-byte aligned, else 1; TL a power of two up
-// to 32.
+// every row of msgs starts 16-byte aligned, else 1 (csr_span_kernel,
+// which does not read TL); TL a power of two up to 32.
 extern "C" int pgsd_csr_scatter(const void* rowptr, const void* msgs,
                                 void* out, int n_rows, int width,
                                 int msgs_is_bf16, int accum, int row0,
                                 int lanes, int lane_threads,
                                 const void* pieces, int n_pieces,
                                 const void* rows, const void* ptr, int n_long,
-                                int piece_len, void* partial, void* stream) {
+                                int piece_len, void* partial,
+                                const void* blocks, int n_blocks,
+                                const void* mids, int n_mids,
+                                const void* walks, int n_walks,
+                                void* stream) {
   if (n_rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Split sp =
       split_of(pieces, n_pieces, rows, ptr, n_long, piece_len, partial);
+  const Blocks bp =
+      blocks_of(blocks, n_blocks, mids, n_mids, walks, n_walks);
   const int* rp = static_cast<const int*>(rowptr);
   float* o = static_cast<float*>(out);
   int err;
   if (msgs_is_bf16 && accum)
-    err = scatter_by_vec<__nv_bfloat16, true>(rp, msgs, sp, o, n_rows, width,
-                                              row0, lanes, lane_threads, s);
+    err = scatter_by_vec<__nv_bfloat16, true>(rp, msgs, sp, bp, o, n_rows,
+                                              width, row0, lanes,
+                                              lane_threads, s);
   else if (msgs_is_bf16)
-    err = scatter_by_vec<__nv_bfloat16, false>(rp, msgs, sp, o, n_rows, width,
-                                               row0, lanes, lane_threads, s);
+    err = scatter_by_vec<__nv_bfloat16, false>(rp, msgs, sp, bp, o, n_rows,
+                                               width, row0, lanes,
+                                               lane_threads, s);
   else if (accum)
-    err = scatter_by_vec<float, true>(rp, msgs, sp, o, n_rows, width, row0,
-                                      lanes, lane_threads, s);
+    err = scatter_by_vec<float, true>(rp, msgs, sp, bp, o, n_rows, width,
+                                      row0, lanes, lane_threads, s);
   else
-    err = scatter_by_vec<float, false>(rp, msgs, sp, o, n_rows, width, row0,
-                                       lanes, lane_threads, s);
+    err = scatter_by_vec<float, false>(rp, msgs, sp, bp, o, n_rows, width,
+                                       row0, lanes, lane_threads, s);
   if (err) return err;
   return combine(sp, o, width, row0, accum != 0, s);
 }

@@ -17,7 +17,10 @@ both sums of a lane, so no message tensor is written.
 
 Rows longer than ``PIECE_EDGES`` edges are cut into pieces that run in
 parallel, and a second launch adds each cut row's pieces in a fixed
-order.  Which rows are cut, and where, is a ``RowSplit`` plan of the
+order; where most rows are short, they are grouped into row blocks of
+fewer than ``BLOCK_EDGES`` edges and at most ``BLOCK_ROWS`` rows, one
+warp a block.  Which rows are cut, and
+where, and how the others are grouped, is a ``RowSplit`` plan of the
 rowptr (``plan_row_split``): ``ops/layout.py`` builds it once per CSR,
 beside the rowptr, and every entry takes it as ``split``.  Given none, an
 entry plans the rowptr itself, which costs a host sync per call, and
@@ -50,6 +53,19 @@ LAUNCHES: Dict[str, int] = {"csr_dual_spmm": 0, "csr_scatter_sum": 0,
 # some 60 us from device memory.
 PIECE_EDGES = 1024
 
+# Row blocks (CSR-Adaptive's): runs of consecutive short uncut rows (at
+# most BLOCK_EDGES // 2 edges each) holding fewer than BLOCK_EDGES edges
+# and at most BLOCK_ROWS rows, each of which one warp sums in about three
+# memory latencies (csrc/scatter_csr.cu, "Short rows"; the source's
+# kBlockEdges and kBlockRows, which bind() holds these to).
+BLOCK_EDGES = 32
+BLOCK_ROWS = 32
+# Uncut rows of more than WALK_EDGES edges are also listed on their own
+# (``RowSplit.walks``): at message widths off a multiple of 4 a warp
+# walks each of them, where a shorter row takes a thread a column (the
+# source's kWalkEdges, which bind() holds this to).
+WALK_EDGES = 64
+
 _SOURCE = "scatter_csr.cu"
 _lib = None
 
@@ -60,15 +76,26 @@ def reset_launch_counts() -> None:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures on a loaded build of the source."""
+    """Set the C signatures on a loaded build of the source, and check that
+    it takes the row blocks and walked rows that plan_row_split makes."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    plan = [p, i, p, p, i, i, p]
+    plan = [p, i, p, p, i, i, p, p, i, p, i, p, i]
     lib.pgsd_csr_dual_spmm.restype = i
     lib.pgsd_csr_dual_spmm.argtypes = [p] * 6 + [i] * 6 + plan + [p]
     lib.pgsd_csr_pair_spmm.restype = i
     lib.pgsd_csr_pair_spmm.argtypes = [p] * 8 + [i] * 6 + plan + [p]
     lib.pgsd_csr_scatter.restype = i
     lib.pgsd_csr_scatter.argtypes = [p, p, p] + [i] * 7 + plan + [p]
+    edges, rows, walk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.pgsd_csr_block_shape(ctypes.byref(edges), ctypes.byref(rows),
+                             ctypes.byref(walk))
+    if (edges.value, rows.value, walk.value) != (BLOCK_EDGES, BLOCK_ROWS,
+                                                 WALK_EDGES):
+        raise RuntimeError(
+            f"{_SOURCE} takes row blocks of {edges.value} edges and "
+            f"{rows.value} rows and walks rows of more than {walk.value} "
+            f"edges; scatter_csr.py plans {BLOCK_EDGES}, {BLOCK_ROWS} and "
+            f"{WALK_EDGES}")
     return lib
 
 
@@ -92,22 +119,30 @@ def _row_ids(rowptr: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class RowSplit:
-    """Rows of one CSR cut into pieces.
+    """Rows of one CSR cut into pieces, and the others grouped.
 
     ``rows`` [R] int32 are the cut rows in order; the pieces of ``rows[j]``
     are ``pieces[ptr[j]:ptr[j+1]]`` ([P, 2] int32 of (first edge, end
     edge), offsets of the rowptr the plan was made from), in edge order,
     each of at most ``piece_len`` edges.  Only the row's last piece may be
-    shorter."""
+    shorter.  Short uncut rows (at most ``BLOCK_EDGES // 2`` edges) lie in
+    ``blocks`` ([B, 4] int32 of (first row, end row, first edge, end
+    edge), in row order): runs of consecutive rows, each row whole, of
+    fewer than ``BLOCK_EDGES`` edges and at most ``BLOCK_ROWS`` rows.
+    ``mids`` [M] int32 are the other uncut rows, in order, and ``walks``
+    [K] int32 those of them of more than ``WALK_EDGES`` edges."""
 
     piece_len: int
     rows: torch.Tensor
     ptr: torch.Tensor
     pieces: torch.Tensor
+    blocks: torch.Tensor
+    mids: torch.Tensor
+    walks: torch.Tensor
 
     def __post_init__(self):
         # checked once here, so that a launch only checks the device
-        for name in ("rows", "ptr", "pieces"):
+        for name in ("rows", "ptr", "pieces", "blocks", "mids", "walks"):
             t = getattr(self, name)
             if t.dtype != torch.int32 or not t.is_contiguous():
                 raise TypeError(f"RowSplit.{name} must be contiguous int32")
@@ -115,33 +150,76 @@ class RowSplit:
                 raise ValueError("RowSplit tensors must share a device")
         if self.rows.dim() != 1 or \
                 self.ptr.shape != (self.rows.numel() + 1,) or \
-                self.pieces.dim() != 2 or self.pieces.shape[1] != 2:
-            raise ValueError("RowSplit needs rows [R], ptr [R+1] and "
-                             "pieces [P, 2]")
+                self.pieces.dim() != 2 or self.pieces.shape[1] != 2 or \
+                self.blocks.dim() != 2 or self.blocks.shape[1] != 4 or \
+                self.mids.dim() != 1 or self.walks.dim() != 1:
+            raise ValueError("RowSplit needs rows [R], ptr [R+1], pieces "
+                             "[P, 2], blocks [B, 4], mids [M] and walks "
+                             "[K]")
         if self.piece_len < 1:
             raise ValueError(f"piece_len={self.piece_len} must be positive")
 
+    def _pointers(self):
+        """The plan's C arguments that do not change: its tensors' device
+        pointers and counts, read once (a call's host work is most of a
+        short kernel's time)."""
+        args = self.__dict__.get("_args")
+        if args is None:
+            args = (self.pieces.data_ptr(), self.pieces.shape[0],
+                    self.rows.data_ptr(), self.ptr.data_ptr(),
+                    self.rows.numel(), self.piece_len,
+                    self.blocks.data_ptr(), self.blocks.shape[0],
+                    self.mids.data_ptr(), self.mids.numel(),
+                    self.walks.data_ptr(), self.walks.numel())
+            object.__setattr__(self, "_args", args)
+        return args
+
     def launch_args(self, width: int):
-        """The C arguments of the plan, and the float64 partials' scratch
-        they point at (None when no row is cut); the caller keeps the
-        scratch alive until the launch is enqueued."""
+        """The C arguments of the cut rows, and the float64 partials'
+        scratch they point at (None when no row is cut); the caller keeps
+        the scratch alive until the launch is enqueued."""
         n_pieces = self.pieces.shape[0]
         partial = None
         if n_pieces:
             partial = torch.empty((n_pieces, width), dtype=torch.float64,
                                   device=self.pieces.device)
-        return [self.pieces.data_ptr(), n_pieces, self.rows.data_ptr(),
-                self.ptr.data_ptr(), self.rows.numel(), self.piece_len,
+        return [*self._pointers()[:6],
                 0 if partial is None else partial.data_ptr()], partial
+
+    def block_args(self):
+        """The C arguments of the row blocks, the mid rows and the walked
+        rows."""
+        return list(self._pointers()[6:])
+
+
+def _positions(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """The indices of ``mask``'s ``count`` True entries, in order, without
+    a host sync (a scatter by the running count)."""
+    slot = torch.cumsum(mask, 0) - 1
+    out = torch.zeros(count + 1, dtype=torch.long, device=mask.device)
+    out.scatter_(0, torch.where(mask, slot, count),
+                 torch.arange(mask.numel(), device=mask.device))
+    return out[:count]
 
 
 def plan_row_split(rowptr: torch.Tensor, piece_len: int = PIECE_EDGES,
                    min_len: Optional[int] = None) -> RowSplit:
     """Cut the rows of ``rowptr`` longer than ``min_len`` edges (by
     default ``piece_len``, the CSR kernels' rule) into pieces of
-    ``piece_len`` edges.  ``min_len=-1`` lists every row, an empty one
-    with no pieces (the BSR kernel's rule).  Tensor ops on rowptr's
-    device, with one host sync for the piece count."""
+    ``piece_len`` edges, and group the short uncut rows into row blocks.
+    ``min_len=-1`` lists every row, an empty one with no pieces (the BSR
+    kernel's rule), and leaves no block.
+
+    A row block is a run of consecutive rows of at most ``BLOCK_EDGES //
+    2`` edges that start in the same window of ``BLOCK_EDGES // 2`` edges
+    and the same window of ``BLOCK_ROWS`` rows, so that it holds fewer
+    than ``BLOCK_EDGES`` edges.  The other uncut rows are mid rows, which
+    a thread group each sums.  Blocks are made only where such short rows
+    are at least half of the uncut rows: elsewhere every uncut row is a mid
+    row (a few blocks would cost the whole launch the block path's shared
+    memory).  The uncut rows of more than ``WALK_EDGES`` edges are listed
+    again as walks.  Tensor ops on rowptr's device, with one host read of
+    the counts."""
     if piece_len < 1:
         raise ValueError(f"piece_len={piece_len} must be positive")
     if rowptr.is_cuda and torch.cuda.is_current_stream_capturing():
@@ -151,20 +229,47 @@ def plan_row_split(rowptr: torch.Tensor, piece_len: int = PIECE_EDGES,
             "which capture forbids.  Pass the operator's plan, which "
             "ops/layout.py builds once per CSR")
     min_len = piece_len if min_len is None else min_len
+    dev = rowptr.device
     rp = rowptr.long()
     length = rp[1:] - rp[:-1]
-    rows = torch.nonzero(length > min_len).flatten()
-    counts = (length[rows] + piece_len - 1) // piece_len
+    n = length.numel()
+    cut = length > min_len
+    counts = torch.where(cut, (length + piece_len - 1) // piece_len, 0)
+    half = BLOCK_EDGES // 2
+    short = ~cut & (length <= half)
+    ids = torch.arange(n, device=dev)
+    # row r + 1 continues row r's block
+    joined = (short[1:] & short[:-1]
+              & (rp[1:-1] // half == rp[:-2] // half)
+              & (ids[1:] // BLOCK_ROWS == ids[:-1] // BLOCK_ROWS))
+    no = joined.new_zeros(1)
+    first = short & ~torch.cat([no, joined])
+    last = short & ~torch.cat([joined, no])
+    walk = ~cut & (length > WALK_EDGES)
+    n_long, n_pieces, n_blocks, n_short, n_uncut, n_walks = torch.stack(
+        [cut.sum(), counts.sum(), first.sum(), short.sum(),
+         (~cut).sum(), walk.sum()]).tolist()
+    if 2 * n_short < n_uncut:
+        short, n_blocks = torch.zeros_like(short), 0
+        first = last = short
+    mid = ~cut & ~short
+    rows = _positions(cut, n_long)
+    counts = counts[rows]
     ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
     owner = torch.repeat_interleave(
-        torch.arange(rows.numel(), device=rp.device), counts)
-    first = (rp[rows][owner]
-             + (torch.arange(owner.numel(), device=rp.device) - ptr[owner])
-             * piece_len)
-    end = torch.minimum(first + piece_len, rp[rows + 1][owner])
-    return RowSplit(piece_len=piece_len, rows=rows.to(torch.int32),
-                    ptr=ptr.to(torch.int32),
-                    pieces=torch.stack([first, end], 1).to(torch.int32))
+        torch.arange(n_long, device=dev), counts, output_size=n_pieces)
+    start = (rp[rows][owner]
+             + (torch.arange(n_pieces, device=dev) - ptr[owner]) * piece_len)
+    end = torch.minimum(start + piece_len, rp[rows + 1][owner])
+    r0 = _positions(first, n_blocks)
+    r1 = _positions(last, n_blocks) + 1
+    i32 = torch.int32
+    return RowSplit(
+        piece_len=piece_len, rows=rows.to(i32), ptr=ptr.to(i32),
+        pieces=torch.stack([start, end], 1).to(i32),
+        blocks=torch.stack([r0, r1, rp[r0], rp[r1]], 1).to(i32),
+        mids=_positions(mid, n_uncut - (n_short if n_blocks else 0)).to(i32),
+        walks=_positions(walk, n_walks).to(i32))
 
 
 # ---------------------------------------------------------------------------
@@ -200,17 +305,37 @@ def _check_split(split: RowSplit, device) -> None:
                          f"{device}")
 
 
-def _plan_args(rowptr, split: Optional[RowSplit], width: int, device):
+def _plan_args(rowptr, split: Optional[RowSplit], width: int, device,
+               blocks: bool = False):
     """The plan's launch arguments and their scratch (see
-    RowSplit.launch_args), planning rowptr when ``split`` is None."""
+    RowSplit.launch_args; with ``blocks``, its block_args too), planning
+    rowptr when ``split`` is None."""
     if split is None:
         split = plan_row_split(rowptr)
     _check_split(split, device)
-    return split.launch_args(width)
+    args, partial = split.launch_args(width)
+    return (args + split.block_args() if blocks else args), partial
 
 
-def _stream_ptr(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_ptr(device) -> int:
+    """The pointer of ``device``'s current CUDA stream (PyTorch's raw
+    accessor where it has one: a Stream object costs microseconds)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _on(device, fn, *args) -> int:
+    """``fn(*args)`` with ``device`` current: a kernel launches on the
+    current device.  The device guard is entered only when it is another
+    device than the current one."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def _add_rows_(out, rowptr, msgs, row0: int = 0) -> torch.Tensor:
@@ -285,13 +410,12 @@ def _edge_launch(name, entry, rowptr, col, vals, x, fa, out, row0, split):
                                              device=dev)
     if not accum:
         out = torch.empty((n, wo), dtype=torch.float32, device=dev)
-    plan, _partial = _plan_args(rowptr, split, wo, dev)
-    with torch.cuda.device(dev):
-        err = getattr(_library(), "pgsd_" + entry)(
-            rowptr.data_ptr(), col.data_ptr(), *(v.data_ptr() for v in vals),
-            x.data_ptr(), out.data_ptr(), n, w, fa,
-            int(x.dtype == torch.bfloat16), int(accum), row0, *plan,
-            _stream_ptr(dev))
+    plan, _partial = _plan_args(rowptr, split, wo, dev, blocks=True)
+    err = _on(dev, getattr(_library(), "pgsd_" + entry),
+              rowptr.data_ptr(), col.data_ptr(), *(v.data_ptr() for v in vals),
+              x.data_ptr(), out.data_ptr(), n, w, fa,
+              int(x.dtype == torch.bfloat16), int(accum), row0, *plan,
+              _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -415,18 +539,20 @@ MSG_SLOTS = 8
 
 
 def _msg_geometry(msgs: torch.Tensor):
-    """``(V, TL)`` of ``pgsd_csr_scatter`` for these messages: each thread
-    sums V neighbouring lanes of every P-th edge of a row, P = min(32 / TL,
-    MSG_SLOTS), with TL threads across a lane tile of TL * V lanes (tiles
-    past it go to blockIdx.y).  V is 16 bytes of the message type (4
-    float32, 8 bfloat16) when every message row starts 16-byte aligned,
-    else 1."""
+    """``(V, TL)`` of ``pgsd_csr_scatter`` for these messages.  V is 16
+    bytes of the message type (4 float32, 8 bfloat16) when every message
+    row starts 16-byte aligned: each thread sums V neighbouring lanes of
+    every P-th edge of a row, P = min(32 / TL, MSG_SLOTS), with TL threads
+    across a lane tile of TL * V lanes (tiles past it go to blockIdx.y).
+    Else V is 1, at any width: up to the kernel's kSpanWidth (36) lanes
+    the row blocks are staged as contiguous spans with 16-byte copies, and
+    the other rows are walked a thread a (row, column) pair, or a warp a
+    row past WALK_EDGES edges; TL is not read."""
     w = msgs.shape[1]
     v = 16 // msgs.element_size()
     if w % v or msgs.data_ptr() % 16:
-        v = 1
-    chunks = -(-w // v)
-    return v, min(32, 1 << (chunks - 1).bit_length())
+        return 1, 1
+    return v, min(32, 1 << (w // v - 1).bit_length())
 
 
 def _scatter_launch(name, rowptr, msgs, out, row0, split):
@@ -442,12 +568,11 @@ def _scatter_launch(name, rowptr, msgs, out, row0, split):
                                              device=dev)
     if not accum:
         out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    plan, _partial = _plan_args(rowptr, split, w, dev)
-    with torch.cuda.device(dev):
-        err = _library().pgsd_csr_scatter(
-            rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
-            int(msgs.dtype == torch.bfloat16), int(accum), row0,
-            *_msg_geometry(msgs), *plan, _stream_ptr(dev))
+    plan, _partial = _plan_args(rowptr, split, w, dev, blocks=True)
+    err = _on(dev, _library().pgsd_csr_scatter,
+              rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
+              int(msgs.dtype == torch.bfloat16), int(accum), row0,
+              *_msg_geometry(msgs), *plan, _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

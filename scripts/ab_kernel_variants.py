@@ -12,7 +12,9 @@ into ``build/ab_<kernel>/`` (each with its compiler report beside it, a
 ``.log``).  Then, case by case, each build is swapped in
 behind the port's wrappers and timed (20 calls back to back between two
 CUDA events, per call), in the order given and again in reverse, after its
-output has been held against the plain version.  Cases:
+output has been held against the plain version; then once more as the
+replay of a CUDA graph of 20 calls, the device's time without the host's
+work a call (a third number).  Cases:
 
   csr  K1 ``csr_dual_spmm`` on the magnet_mxu operator (chip_smoke.py's
        DSBM N=65,536), 2F=64 and 4 f32 and 2F=64 bf16; K2
@@ -24,7 +26,18 @@ output has been held against the plain version.  Cases:
        graph's), 2F=4 and 64 f32 and 2F=64 bf16, with the four cuSPARSE
        products of 2F=64 f32 in the same turns; ``csr_scatter_sum`` on the
        template's rowptr at W=8 and 128 f32, with ``torch.segment_reduce``
-       in the same turns.
+       in the same turns; K2 on block 0 of scripts/giant_digrac_torch.py's
+       operators (P_s at W=32, P_A at W=5, the walk dual at 2F=64 and the
+       A dual at 2K=10), f32 and bf16, with their ``addmm`` (f32) in the
+       same turns; ``csr_scatter_sum`` on chip_smoke.py's phase-10 CSRs
+       (the bench SNEA and epinions-size SNEA graphs at W=17 and 34, the
+       bench SiGAT motif 0 and motif stack at W=21 and 1), with
+       ``torch.segment_reduce`` in the same turns, and on power-law CSRs
+       of uncut rows of 40 to 1,024 edges at W=1, 5, 17, 21 and 34 and
+       from an unaligned base at W=64.  ``paths``: K1 on msgnn_link's flat operator
+       (N=9000) at 2F=8 and 128, K2 on block 0 of DGCN's streamed A_in at
+       W=32, K1 on the bench SGCN dual at 2F=128 and 64 and on the bench
+       DiGCL operator at W=128 and 64 (chip_smoke.py phases 7-11).
   bsr  K5 ``bsr_matmul`` on the bsr cell's operator (chip_smoke.py's
        N=8192 graph) and its transpose at W=2 and 32, with the dense
        ``torch.matmul`` and ``torch.sparse.mm`` on a BSR tensor timed in the
@@ -36,18 +49,36 @@ output has been held against the plain version.  Cases:
        2F=64), and on chip_smoke.py's hub CSR at 2F=64.
 
 ``--only a,b`` runs only the named groups of cases: ``dual``, ``giant``,
-``hub``, ``pair`` and ``scatter`` of ``csr``; ``template`` and ``hub`` of
-``sddmm``.
+``hub``, ``pair``, ``scatter``, ``giant_digrac``, ``odd`` and ``paths`` of
+``csr``;
+``template`` and ``hub`` of ``sddmm``.
+
+A build of ``scatter_csr.cu`` from before the row blocks (no
+``pgsd_csr_block_shape``) is called without the plan's block arguments,
+so the parent commit's source times against today's behind the same
+wrappers (``git show HEAD~1:<path> > build/scatter_csr_parent.cu``, with
+the parent's ``csr_common.cuh`` beside it; at V = 1 it is given the TL
+it was built for).  A build of another row-block shape
+(``-DPGSD_BLOCK_EDGES=16``, ``-DPGSD_BLOCK_ROWS=16``) or walked-row
+length (``-DPGSD_WALK_EDGES=32``, the longest row a thread walks alone
+at V = 1) is bound with scatter_csr's BLOCK_EDGES, BLOCK_ROWS and
+WALK_EDGES set to its own, and is given each CSR planned at them; only
+the cases that take their plan (``giant_digrac``, ``odd`` and
+``paths``) time it, the others leave it out.
 
 Run from the root of a checkout:
 
     python3 scripts/ab_kernel_variants.py csr new= old=build/scatter_csr_old.cu
+    python3 scripts/ab_kernel_variants.py csr --only giant_digrac,odd \
+        old=build/parent/scatter_csr.cu new= t16=-DPGSD_BLOCK_EDGES=16
     python3 scripts/ab_kernel_variants.py csr --only pair,scatter new= \
         maxreg=-maxrregcount=64
     python3 scripts/ab_kernel_variants.py bsr new= lineinfo=-lineinfo
     python3 scripts/ab_kernel_variants.py sddmm new= old=build/dual_sddmm_old.cu
 """
+import contextlib
 import ctypes
+import functools
 import os
 import subprocess
 import sys
@@ -63,10 +94,43 @@ from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (  # noqa: E402
     magnet_propagators, magnetic_template)
 
+# csr builds that read row blocks: their shape (edges, rows, walk)
+SHAPES = {}
 KERNELS = {"csr": ("scatter_csr.cu", scatter_csr),
            "bsr": ("bsr_spmm.cu", bsr_spmm),
            "sddmm": ("dual_sddmm.cu", dual_sddmm)}
 DEV = "cuda"
+
+
+class PlanlessBuild:
+    """A build of scatter_csr.cu from before the row blocks: its entries
+    take the plan without the six block arguments (blocks, mids and walks,
+    the last six before the stream), which a call here drops.  At V = 1 its pgsd_csr_scatter
+    reads TL, which the wrapper no longer computes: a call here gives it
+    the rule it was built for, min(32, the power of two >= W)."""
+
+    def __init__(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        plan = [p, i, p, p, i, i, p]
+        for name, head in (("pgsd_csr_dual_spmm", [p] * 6 + [i] * 6),
+                           ("pgsd_csr_pair_spmm", [p] * 8 + [i] * 6),
+                           ("pgsd_csr_scatter", [p, p, p] + [i] * 7)):
+            fn = getattr(lib, name)
+            fn.restype = i
+            fn.argtypes = head + plan + [p]
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "pgsd_csr_scatter":
+            return lambda *args: fn(*args[:-7], args[-1])
+
+        def scatter(*args):
+            args = list(args)
+            if args[8] == 1:  # V = 1: TL from the width
+                args[9] = min(32, 1 << (args[4] - 1).bit_length())
+            return fn(*args[:-7], args[-1])
+        return scatter
 
 
 def build_variants(kernel, variants):
@@ -97,8 +161,54 @@ def build_variants(kernel, variants):
                      for line in log.splitlines() if "spill stores" in line)
         print(f"{name} {variants[name]}: registers {regs[0]}-{regs[-1]}, "
               f"{spills} kernels spill")
-        libs[name] = module.bind(ctypes.CDLL(path))
+        lib = ctypes.CDLL(path)
+        if kernel == "csr" and not hasattr(lib, "pgsd_csr_block_shape"):
+            libs[name] = PlanlessBuild(lib)
+        elif kernel == "csr":
+            shape = [ctypes.c_int() for _ in range(3)]
+            lib.pgsd_csr_block_shape(*map(ctypes.byref, shape))
+            SHAPES[name] = tuple(v.value for v in shape)
+            with planned_as(SHAPES[name]):
+                libs[name] = module.bind(lib)
+        else:
+            libs[name] = module.bind(lib)
     return module, libs
+
+
+@contextlib.contextmanager
+def planned_as(shape):
+    """scatter_csr's BLOCK_EDGES, BLOCK_ROWS and WALK_EDGES set to
+    ``shape``."""
+    names = ("BLOCK_EDGES", "BLOCK_ROWS", "WALK_EDGES")
+    saved = [getattr(scatter_csr, k) for k in names]
+    for k, v in zip(names, shape):
+        setattr(scatter_csr, k, v)
+    try:
+        yield
+    finally:
+        for k, v in zip(names, saved):
+            setattr(scatter_csr, k, v)
+
+
+def per_build(libs, fn, plan):
+    """{build: call}: ``fn`` itself, or with ``plan`` (rowptr, split)
+    ``fn(split)``, rowptr planned anew for a build of another row-block
+    shape.  Without a plan, builds of another shape are left out (the
+    package's plan would overrun their stages)."""
+    own = (scatter_csr.BLOCK_EDGES, scatter_csr.BLOCK_ROWS,
+           scatter_csr.WALK_EDGES)
+    if plan is None:
+        return {n: fn for n in libs if SHAPES.get(n, own) == own}
+    rowptr, split = plan
+    made = {own: split}
+    calls = {}
+    for n in libs:
+        shape = SHAPES.get(n, own)
+        if shape not in made:
+            with planned_as(shape):
+                made[shape] = scatter_csr.plan_row_split(rowptr)
+        calls[n] = functools.partial(fn, made[shape])
+    return calls
 
 
 def per_call_ms(fn, reps=20):
@@ -118,24 +228,88 @@ def per_call_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def in_turns(module, libs, label, fn, extras=()):
-    """Time ``fn`` under every build, in order and then in reverse; each
-    (name, fn) of ``extras`` is timed in the same turns."""
-    runs = [(n, libs[n], fn) for n in libs] + [(n, None, f)
-                                                for n, f in extras]
+def graph_ms(fn, reps=20):
+    """Milliseconds per call of ``fn`` captured ``reps`` times into one
+    CUDA graph and replayed: the device's time alone, where a call's host
+    work (the wrapper's checks, its plan arguments, the launch) would
+    otherwise outlast a short kernel.  None where ``fn`` cannot be
+    captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def in_turns(module, libs, label, fn, extras=(), graphed=(), plan=None):
+    """Time ``fn`` under every build (see per_build), in order and then in
+    reverse; each (name, fn) of ``extras`` is timed in the same turns.
+    The builds, and the extras named in ``graphed``, are also timed as
+    replays of a CUDA graph of 20 calls (the third number)."""
+    runs = [(n, libs[n], f) for n, f in per_build(libs, fn, plan).items()
+            ] + [(n, None, f) for n, f in extras]
     times = {n: [] for n, _, _ in runs}
     for n, lib, f in runs + runs[::-1]:
         if lib is not None:
             module._lib = lib
         times[n].append(per_call_ms(f))
+    for n, lib, f in runs:
+        if lib is not None or n in graphed:
+            if lib is not None:
+                module._lib = lib
+            times[n].append(graph_ms(f))
     print(f"{label}: " + ", ".join(
-        f"{n} {t[0]:.4f}/{t[1]:.4f}" for n, t in times.items()), flush=True)
+        f"{n} " + "/".join("-" if v is None else f"{v:.4f}" for v in t)
+        for n, t in times.items()), flush=True)
 
 
-def check(module, libs, fn, want, tol):
-    for lib in libs.values():
-        module._lib = lib
-        torch.testing.assert_close(fn(), want, **tol)
+def check(module, libs, fn, want, tol, plan=None, row0=0):
+    """Hold every build's output against ``want`` at ``tol``; with
+    ``plan`` (rowptr, split; its rows at ``row0`` in the output), its cut
+    rows at chip_smoke.LIBRARY_TOL, as the hub CSR is held (a hub row's
+    compensated float32 pieces are ~1e-5 of its value from float64, which
+    ``tol`` misses where the row cancels to near 0).  A build that misses
+    is named with its worst element and that row's edges before the
+    script stops."""
+    bound = tol["atol"] + tol["rtol"] * want.abs()
+    if plan is not None:
+        cut = plan[1].rows.long() + row0
+        bound[cut] = (chip_smoke.LIBRARY_TOL["atol"]
+                      + chip_smoke.LIBRARY_TOL["rtol"] * want[cut].abs())
+    missed = []
+    for n, f in per_build(libs, fn, plan).items():
+        module._lib = libs[n]
+        excess = (f() - want).abs() - bound
+        if not bool((excess > 0).any()):
+            continue
+        flat = int(excess.argmax())
+        row, col = divmod(flat, want.shape[1])
+        where = f"row {row} col {col}"
+        if plan is not None and 0 <= row - row0 < plan[0].numel() - 1:
+            rp = plan[0]
+            where += f" ({int(rp[row - row0 + 1] - rp[row - row0])} edges)"
+        missed.append(f"{n}: {int((excess > 0).sum())} elements off, the "
+                      f"worst by {float(excess.max()):.3e} at {where}, "
+                      f"value {float(want.view(-1)[flat]):.4e}")
+    if missed:
+        raise AssertionError("builds off their plain version: "
+                             + "; ".join(missed))
 
 
 def csr_cases(module, libs, gen, want):
@@ -164,6 +338,234 @@ def csr_cases(module, libs, gen, want):
             pair_cases(module, libs, gen, t)
         if want("scatter"):
             scatter_cases(module, libs, gen, t)
+    if want("giant_digrac"):
+        giant_digrac_cases(module, libs, gen)
+    if want("odd"):
+        odd_cases(module, libs, gen)
+    if want("paths"):
+        path_cases(module, libs, gen)
+
+
+def accum_turns(module, libs, gen, D, width, label, single, library):
+    """K2 on block 0 of ``D`` (a dual, or a ``single_view``) at ``width``,
+    f32 and bf16, into a zero output; with ``library`` one cuSPARSE
+    ``addmm`` a value array (f32) in the same turns."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    b = D.blocks[0]
+    table = D.hot_ids.numel() if D.hot_blocks else D.num_cols
+    rows = b.rowptr.numel() - 1
+    fa = width if single else width // 2
+    s = slice(b.e0, b.e1)
+    out = torch.zeros(D.num_nodes, width, device=DEV)
+    for dt in (f32, bf16):
+        x = torch.randn(table, width, device=DEV, generator=gen).to(dt)
+        args = (b.rowptr, D.col[s], D.val_a[s], D.val_b[s], x, fa)
+        check(module, libs, lambda split: scatter_csr.csr_dual_spmm_accum(
+            *args, out.clone(), b.row0, split),
+            scatter_csr.csr_dual_spmm_accum_plain(*args, out, b.row0),
+            chip_smoke.F32_TOL if dt == f32 else chip_smoke.BF16_TOL,
+            plan=(b.rowptr, b.split), row0=b.row0)
+
+        def k2(split, args=args):
+            return scatter_csr.csr_dual_spmm_accum(*args, out, b.row0, split)
+
+        extras = ()
+        if dt == f32 and library:
+            rp, cl = b.rowptr.long(), args[1].long()
+            o = out[b.row0:b.row0 + rows]
+            mats = [torch.sparse_csr_tensor(rp, cl, v, size=(rows, table))
+                    for v in ((args[2],) if single else args[2:4])]
+            if single:
+                lib = [(mats[0], o.contiguous(), x)]
+            else:
+                lib = [(m, o[:, h].contiguous(), x[:, h].contiguous())
+                       for m, h in zip(mats, (slice(0, fa), slice(fa, None)))]
+            extras += ((f"{len(lib)}x addmm", lambda lib=lib: [
+                torch.addmm(oo, m, xx) for m, oo, xx in lib]),)
+        in_turns(module, libs,
+                 f"K2 {label} block 0 {'W' if single else '2F'}={width} "
+                 f"{str(dt)[6:]} (rows={rows} nnz={b.e1 - b.e0})",
+                 k2, extras, graphed=[n for n, _ in extras],
+                 plan=(b.rowptr, b.split))
+
+
+def giant_digrac_cases(module, libs, gen):
+    """K2 on block 0 of the giant DIGRAC operators (chip_smoke.py phase
+    14's cases), with one cuSPARSE ``addmm`` a value array (f32) in the
+    same turns."""
+    script = chip_smoke.giant_digrac_script()
+    g = chip_smoke.GIANT
+    n = g["nodes"]
+    row, col = script.powerlaw_digraph(n, g["edges"], g["alpha"],
+                                       seed=chip_smoke.GIANT_DIGRAC["seed"])
+    ei = np.vstack([row, col])
+    w = np.ones(len(row), np.float32)
+    for form, cases in chip_smoke.GIANT_DIGRAC_CASES.items():
+        ops = dict(script.named_operators(*script.operators(
+            ei, w, n, form == "fused", torch.device(DEV), {})))
+        for label, width in cases:
+            single = form == "pair"
+            d = script.kernel_view(ops[label])
+            D = chip_smoke.single_view(d) if single else d
+            accum_turns(module, libs, gen, D, width, f"giant digrac {label}",
+                        single, library=True)
+        del ops
+
+
+def dual_turns(module, libs, gen, D, width, label, single):
+    """K1 on flat ``D`` at ``width``, f32, against its plain version, then
+    timed in turns."""
+    fa = width if single else width // 2
+    x = torch.randn(D.num_cols, width, device=DEV, generator=gen)
+    args = (D.rowptr, D.col, D.val_a, D.val_b, x, fa)
+    plan = (D.rowptr, D.row_split)
+    check(module, libs,
+          lambda split: scatter_csr.csr_dual_spmm(*args, split),
+          scatter_csr.csr_dual_spmm_plain(*args), chip_smoke.F32_TOL, plan)
+    in_turns(module, libs,
+             f"K1 {label} {'W' if single else '2F'}={width} float32 "
+             f"(rows={D.rowptr.numel() - 1} nnz={D.col.numel()})",
+             lambda split: scatter_csr.csr_dual_spmm(*args, split),
+             plan=plan)
+
+
+def path_cases(module, libs, gen):
+    """The other K1/K2 cases that PERF.md times on the paths: K1 on
+    msgnn_link's flat operator (chip_smoke.py phase 7, N=9000) at 2F=8 and
+    128; K2 on block 0 of DGCN's streamed A_in at W=32 (phase 8); K1 on
+    the bench SGCN dual at 2F=128 and 64 (phase 9); K1 on the bench DiGCL
+    operator at W=128 and 64 (phase 11)."""
+    import importlib
+
+    from pytorch_geometric_signed_directed_tpu_torch.experiments import (
+        EXPERIMENTS)
+    from pytorch_geometric_signed_directed_tpu_torch.graph import (
+        directed_features_in_out, gcn_norm_propagator)
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed.sgcn import (
+        prepare_sgcn_inputs)
+
+    mod = importlib.import_module(
+        "pytorch_geometric_signed_directed_tpu_torch.experiments."
+        + EXPERIMENTS["msgnn_link"][0])
+    argv = ["--dataset", "synthetic", "--num_nodes",
+            str(chip_smoke.EXPERIMENT_N), "--device", DEV]
+    D = mod.build_inputs(mod.parser().parse_args(argv), DEV).lap.dual
+    for width in (8, 128):
+        dual_turns(module, libs, gen, D, width, "msgnn_link flat", False)
+    del D
+    n, ei, w, _, _, _ = chip_smoke.digcn_graph()
+    _, e_in, w_in, _, _ = directed_features_in_out(ei, n, w)
+    A_in = chip_smoke.single_view(chip_smoke.csr_of(
+        gcn_norm_propagator(e_in, w_in, n, device=DEV)))
+    accum_turns(module, libs, gen, A_in, chip_smoke.DGCN_HIDDEN,
+                "dgcn A_in", True, library=False)
+    del A_in
+    c = chip_smoke.BENCH_SGCN
+    rng = np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    edge_s = np.column_stack([
+        rng.integers(0, c["nodes"], m), rng.integers(0, c["nodes"], m),
+        np.concatenate([np.ones(c["e_pos"]), -np.ones(c["e_neg"])])
+    ]).astype(np.int64)
+    emb = rng.standard_normal((c["nodes"], c["dim"])).astype(np.float32)
+    D = prepare_sgcn_inputs(c["nodes"], edge_s, in_dim=c["dim"],
+                            init_emb=emb, fused=True, device=DEV)[3]
+    for width in (2 * c["dim"], c["dim"]):
+        dual_turns(module, libs, gen, D, width, "bench sgcn dual", False)
+    del D
+    c = chip_smoke.BENCH_DIGCL
+    edge_index, w, _, _ = chip_smoke.slice_graph(c["nodes"], c["avg_deg"], 0)
+    P = chip_smoke.single_view(chip_smoke.csr_of(gcn_norm_propagator(
+        edge_index, w, c["nodes"], mode="auto", device=DEV)))
+    for width in (128, 64):
+        dual_turns(module, libs, gen, P, width, "bench digcl", True)
+
+
+def odd_cases(module, libs, gen):
+    """``csr_scatter_sum`` at widths off a multiple of 4 on chip_smoke.py
+    phase 10's CSRs, and on long_row_csr() at W=1, 5, 17, 21 and 34 and
+    from a base off 16 bytes at W=64, with ``torch.segment_reduce`` in the
+    same turns."""
+    cases = [(label, p.rowptr, p.split, width, chip_smoke.graph_text(p), 0)
+             for label, p, width in attention_csrs()]
+    rowptr, split, text = long_row_csr()
+    cases += [("long rows", rowptr, split, w, text, 0)
+              for w in (1, 5, 17, 21, 34)]
+    cases.append(("long rows unaligned", rowptr, split, 64, text, 1))
+    for label, rowptr, split, width, text, shift in cases:
+        e = int(rowptr[-1])
+        flat = torch.randn(e * width + shift, device=DEV, generator=gen)
+        msgs = flat[shift:].view(e, width)
+
+        def k1(split, msgs=msgs, rowptr=rowptr):
+            return scatter_csr.csr_scatter_sum(rowptr, msgs, split)
+
+        check(module, libs, k1,
+              scatter_csr.csr_scatter_sum_plain(rowptr, msgs),
+              chip_smoke.F32_TOL, (rowptr, split))
+        offsets = rowptr.long()
+        extras = (("segment_reduce", lambda msgs=msgs, offsets=offsets:
+                   torch.segment_reduce(msgs, "sum", offsets=offsets,
+                                        axis=0)),)
+        in_turns(module, libs, f"K1 scatter {label} W={width} float32 "
+                 f"({text})", k1, extras, graphed=("segment_reduce",),
+                 plan=(rowptr, split))
+
+
+def long_row_csr():
+    """A power-law CSR with a tail of uncut rows: 8,192 rows of 40 to 1,024
+    edges (log-uniform) among 24,576 rows of 1 to 39 (Zipf), in a random
+    order; its rowptr, plan and a line of text."""
+    rng = np.random.default_rng(14)
+    lengths = np.concatenate([
+        np.exp(rng.uniform(np.log(40), np.log(1024), 8192)).astype(np.int64),
+        np.minimum(rng.zipf(2.0, 24_576), 39)])
+    lengths = lengths[rng.permutation(len(lengths))]
+    rowptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32)).to(DEV)
+    return (rowptr, scatter_csr.plan_row_split(rowptr),
+            f"rows={len(lengths)} nnz={int(lengths.sum())} "
+            f"longest={int(lengths.max())}")
+
+
+def attention_csrs():
+    """(label, ScatterPlan, width) of chip_smoke.py phase 10's cases: the
+    bench SNEA and epinions-size SNEA graphs (g_pos at W=17, g_cat at
+    34), the bench SiGAT motif 0 at W=21 and its motif stack by
+    destination (W=21 and 1) and by source (W=21)."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        prepare_sigat_inputs, snea_graphs, split_signed_edges)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral.features \
+        import create_spectral_features
+
+    out = []
+    for name, c in (("bench snea", chip_smoke.BENCH_SNEA),
+                    ("snea epinions", chip_smoke.SNEA_EPINIONS)):
+        n, rng = c["nodes"], np.random.default_rng(0)
+        pos = np.vstack([rng.integers(0, n, c["e_pos"]),
+                         rng.integers(0, n, c["e_pos"])])
+        neg = np.vstack([rng.integers(0, n, c["e_neg"]),
+                         rng.integers(0, n, c["e_neg"])])
+        g_pos, _, g_cat = snea_graphs(pos, neg, n, device=DEV)
+        half = c["dim"] // 2
+        out += [(f"{name} g_pos", g_pos.plan, 1 + half),
+                (f"{name} g_cat", g_cat.plan, 2 + 2 * half)]
+    c = chip_smoke.BENCH_MOTIF
+    n, dim, rng = c["nodes"], c["dim"], np.random.default_rng(0)
+    m = c["e_pos"] + c["e_neg"]
+    edges = np.column_stack([
+        rng.integers(0, n, m), rng.integers(0, n, m),
+        np.concatenate([np.ones(c["e_pos"]), -np.ones(c["e_neg"])])
+    ]).astype(np.int64)
+    emb = create_spectral_features(*split_signed_edges(edges), n, dim)
+    lists = prepare_sigat_inputs(n, edges, in_dim=dim, init_emb=emb,
+                                 device=DEV)[3]
+    stack = prepare_sigat_inputs(n, edges, in_dim=dim, init_emb=emb,
+                                 fused=True, device=DEV)[3]
+    return out + [("sigat motif 0", lists[0].plan, dim + 1),
+                  ("sigat stack by destination", stack.g.plan, dim + 1),
+                  ("sigat stack by source", stack.src_plan, dim + 1),
+                  ("sigat stack by destination", stack.g.plan, 1)]
 
 
 def pair_cases(module, libs, gen, t):

@@ -57,6 +57,8 @@ PORT_KERNELS = (
     ("PairSource", "csr_pair_spmm (K1/K2)"),
     ("DualSource", "csr_dual_spmm (K1/K2)"),
     ("csr_msgs_kernel", "csr_scatter_sum (K1/K2)"),
+    ("csr_span_kernel", "csr_scatter_sum (K1/K2)"),
+    ("csr_walk_kernel", "csr_scatter_sum (K1/K2)"),
     ("reduce_partials_kernel", "csr_dual_sddmm dq sum (K3/K4)"),
     ("combine_pieces_kernel", "cut-row combine (K1-K4)"),
     ("bsr_", "bsr_spmm (K5)"),

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 PORT = "pytorch_geometric_signed_directed_tpu_torch"
 
 REFERENCE_API = {

@@ -20,6 +20,8 @@ from pytorch_geometric_signed_directed_tpu_torch.ops import (
     segment_softmax, segment_sum)
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import scatter_csr
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 OPS_TOL = dict(rtol=1e-5, atol=1e-5)
 
 

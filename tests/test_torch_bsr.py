@@ -31,6 +31,8 @@ from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import bsr_spmm
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnet_propagators)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # float32 at HIGHEST on both sides, summed in other orders
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

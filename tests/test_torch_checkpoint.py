@@ -15,6 +15,8 @@ from pytorch_geometric_signed_directed_tpu_torch.train import (
     Trainer, edges_per_second, masked_nll, restore_checkpoint,
     save_checkpoint, time_fn, trace)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 
 def problem(seed=0):
     gen = torch.Generator().manual_seed(seed)

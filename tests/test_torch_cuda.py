@@ -1116,3 +1116,162 @@ def test_sharded_snea_forward_on_card(card):
         out = model(sgraphs)
         assert scatter_csr.LAUNCHES["csr_scatter_sum"] == before + 4 * 4
     torch.testing.assert_close(out, flat, rtol=1e-4, atol=1e-5)
+
+
+# --- row blocks: short rows and widths off a multiple of 4 -------------------
+
+SHORT_KINDS = ("one_edge", "power_law", "empty", "block_length", "hub")
+
+
+def short_row_csr(kind, seed, device):
+    """A CSR for the kernels' row blocks: one-edge rows; 2-4-edge
+    power-law rows; rows of which half are empty; rows of BLOCK_EDGES
+    edges and one more beside short ones; or a hub row (cut into pieces)
+    beside one- and two-edge rows.  Returns rowptr, its plan and the row
+    lengths."""
+    rng = np.random.default_rng(seed)
+    T = scatter_csr.BLOCK_EDGES
+    n = 20_000
+    if kind == "one_edge":
+        lengths = np.ones(n, np.int64)
+    elif kind == "power_law":
+        lengths = np.minimum(rng.zipf(2.0, n) + 1, 4)
+        lengths[rng.random(n) < 0.1] = 0
+    elif kind == "empty":
+        lengths = rng.integers(0, 2, n) * rng.integers(1, 4, n)
+    elif kind == "block_length":
+        lengths = np.tile([T, T + 1, 1, 0, T // 2, T // 2 + 1, 2], n // 7)
+    else:
+        lengths = np.concatenate([rng.integers(1, 3, n // 2), [200_000],
+                                  rng.integers(1, 3, n // 2)])
+    rowptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32)).to(device)
+    split = scatter_csr.plan_row_split(rowptr)
+    assert split.blocks.shape[0] > 0
+    return rowptr, split, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [False, True], ids=["plain", "accum"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [1, 5, 10, 32, 64])
+@pytest.mark.parametrize("kind", SHORT_KINDS)
+def test_dual_on_short_row_blocks_on_card(card, kind, width, dtype, accum):
+    """K1 and K2 (``csr_dual_spmm[_accum]``) on CSRs of short rows, which
+    the kernel sums by row block: against the plain version, the same
+    bits twice, rows without edges 0 (plain) or untouched (accumulate)."""
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    rowptr, split, lengths = short_row_csr(kind, width, card)
+    n, e, m = len(lengths), int(lengths.sum()), 5000
+    gen = torch.Generator(device=card).manual_seed(width)
+    col = torch.randint(0, m, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    va, vb = torch.randn(2, e, generator=gen, device=card)
+    x = torch.randn(m, width, generator=gen, device=card).to(mdt)
+    args = (rowptr, col, va, vb, x, width // 2)
+    empty = torch.from_numpy(lengths == 0).to(card)
+    if accum:
+        row0 = 3
+        out0 = torch.randn(n + 7, width, generator=gen, device=card)
+        got = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), row0,
+                                              split)
+        want = scatter_csr.csr_dual_spmm_accum_plain(*args, out0, row0)
+        again = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), row0,
+                                                split)
+        inner = slice(row0, row0 + n)
+        assert torch.equal(got[inner][empty], out0[inner][empty])
+        assert torch.equal(got[:row0], out0[:row0])
+        assert torch.equal(got[row0 + n:], out0[row0 + n:])
+    else:
+        got = scatter_csr.csr_dual_spmm(*args, split)
+        want = scatter_csr.csr_dual_spmm_plain(*args)
+        again = scatter_csr.csr_dual_spmm(*args, split)
+        assert torch.all(got[empty] == 0)
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, again)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", list(range(1, 41)) + [128])
+def test_scatter_at_every_width_on_card(card, width, dtype):
+    """K1 ``csr_scatter_sum`` and K2 ``csr_scatter_accum`` at widths 1-40
+    and 128 on power-law short rows beside rows around the block length
+    and a hub row cut into pieces, with message rows that start 16-byte
+    aligned and a base that does not: against the plain version, the
+    same bits twice, rows without edges 0 or untouched."""
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    rng = np.random.default_rng(width)
+    T = scatter_csr.BLOCK_EDGES
+    lengths = np.concatenate([
+        np.minimum(rng.zipf(2.0, 3000), 6) * (rng.random(3000) > 0.1),
+        [T, T + 1, 3000, 0, 200, 1]])
+    rowptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32)).to(card)
+    split = scatter_csr.plan_row_split(rowptr)
+    n, e = len(lengths), int(lengths.sum())
+    empty = torch.from_numpy(lengths == 0).to(card)
+    gen = torch.Generator(device=card).manual_seed(width)
+    flat = torch.randn(e * width + 3, generator=gen, device=card).to(mdt)
+    aligned = flat[:e * width].view(e, width)
+    shifted = flat[3:].view(e, width)
+    assert shifted.data_ptr() % 16 != 0
+    out0 = torch.randn(n + 2, width, generator=gen, device=card)
+    for msgs in (aligned, shifted):
+        got = scatter_csr.csr_scatter_sum(rowptr, msgs, split)
+        torch.testing.assert_close(
+            got, scatter_csr.csr_scatter_sum_plain(rowptr, msgs), **tol)
+        assert torch.equal(got, scatter_csr.csr_scatter_sum(rowptr, msgs,
+                                                            split))
+        assert torch.all(got[empty] == 0)
+        acc = scatter_csr.csr_scatter_accum(rowptr, msgs, out0.clone(), 1,
+                                            split)
+        torch.testing.assert_close(
+            acc, scatter_csr.csr_scatter_accum_plain(rowptr, msgs, out0, 1),
+            **tol)
+        assert torch.equal(acc[1:n + 1][empty], out0[1:n + 1][empty])
+        assert torch.equal(acc, scatter_csr.csr_scatter_accum(
+            rowptr, msgs, out0.clone(), 1, split))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [1, 5, 17, 21, 34, 64, 65])
+def test_scatter_on_long_uncut_rows_on_card(card, width, dtype):
+    """``csr_scatter_sum`` and ``csr_scatter_accum`` on uncut rows of 40
+    to 1,024 edges (at V = 1 a warp walks each row past 64 edges) among
+    power-law short rows, message rows aligned and from a base off 16
+    bytes: against the plain version, the same bits twice."""
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    rng = np.random.default_rng(width)
+    lengths = np.concatenate([
+        np.exp(rng.uniform(np.log(40), np.log(1024), 400)).astype(np.int64),
+        [63, 64, 65, 1024], np.minimum(rng.zipf(2.0, 1200), 39)])
+    lengths = lengths[rng.permutation(len(lengths))]
+    rowptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(lengths)]).astype(np.int32)).to(card)
+    split = scatter_csr.plan_row_split(rowptr)
+    assert split.rows.numel() == 0
+    n, e = len(lengths), int(lengths.sum())
+    gen = torch.Generator(device=card).manual_seed(width)
+    flat = torch.randn(e * width + 1, generator=gen, device=card).to(mdt)
+    out0 = torch.randn(n, width, generator=gen, device=card)
+    for msgs in (flat[:e * width].view(e, width), flat[1:].view(e, width)):
+        got = scatter_csr.csr_scatter_sum(rowptr, msgs, split)
+        torch.testing.assert_close(
+            got, scatter_csr.csr_scatter_sum_plain(rowptr, msgs), **tol)
+        assert torch.equal(got, scatter_csr.csr_scatter_sum(rowptr, msgs,
+                                                            split))
+        acc = scatter_csr.csr_scatter_accum(rowptr, msgs, out0.clone(), 0,
+                                            split)
+        torch.testing.assert_close(
+            acc, scatter_csr.csr_scatter_accum_plain(rowptr, msgs, out0),
+            **tol)
+        assert torch.equal(acc, scatter_csr.csr_scatter_accum(
+            rowptr, msgs, out0.clone(), 0, split))
+    torch.cuda.synchronize()

@@ -24,6 +24,8 @@ from pytorch_geometric_signed_directed_tpu_torch.utils.general import (
 from pytorch_geometric_signed_directed_tpu_torch.utils.signed import (
     sampling)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 TASKS = ["existence", "direction", "three_class_digraph", "sign",
          "four_class_signed_digraph", "five_class_signed_digraph"]
 SIGNED = {"sign", "four_class_signed_digraph", "five_class_signed_digraph"}

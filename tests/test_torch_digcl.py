@@ -32,6 +32,8 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (
 from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 from pytorch_geometric_signed_directed_tpu_torch.utils import drop_feature
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # float32 forward, losses and gradients
 TOL = dict(rtol=1e-5, atol=1e-5)
 # five Adam steps

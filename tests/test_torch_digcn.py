@@ -42,6 +42,8 @@ from pytorch_geometric_signed_directed_tpu_torch.nn import (
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     appr_directed_adj, second_directed_adj)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # the tolerance of tests/test_torch_msgnn.py
 TOL = dict(rtol=2e-4, atol=2e-4)
 TIERS = ["dense", "segment", "mxu"]

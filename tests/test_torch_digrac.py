@@ -34,6 +34,8 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import features
 from pytorch_geometric_signed_directed_tpu_torch.utils import (
     Prob_Imbalance_Loss, adjusted_rand_score)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 # the model tolerance of tests/test_torch_msgnn.py: sums in other orders
 # through two MLPs, hops and a softmax

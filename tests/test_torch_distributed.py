@@ -13,6 +13,8 @@ import torch
 
 from pytorch_geometric_signed_directed_tpu_torch import parallel
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -62,6 +62,8 @@ from pytorch_geometric_signed_directed_tpu_torch.experiments import (
     msgnn_link, msgnn_node, run, sssnet)
 from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 N = 80
 

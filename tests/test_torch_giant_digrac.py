@@ -31,6 +31,8 @@ from pytorch_geometric_signed_directed_tpu_torch.ops import layout, spmm
 from pytorch_geometric_signed_directed_tpu_torch.utils import (
     Prob_Imbalance_Loss)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, E, K, HOP, HIDDEN, STEPS, SEED = 3000, 20_000, 5, 2, 32, 5, 0
 # every operator split (64 hot columns) and streamed (blocks of 8,000)

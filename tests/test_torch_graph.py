@@ -21,6 +21,8 @@ from pytorch_geometric_signed_directed_tpu_torch import graph
 from pytorch_geometric_signed_directed_tpu_torch.ops import layout, spmm
 from pytorch_geometric_signed_directed_tpu_torch.spectral import appr
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # f32 applies: both packages sum each row in their own order
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 TIERS = ["dense", "segment", "mxu"]

@@ -25,6 +25,8 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (
 from pytorch_geometric_signed_directed_tpu_torch.utils import (
     meta_graph_generation)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 assert jx  # the JAX package is the reference
 
 

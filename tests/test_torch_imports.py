@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "pytorch_geometric_signed_directed_tpu_torch"
 # the card's machine has no scikit-learn, so the port does without it

@@ -37,6 +37,8 @@ from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import scatter_csr
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnet_propagators)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # f32: the port sums each row in edge order, the TPU kernels in one-hot
 # matmul order — the sums agree to rounding, not bit for bit

@@ -16,6 +16,8 @@ from pytorch_geometric_signed_directed_tpu.data import load_real as jx_load
 from pytorch_geometric_signed_directed_tpu_torch.data import load_real
 from pytorch_geometric_signed_directed_tpu_torch.data import schema_files
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 FIELDS = ("edge_index", "edge_weight", "x", "y", "train_mask", "val_mask",
           "test_mask", "seed_mask", "stopping_mask")
 

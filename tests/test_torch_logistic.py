@@ -29,6 +29,8 @@ from pytorch_geometric_signed_directed_tpu_torch.utils.directed import (
 from pytorch_geometric_signed_directed_tpu_torch.utils.general import (
     evaluation, logistic)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 METRIC_TOL = dict(rtol=1e-12, atol=1e-12)
 
 

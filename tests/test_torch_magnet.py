@@ -22,6 +22,8 @@ from pytorch_geometric_signed_directed_tpu_torch.nn import (
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnet_propagators, magnetic_laplacian)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # the tolerance of the JAX package's own MagNet parity test: Chebyshev
 # recurrences and einsums in float32, summed in other orders
 TOL = dict(rtol=2e-4, atol=2e-4)

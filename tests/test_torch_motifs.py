@@ -25,6 +25,8 @@ from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
     gat_conv, motif_stack, motifs, sdgnn, sigat)
 from pytorch_geometric_signed_directed_tpu_torch.ops import segment
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 AGGREGATES = [("mxu", "mxu"), ("segment", "xla")]
 

@@ -24,6 +24,8 @@ from pytorch_geometric_signed_directed_tpu_torch.nn import (
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnet_propagators)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # the tolerance of tests/test_torch_magnet.py
 TOL = dict(rtol=2e-4, atol=2e-4)
 TIERS = ["dense", "segment", "mxu", "bsr"]

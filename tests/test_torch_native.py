@@ -20,6 +20,8 @@ from pytorch_geometric_signed_directed_tpu_torch.data import (
 from pytorch_geometric_signed_directed_tpu_torch.ops import coalesce
 from pytorch_geometric_signed_directed_tpu_torch.spectral import magnetic
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -50,6 +50,8 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnet_propagators, magnetic_template, template_dual_apply,
     template_propagators)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # dq across shards: per-shard partials summed in another order
 # (tests/test_parallel.py holds the JAX package's sharded dq at 1e-3)

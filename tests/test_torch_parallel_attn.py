@@ -38,6 +38,8 @@ from pytorch_geometric_signed_directed_tpu_torch.nn import (
 from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
     gat_conv, sdgnn, sgcn, sigat, snea, snea_conv)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 N = 96
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)

@@ -26,6 +26,8 @@ from test_torch_parallel_attn import (  # noqa: F401
     MODEL_TOL, N, WIDE_TOL, assert_grads_match, jitted_value_and_grad, load,
     perturbed, signed_edges, t)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 @pytest.fixture(scope="module")
 def mesh():
     return parallel.make_mesh(8, device="cpu")

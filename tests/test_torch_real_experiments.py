@@ -43,6 +43,8 @@ from pytorch_geometric_signed_directed_tpu_torch.experiments import (
     _directed_node, dgcn_node, digcl_link, digcl_node, digcn_inception_node,
     digcn_node, run_link_sign_direction_tasks, run_link_sign_prediction)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

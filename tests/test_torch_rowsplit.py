@@ -11,6 +11,7 @@ versions and against the JAX package's Pallas K2 and K5 in interpret mode.
 """
 import importlib.util
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,8 @@ from pytorch_geometric_signed_directed_tpu_torch.ops import (
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
     bsr_spmm, scatter_csr)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 L = scatter_csr.PIECE_EDGES
 # float64 sums in another order, each rounded once to float32
@@ -44,7 +47,9 @@ def rowptr_of(lengths):
 def check_plan(rowptr, split, piece_len, min_len=None):
     """``split`` cuts exactly the rows longer than ``min_len`` (default
     ``piece_len``) into pieces of ``piece_len`` edges, in edge order; with
-    the rows it leaves whole, it covers every edge once."""
+    the rows it leaves whole, it covers every edge once; and it puts every
+    uncut row in exactly one row block (at most ``BLOCK_EDGES`` edges)
+    or the mid rows (more), in order."""
     min_len = piece_len if min_len is None else min_len
     rp = rowptr.numpy().astype(np.int64)
     length = np.diff(rp)
@@ -73,15 +78,54 @@ def check_plan(rowptr, split, piece_len, min_len=None):
     for r in np.flatnonzero(length <= min_len):
         covered[rp[r]:rp[r + 1]] += 1
     assert np.all(covered == 1)
+    check_blocks(rp, split, length > min_len)
+
+
+def check_blocks(rp, split, cut):
+    """The row blocks and mid rows of ``split`` partition the uncut rows:
+    blocks are runs of consecutive short rows (at most half the block
+    length each) in order, each within the block shape, and carry their
+    rows' edge range; they exist where short rows are at least half of
+    the uncut rows, and the other uncut rows are mid rows.  The walked
+    rows are the uncut rows of more than WALK_EDGES edges, in order."""
+    length = np.diff(rp)
+    T, R = scatter_csr.BLOCK_EDGES, scatter_csr.BLOCK_ROWS
+    blocks = split.blocks.numpy().astype(np.int64)
+    mids = split.mids.numpy()
+    assert split.blocks.dtype == split.mids.dtype == torch.int32
+    assert blocks.shape[1:] == (4,)
+    seen = np.zeros(len(length), np.int64)
+    for r0, r1, e0, e1 in blocks:
+        assert 0 <= r0 < r1 <= len(length)
+        assert (e0, e1) == (rp[r0], rp[r1])
+        assert r1 - r0 <= R and e1 - e0 < T
+        assert np.all(length[r0:r1] <= T // 2)
+        seen[r0:r1] += 1
+    assert np.all(np.diff(blocks[:, 0]) > 0)                 # in row order
+    short = ~cut & (length <= T // 2)
+    if 2 * short.sum() >= (~cut).sum():
+        np.testing.assert_array_equal(seen > 0, short)
+    else:
+        assert len(blocks) == 0
+    np.testing.assert_array_equal(mids, np.flatnonzero(~cut & (seen == 0)))
+    seen[mids] += 1
+    np.testing.assert_array_equal(seen, (~cut).astype(np.int64))
+    assert split.walks.dtype == torch.int32
+    np.testing.assert_array_equal(
+        split.walks.numpy(),
+        np.flatnonzero(~cut & (length > scatter_csr.WALK_EDGES)))
 
 
 # --- the CSR plan ------------------------------------------------------------
 
+T = scatter_csr.BLOCK_EDGES
 LENGTHS = {
     "around_the_piece": [L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 0, 3],
     "empty_rows": [0, 0, 0, 0],
     "no_rows": [],
     "hub": [5, 324_064, 7],
+    "only_hubs": [2 * L + 1, 324_064, L + 1],
+    "around_a_block": [T - 1, T, T + 1, T // 2, T // 2 + 1, 1, 0, T, 2],
 }
 
 
@@ -107,6 +151,115 @@ def test_plan_leaves_rows_at_most_a_piece_long_whole():
     split = scatter_csr.plan_row_split(rowptr)
     assert split.rows.numel() == 0 and split.pieces.shape == (0, 2)
     np.testing.assert_array_equal(split.ptr.numpy(), [0])
+
+
+def test_plan_of_only_hub_rows_has_no_blocks():
+    rowptr = rowptr_of(np.array(LENGTHS["only_hubs"], np.int64))
+    split = scatter_csr.plan_row_split(rowptr)
+    assert split.blocks.shape == (0, 4) and split.mids.numel() == 0
+    assert split.walks.numel() == 0
+    assert split.rows.numel() == 3
+
+
+def test_plan_of_an_empty_csr():
+    split = scatter_csr.plan_row_split(rowptr_of(np.array([], np.int64)))
+    for t in (split.rows, split.pieces, split.blocks, split.mids,
+              split.walks):
+        assert t.numel() == 0
+    np.testing.assert_array_equal(split.ptr.numpy(), [0])
+
+
+def test_rows_of_half_a_block_and_more():
+    """Rows of at most half of BLOCK_EDGES share blocks; a row of one edge
+    more, of BLOCK_EDGES or of one more is a mid row."""
+    H = T // 2
+    rowptr = rowptr_of(np.array([2, 1, H, H + 1, 3, T, 1, T + 1, 1, 1],
+                                np.int64))
+    split = scatter_csr.plan_row_split(rowptr)
+    check_plan(rowptr, split, L)
+    np.testing.assert_array_equal(split.blocks[:, :2].numpy(),
+                                  [[0, 3], [4, 5], [6, 7], [8, 10]])
+    np.testing.assert_array_equal(split.mids.numpy(), [3, 5, 7])
+
+
+def test_no_blocks_where_short_rows_are_few():
+    """Where fewer than half of the uncut rows are short, every uncut row
+    is a mid row (DiGCL's operator: about 20 edges a row)."""
+    lengths = np.array([20, 25, 3, 18, 40, 2, 17], np.int64)
+    split = scatter_csr.plan_row_split(rowptr_of(lengths))
+    check_plan(rowptr_of(lengths), split, L)
+    assert split.blocks.shape == (0, 4)
+    np.testing.assert_array_equal(split.mids.numpy(), np.arange(7))
+
+
+def power_law_lengths(n, seed, top=4):
+    """Row lengths of a power-law CSR of mostly short rows: 1 to ``top``
+    edges by Zipf, a tenth of the rows empty."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(rng.zipf(2.0, n), top)
+    lengths[rng.random(n) < 0.1] = 0
+    return lengths.astype(np.int64)
+
+
+@pytest.mark.parametrize("block_edges,block_rows", [(32, 32), (16, 32),
+                                                   (32, 16), (2, 1),
+                                                   (3, 5)])
+def test_blocks_of_short_rows_within_their_shape(block_edges, block_rows,
+                                                 monkeypatch):
+    """Power-law short rows beside a hub row and rows around half the
+    block length and the block length: every uncut row in one block or in
+    the mid rows, in order; blocks hold fewer than ``block_edges`` edges
+    (check_plan), at the source's shape and at others that a build of it
+    with -DPGSD_BLOCK_EDGES / -DPGSD_BLOCK_ROWS takes."""
+    lengths = np.concatenate([power_law_lengths(3000, 5), [324_064],
+                              [block_edges // 2, block_edges // 2 + 1,
+                               block_edges, 0, 1]])
+    rowptr = rowptr_of(lengths)
+    monkeypatch.setattr(scatter_csr, "BLOCK_EDGES", block_edges)
+    monkeypatch.setattr(scatter_csr, "BLOCK_ROWS", block_rows)
+    split = scatter_csr.plan_row_split(rowptr)
+    check_plan(rowptr, split, L)
+    b = split.blocks.long()
+    assert b.shape[0] > 0
+    # at the kernels' shapes the rows share blocks: far fewer blocks
+    # than rows
+    if block_edges >= 16 and block_rows >= 16:
+        assert b.shape[0] < 0.3 * len(lengths)
+
+
+class BlockShapeBuild:
+    """The ctypes surface of a build of scatter_csr.cu whose row blocks
+    and walked rows are ``shape`` (edges, rows, walk): settable entry
+    signatures and ``pgsd_csr_block_shape``."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        for name in ("pgsd_csr_dual_spmm", "pgsd_csr_pair_spmm",
+                     "pgsd_csr_scatter"):
+            setattr(self, name, types.SimpleNamespace())
+
+    def pgsd_csr_block_shape(self, edges, rows, walk):
+        edges._obj.value, rows._obj.value, walk._obj.value = self.shape
+
+
+def test_plan_rejects_block_shapes_the_kernels_do_not_take(monkeypatch):
+    """A build of the kernels binds only where its row-block shape and
+    walked-row length are the plan's (BLOCK_EDGES, BLOCK_ROWS,
+    WALK_EDGES); a build of another shape (the A/B script's -D variants)
+    binds once the plan's constants are set to it."""
+    shape = (scatter_csr.BLOCK_EDGES, scatter_csr.BLOCK_ROWS,
+             scatter_csr.WALK_EDGES)
+    build = BlockShapeBuild(shape)
+    assert scatter_csr.bind(build) is build
+    for other in ((16, *shape[1:]), (shape[0], 16, shape[2]),
+                  (shape[0] + 1, *shape[1:]), (*shape[:2], 32)):
+        with pytest.raises(RuntimeError, match="row blocks"):
+            scatter_csr.bind(BlockShapeBuild(other))
+    monkeypatch.setattr(scatter_csr, "BLOCK_EDGES", 16)
+    scatter_csr.bind(BlockShapeBuild((16, *shape[1:])))
+    rowptr = rowptr_of(np.array([7, 1, 8, 9, 2]))
+    assert scatter_csr.plan_row_split(rowptr).blocks[:, :2].tolist() == \
+        [[0, 2], [2, 3], [4, 5]]
 
 
 def test_plan_rejects_a_piece_length_below_one():
@@ -165,30 +318,43 @@ def test_layouts_carry_the_plan_of_every_rowptr(monkeypatch):
 # --- the kernels' pass structure, emulated -----------------------------------
 
 def emulate(rowptr, msgs, split, out=None, row0=0):
-    """What the CSR kernels do with ``split``: one sum per row of at most
-    ``piece_len`` edges (from its prior value in the accumulate mode, and
-    only if it has edges), one float64 partial per piece, then each cut
-    row's partials added in piece order to its prior value (0 in the plain
-    mode) and rounded once.  float64 here where the kernels keep
-    compensated float32 sums."""
+    """What the CSR kernels do with ``split``: one sum per row of each row
+    block (within the block's edges) and per mid row, from the row's prior
+    value in the accumulate mode and only if it has edges; one float64
+    partial per piece; then each cut row's partials added in piece order
+    to its prior value (0 in the plain mode) and rounded once.  Every row
+    is summed once, by a block, as a mid row or by its pieces.  float64
+    here where the kernels keep compensated float32 sums."""
     rp = rowptr.long()
     n = rp.numel() - 1
     accum = out is not None
     out = out.clone() if accum else torch.zeros((n, msgs.shape[1]))
     m = msgs.double()
-    for r in range(n):
+    summed = torch.zeros(n, dtype=torch.long)
+
+    def row(r, lo, hi):
         a, b = int(rp[r]), int(rp[r + 1])
-        if b - a > split.piece_len or (accum and a == b):
-            continue
+        assert lo <= a <= b <= hi
+        summed[r] += 1
+        if accum and a == b:
+            return
         prior = out[row0 + r].double() if accum else 0.0
         out[row0 + r] = (prior + m[a:b].sum(0)).float()
+
+    for r0, r1, e0, e1 in split.blocks.long().tolist():
+        for r in range(r0, r1):
+            row(r, e0, e1)
+    for r in split.mids.long().tolist():
+        row(r, 0, int(rp[-1]))
     partial = [m[a:b].sum(0) for a, b in split.pieces.long().tolist()]
     for j, r in enumerate(split.rows.tolist()):
+        summed[r] += 1
         s = out[row0 + r].double() if accum else torch.zeros(m.shape[1],
                                                              dtype=torch.double)
         for p in range(int(split.ptr[j]), int(split.ptr[j + 1])):
             s = s + partial[p]
         out[row0 + r] = s.float()
+    assert torch.all(summed == 1)
     return out
 
 
@@ -262,6 +428,92 @@ def test_emulated_passes_match_jax_scatter_accum(width):
         precision=jax.lax.Precision.HIGHEST)
     rowptr = rowptr_of(lengths)
     split = scatter_csr.plan_row_split(rowptr, piece_len)
+    got = emulate(rowptr, torch.from_numpy(msgs), split,
+                  torch.from_numpy(out0[:n].copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], **F32_TOL)
+
+
+def short_block(seed, width, m=50):
+    """Power-law short rows (empty ones among them) beside a hub row of
+    five pieces of 16 edges, rows of 8, 9 and 12 edges (mid rows beside
+    blocks of 8 edges) and of 17 (cut into pieces of 16), with their
+    edges' (col, val_a, val_b) and an x."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([power_law_lengths(400, seed)[:200], [8, 12],
+                              [5 * 16 + 3], power_law_lengths(400, seed)
+                              [200:], [9, 17, 0, 2]])
+    rowptr = rowptr_of(lengths)
+    e = int(lengths.sum())
+    col = torch.from_numpy(rng.integers(0, m, e).astype(np.int32))
+    va, vb = (torch.from_numpy(rng.standard_normal(e).astype(np.float32))
+              for _ in range(2))
+    x = torch.from_numpy(rng.standard_normal((m, width)).astype(np.float32))
+    return rowptr, lengths, col, va, vb, x
+
+
+@pytest.mark.parametrize("entry", ["dual", "scatter"])
+@pytest.mark.parametrize("accum", [False, True])
+@pytest.mark.parametrize("width", [1, 5, 32])
+def test_emulated_row_blocks_match_the_plain_versions(entry, accum, width,
+                                                      monkeypatch):
+    """The passes by row block (of 8 edges), mid row and piece (pieces of
+    16 edges) against the plain versions: rows without edges untouched in
+    the accumulate mode, 0 in the plain one."""
+    rowptr, lengths, col, va, vb, x = short_block(width, width)
+    monkeypatch.setattr(scatter_csr, "BLOCK_EDGES", 8)
+    split = scatter_csr.plan_row_split(rowptr, 16)
+    assert split.blocks.shape[0] > 20 and split.mids.numel() == 3
+    assert split.rows.numel() == 2
+    fa = max(1, width // 2)
+    rng = np.random.default_rng(2)
+    if entry == "dual":
+        msgs = scatter_csr._dual_msgs(col, va, vb, x, fa)
+    else:
+        msgs = torch.from_numpy(rng.standard_normal(
+            (int(lengths.sum()), width)).astype(np.float32))
+    row0, n = 3, len(lengths)
+    empty = torch.from_numpy(lengths == 0)
+    if accum:
+        out0 = torch.from_numpy(rng.standard_normal((n + 5, width))
+                                .astype(np.float32))
+        got = emulate(rowptr, msgs, split, out0, row0)
+        want = (scatter_csr.csr_dual_spmm_accum_plain(
+            rowptr, col, va, vb, x, fa, out0, row0) if entry == "dual"
+            else scatter_csr.csr_scatter_accum_plain(rowptr, msgs, out0,
+                                                     row0))
+        assert torch.equal(got[row0:row0 + n][empty],
+                           out0[row0:row0 + n][empty])
+    else:
+        got = emulate(rowptr, msgs, split)
+        want = (scatter_csr.csr_dual_spmm_plain(rowptr, col, va, vb, x, fa)
+                if entry == "dual"
+                else scatter_csr.csr_scatter_sum_plain(rowptr, msgs))
+        assert torch.all(got[empty] == 0)
+    torch.testing.assert_close(got, want, **EMU_TOL)
+
+
+@pytest.mark.parametrize("width", [1, 17, 64])
+def test_emulated_row_blocks_match_jax_scatter_accum(width, monkeypatch):
+    """The passes by row block against the Pallas K2 (interpret mode) on
+    power-law short rows beside a cut hub row, into the same prior
+    output."""
+    rng = np.random.default_rng(width)
+    lengths = short_block(width, 4)[1]
+    n, e = len(lengths), int(lengths.sum())
+    row = np.repeat(np.arange(n), lengths)
+    msgs = rng.standard_normal((e, width)).astype(np.float32)
+    plan, perm = scatter_mxu.build_scatter_plan(row, n)
+    (msgs_plan,) = scatter_mxu.permute_edge_data(perm, msgs)
+    out0 = rng.standard_normal((plan.num_windows * plan.window,
+                                width)).astype(np.float32)
+    want = scatter_mxu._scatter_accum(
+        plan.win, plan.local_rows, jnp.asarray(msgs_plan),
+        jnp.asarray(out0), window=plan.window, interpret=True,
+        precision=jax.lax.Precision.HIGHEST)
+    rowptr = rowptr_of(lengths)
+    monkeypatch.setattr(scatter_csr, "BLOCK_EDGES", 8)
+    split = scatter_csr.plan_row_split(rowptr, 16)
+    assert split.blocks.shape[0] > 20 and split.mids.numel() == 3
     got = emulate(rowptr, torch.from_numpy(msgs), split,
                   torch.from_numpy(out0[:n].copy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], **F32_TOL)

@@ -34,6 +34,8 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (
 from pytorch_geometric_signed_directed_tpu_torch.train import (
     SplitRun, adam, scan_node_training)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 N, SPLITS, EPOCHS, LR, WD = 200, 2, 20, 1e-2, 5e-4
 # 20 Adam steps of float32 sums taken in other orders: the final losses
 # agree to about 1e-6; the MagNet parity tests' 2e-4 bounds them

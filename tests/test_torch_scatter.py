@@ -18,6 +18,8 @@ from pytorch_geometric_signed_directed_tpu.ops.pallas.scatter_mxu import (
 from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import scatter_csr
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # f32: the port sums each row in edge order, the TPU kernel in one-hot
 # matmul order — the sums agree to rounding, not bit for bit
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

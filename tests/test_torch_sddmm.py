@@ -27,6 +27,8 @@ from pytorch_geometric_signed_directed_tpu_torch.parallel.mxu_shard import (
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnetic_template)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # f32: row sums in edge order (float64 here) against one-hot matmuls
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # bf16 cotangents: both round the apply's messages to bf16; the TPU kernel

@@ -49,6 +49,8 @@ from pytorch_geometric_signed_directed_tpu_torch.utils.general import (
 from pytorch_geometric_signed_directed_tpu_torch.utils.signed import (
     link_sign_loss as lsl)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 FEATURE_TOL = dict(rtol=1e-6, atol=1e-6)
 TIERS = ["dense", "segment", "mxu", "mxu streamed"]

@@ -27,6 +27,8 @@ from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 from pytorch_geometric_signed_directed_tpu_torch.utils import (
     negative_sampling, structured_negative_sampling)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 # (the port's aggregate, the JAX backend)
 AGGREGATES = [("mxu", "mxu"), ("segment", "xla")]

@@ -33,6 +33,8 @@ from pytorch_geometric_signed_directed_tpu_torch.utils import (
     Prob_Balanced_Normalized_Loss, negative_sampling,
     structured_negative_sampling)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 # the tolerance of tests/test_torch_msgnn.py: sums in other orders through
 # MLPs, hops and a softmax
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)

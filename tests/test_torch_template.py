@@ -32,6 +32,8 @@ from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     template_dual_apply, template_propagators)
 from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # dq sums g * y' over every node and lane, in another order

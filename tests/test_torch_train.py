@@ -26,6 +26,8 @@ from pytorch_geometric_signed_directed_tpu_torch.train import (
 from pytorch_geometric_signed_directed_tpu_torch.utils import (
     meta_graph_generation)
 
+from test_torch_worker_memory import release_memory  # noqa: F401
+
 
 def slice_problem(n=300, seed=0):
     """The slice's configuration (DSBM, degree features, MagNet K=2,
