@@ -35,9 +35,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 5. BSR phase: the bench's headline MagNet graph (N=8192, average degree
    24) on the ``bsr`` tier, applied by K5 (``bsr_spmm``).  Holds K5 against
    its plain version at the path's widths (2 and 32), forward and
-   transposed, times it beside a dense matmul and ``torch.sparse.mm`` on a
-   BSR tensor, checks the model's forward against the dense tier, and
-   trains 30 steps.
+   transposed, times it (one call, 20 back to back and a replayed CUDA
+   graph of 20) beside a dense matmul and ``torch.sparse.mm`` on a BSR
+   tensor (the faster of the two is the library call), checks the model's
+   forward against the dense tier, and trains 30 steps.
 6. Trainable-q phase: the bench's trainable-q configuration
    (``magnet_trainable_q_step_ratio``): the magnet_mxu graph, a
    ``magnetic_template`` (mxu), MagNet with ``trainable_q=True`` from
@@ -393,6 +394,37 @@ def back_to_back_ms(fn, reps=REPS):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps=REPS):
+    """Milliseconds per call of ``fn`` captured ``reps`` times into one
+    CUDA graph and replayed: the device's time alone, where a call's host
+    work (the wrapper's checks, its plan arguments, the launch) would
+    otherwise outlast a short kernel.  None where ``fn`` cannot be
+    captured."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -503,6 +535,8 @@ def kernel_entry(name, r, launches, source, replaces):
 
 def log_case(label, r):
     dev = (f" device_ms={r['device_ms']:.4f}" if "device_ms" in r else "")
+    if r.get("graph_ms") is not None:
+        dev += f" graph_ms={r['graph_ms']:.4f}"
     if r.get("library_device_ms") is not None:
         dev += f" library_device_ms={r['library_device_ms']:.4f}"
     log(f"{label}: kernel_ms={r['ms']:.4f}{dev} plain_ms={r['plain_ms']:.4f} "
@@ -1353,29 +1387,37 @@ def dense_of(op):
 
 
 def bsr_kernel_case(op, width, seed):
-    """K5 vs plain vs a dense matmul and torch.sparse.mm on a BSR tensor."""
+    """K5 vs plain vs a dense matmul and torch.sparse.mm on a BSR tensor:
+    one call between events, 20 back to back (``device_ms``) and a replayed
+    CUDA graph of 20 (``graph_ms``); the library call is the faster of the
+    two yardsticks, also timed back to back."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import bsr_spmm
 
     gen = torch.Generator(device=DEV).manual_seed(seed)
     x = torch.randn(op.num_cols, width, device=DEV, generator=gen)
     args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
-    got = bsr_spmm.bsr_matmul(*args, op.split)
+
+    def kernel():
+        return bsr_spmm.bsr_matmul(*args, op.split)
+
+    got = kernel()
     want = bsr_spmm.bsr_matmul_plain(*args)
     torch.testing.assert_close(got, want, **F32_TOL)
-    same_bits(got, bsr_spmm.bsr_matmul(*args, op.split), "bsr_spmm")
-    ms = time_ms(lambda: bsr_spmm.bsr_matmul(*args, op.split))
+    same_bits(got, kernel(), "bsr_spmm")
+    ms = time_ms(kernel)
+    device_ms = back_to_back_ms(kernel)
+    g_ms = graph_ms(kernel)
     plain_ms = time_ms(lambda: bsr_spmm.bsr_matmul_plain(*args))
     # yardsticks only: the dense operator, and cuSPARSE's BSR product
     dense = dense_of(op)
     torch.testing.assert_close(torch.matmul(dense, x), want, **F32_TOL)
-    dense_ms = time_ms(lambda: torch.matmul(dense, x))
-    del dense
+    libs = {"dense matmul": lambda: torch.matmul(dense, x)}
     n_br = op.block_rowptr.numel() - 1
     n_bc = -(-op.num_cols // 128)
     x_pad = torch.zeros((n_bc * 128, width), device=DEV)
     x_pad[:op.num_cols] = x
-    bsr_ms, bsr_note = None, ""
+    bsr_note = ""
     try:
         A = torch.sparse_bsr_tensor(op.block_rowptr.long(),
                                     op.block_cols.long(), op.blocks,
@@ -1387,18 +1429,29 @@ def bsr_kernel_case(op, width, seed):
         bsr_note = f"torch.sparse.mm on a BSR tensor did not run: {exc}"
     else:
         torch.testing.assert_close(lib, want, **F32_TOL)
-        bsr_ms = time_ms(lambda: torch.sparse.mm(A, x_pad))
+        libs["torch.sparse.mm BSR"] = lambda: torch.sparse.mm(A, x_pad)
+    lib_ms = {k: time_ms(f) for k, f in libs.items()}
+    lib_dev = {k: back_to_back_ms(f) for k, f in libs.items()}
+    best = min(lib_ms, key=lib_ms.get)
+    del dense, libs
     nb = op.blocks.shape[0]
     nbytes = nb * 128 * 128 * 4 + x.numel() * 4 + op.num_rows * width * 4
     b_ms, b_by = bound(nbytes, 2 * nb * 128 * 128 * width)
+    tile = bsr_spmm.tile_config(width)
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=bsr_ms if bsr_ms is not None else dense_ms,
-                dense_ms=dense_ms, bsr_ms=bsr_ms, bsr_note=bsr_note,
-                bytes=nbytes,
+                device_ms=device_ms, graph_ms=g_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms[best],
+                library_device_ms=lib_dev[best], library=best,
+                dense_ms=lib_ms["dense matmul"],
+                dense_device_ms=lib_dev["dense matmul"],
+                bsr_ms=lib_ms.get("torch.sparse.mm BSR"),
+                bsr_device_ms=lib_dev.get("torch.sparse.mm BSR"),
+                bsr_note=bsr_note, bytes=nbytes,
                 shape=f"N={op.num_rows} blocks={nb} pieces="
                       f"{op.split.pieces.shape[0]} of <= "
-                      f"{op.split.piece_len} blocks W={width} float32")
+                      f"{op.split.piece_len} blocks W={width} float32; tile "
+                      f"{tile['tile']} lanes, {tile['stages']} stages, "
+                      f"{tile['smem_bytes']} B a CTA")
 
 
 def bsr_phase(smi):
@@ -1430,9 +1483,11 @@ def bsr_phase(smi):
             r = bsr_kernel_case(op, width, seed=width)
             cases[(width, op_name)] = r
             log_case(f"bsr_spmm {op_name} W={width}", r)
-            log(f"  yardsticks: dense matmul {r['dense_ms']:.4f} ms, "
-                f"torch.sparse.mm on a BSR tensor {r['bsr_ms']} ms "
-                f"{r['bsr_note']}")
+            bsr = ("did not run" if r["bsr_ms"] is None else
+                   f"{r['bsr_ms']:.4f} ms (device {r['bsr_device_ms']:.4f})")
+            log(f"  {r['shape']}; yardsticks: dense matmul "
+                f"{r['dense_ms']:.4f} ms (device {r['dense_device_ms']:.4f}),"
+                f" torch.sparse.mm on a BSR tensor {bsr} {r['bsr_note']}")
 
     x = torch.from_numpy(x_np).to(DEV)
     y = torch.from_numpy(y_np).to(DEV)
@@ -3688,7 +3743,7 @@ def sharded_bsr(smi, cases):
     import torch.nn.functional as F
     from pytorch_geometric_signed_directed_tpu_torch import parallel
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        bsr_spmm, launch_counts, reset_launch_counts)
+        launch_counts, reset_launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.parallel import (
         distributed)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
@@ -3728,9 +3783,6 @@ def sharded_bsr(smi, cases):
         four = lap_s
     b = four.re.sharded.shards[0]
     r = bsr_kernel_case(b, 32, seed=32)
-    xb = torch.randn(n, 32, device=DEV)
-    r["device_ms"] = back_to_back_ms(lambda: bsr_spmm.bsr_matmul(
-        b.blocks, b.block_rowptr, b.block_cols, xb, b.num_rows, b.split))
     r["shape"] = f"sharded bsr shard 0: {r['shape']}"
     r["path"] = f"sharded bsr {SHARDS} shards"
     cases[("sharded bsr shard 0", 32)] = r
@@ -3828,8 +3880,9 @@ def sharded_entries(runs, cases):
     for key, r in cases.items():
         run = runs[r["path"]]
         name, source, replaces, library = {
+            # the faster of the dense matmul and torch.sparse.mm on BSR
             "sharded bsr shard 0": ("bsr_spmm", "bsr_spmm.cu",
-                                    "bsr_spmm.py:119", "torch.sparse.mm"),
+                                    "bsr_spmm.py:119", r.get("library")),
             "sharded sgcn dual shard 0": (
                 "csr_dual_spmm", "scatter_csr.cu", "scatter_mxu.py:503",
                 "2x torch.sparse.mm"),

@@ -1,14 +1,29 @@
 """Block-sparse-row SpMM on the card — the port of the TPU kernel K5.
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/ops/pallas/
-bsr_spmm.py`` (``_kernel`` / ``_bsr_matmul`` behind ``bsr_spmm``).  The
-operator is 128×128 dense float32 blocks sorted by block row.  The kernel
-in ``csrc/bsr_spmm.cu`` gives one CTA to each piece of a block row (a run
-of consecutive blocks, ``plan_block_split``) and feature tile, streams the
-piece's blocks through shared memory, and a second launch adds each block
-row's piece partials in a fixed order.  Unlike the TPU launcher, x is not
-padded to 128 lanes: the kernel masks its ragged feature tile and the
-padded columns of the last block.
+bsr_spmm.py`` (``_kernel`` / ``_bsr_matmul`` behind ``bsr_spmm``, which
+sums at ``Precision.HIGHEST``).  The operator is 128×128 dense float32
+blocks sorted by block row.  The kernel in ``csrc/bsr_spmm.cu`` gives one
+CTA to each piece of a block row (a run of consecutive blocks,
+``plan_block_split``) and feature tile, and a second launch adds each
+block row's piece partials in a fixed order.  Unlike the TPU launcher, x
+is not padded to 128 lanes: the kernel masks its ragged feature tile and
+the padded columns of the last block.
+
+What bounds it is bytes (each 64 KB block read once a feature tile, 16
+flop/byte at 32 lanes), which float32 FMAs could only meet at about 80%
+of the CUDA cores' peak.  So the products run on the tensor cores in
+3xTF32: each operand splits into a TF32 ``hi`` and a TF32 ``lo`` of the
+remainder (both rounded to nearest, ties away, as ``cvt.rna``), and
+``a_lo·x_hi + a_hi·x_lo + a_hi·x_hi`` (``wgmma`` m64nFTk8, A from
+registers, x split once a slab into shared memory) adds into float32
+accumulators, each product within about 3·2^-22 of |a·x| (plain TF32:
+2^-11, which misses the 1e-5 that HIGHEST holds to).  A producer warp
+streams each block as four 32-column slabs (one 2D tensor copy each,
+128-byte swizzle) with their x rows (cp.async) through a ring of 3–6
+stages tracked by mbarriers; two CTAs share an SM, and the plan makes
+about two pieces an SM, one wave.  Feature tiles are 8, 16, 32 or 64
+lanes.
 
 ``bsr_matmul`` takes its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
@@ -27,9 +42,10 @@ from .scatter_csr import (RowSplit, _check, _check_split, _row_ids,
                           _stream_ptr, plan_row_split)
 
 BLOCK = 128
-# The split aims at this many CTAs per SM, so that the grid fills the
-# card several times over and pieces of unequal rows even out.
-CTAS_PER_SM = 4
+# The split aims at this many CTAs per SM: the two that the kernel's shared
+# memory lets an SM hold at once, so that the pieces fill the card in one
+# wave (a second wave of shorter pieces measured 1-12% slower).
+CTAS_PER_SM = 2
 # The H100's SM count, for plans made away from a card.
 H100_SMS = 132
 
@@ -48,7 +64,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signature on a loaded build of the source."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pgsd_bsr_spmm.restype = i
-    lib.pgsd_bsr_spmm.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.pgsd_bsr_spmm.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.pgsd_bsr_config.restype = None
+    lib.pgsd_bsr_config.argtypes = [i, p, p, p]
     return lib
 
 
@@ -57,6 +75,14 @@ def _library():
     if _lib is None:
         _lib = bind(build.load(_SOURCE))
     return _lib
+
+
+def tile_config(width: int) -> Dict[str, int]:
+    """The kernel's feature tile, ring stages and dynamic shared memory (a
+    CTA) at ``width``, from the build."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _library().pgsd_bsr_config(width, *map(ctypes.byref, out))
+    return dict(zip(("tile", "stages", "smem_bytes"), (v.value for v in out)))
 
 
 def sm_count(device) -> int:
@@ -116,6 +142,9 @@ def bsr_matmul(blocks: torch.Tensor, block_rowptr: torch.Tensor,
     if blocks.shape[1:] != (BLOCK, BLOCK):
         raise ValueError(f"blocks must be [NB, {BLOCK}, {BLOCK}], got "
                          f"{tuple(blocks.shape)}")
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must start 16-byte aligned (the tensor "
+                         "copies read them from there)")
     if block_cols.numel() != blocks.shape[0]:
         raise ValueError("block_cols needs one entry per block")
     n_br = block_rowptr.numel() - 1
@@ -138,8 +167,8 @@ def bsr_matmul(blocks: torch.Tensor, block_rowptr: torch.Tensor,
         err = _library().pgsd_bsr_spmm(
             blocks.data_ptr(), block_cols.data_ptr(), x.data_ptr(),
             out.data_ptr(), partial.data_ptr(), split.pieces.data_ptr(),
-            split.ptr.data_ptr(), n_pieces, num_rows, x.shape[0], w,
-            _stream_ptr(dev))
+            split.ptr.data_ptr(), n_pieces, blocks.shape[0], num_rows,
+            x.shape[0], w, _stream_ptr(dev))
     if err:
         raise RuntimeError(f"bsr_spmm launch failed: CUDA error {err}")
     LAUNCHES["bsr_spmm"] += 1

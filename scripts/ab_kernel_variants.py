@@ -39,9 +39,13 @@ work a call (a third number).  Cases:
        W=32, K1 on the bench SGCN dual at 2F=128 and 64 and on the bench
        DiGCL operator at W=128 and 64 (chip_smoke.py phases 7-11).
   bsr  K5 ``bsr_matmul`` on the bsr cell's operator (chip_smoke.py's
-       N=8192 graph) and its transpose at W=2 and 32, with the dense
-       ``torch.matmul`` and ``torch.sparse.mm`` on a BSR tensor timed in the
-       same turns.
+       N=8192 graph) and its transpose at W=2 and 32, on the operator at
+       W=1, 8 and 64, and on shard 0 of its four-shard partition at W=32,
+       with the dense ``torch.matmul`` and ``torch.sparse.mm`` on a BSR
+       tensor timed in the same turns.  ``--ctas a,b`` also times every
+       build under plans of a and b CTAs an SM (``CTAS_PER_SM``).  A build
+       from before the tensor-core design (no ``pgsd_bsr_config``) is
+       called without the block count.
   sddmm  K4 ``csr_dual_sddmm_accum`` on hot block 0 of the split
        transposed trainable-q template (chip_smoke.py's case), K3
        ``csr_dual_sddmm`` on the transposed template at 2F=4 and 64 f32
@@ -74,6 +78,8 @@ Run from the root of a checkout:
     python3 scripts/ab_kernel_variants.py csr --only pair,scatter new= \
         maxreg=-maxrregcount=64
     python3 scripts/ab_kernel_variants.py bsr new= lineinfo=-lineinfo
+    python3 scripts/ab_kernel_variants.py bsr --ctas 4 \
+        old=build/parent/bsr_spmm.cu new=
     python3 scripts/ab_kernel_variants.py sddmm new= old=build/dual_sddmm_old.cu
 """
 import contextlib
@@ -100,6 +106,21 @@ KERNELS = {"csr": ("scatter_csr.cu", scatter_csr),
            "bsr": ("bsr_spmm.cu", bsr_spmm),
            "sddmm": ("dual_sddmm.cu", dual_sddmm)}
 DEV = "cuda"
+
+
+class LegacyBsrBuild:
+    """A build of bsr_spmm.cu from before the tensor-core design (no
+    ``pgsd_bsr_config``): its pgsd_bsr_spmm takes no block count, which a
+    call here drops."""
+
+    def __init__(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pgsd_bsr_spmm.restype = i
+        lib.pgsd_bsr_spmm.argtypes = [p] * 7 + [i] * 4 + [p]
+        self._lib = lib
+
+    def pgsd_bsr_spmm(self, *args):
+        return self._lib.pgsd_bsr_spmm(*args[:8], *args[9:])
 
 
 class PlanlessBuild:
@@ -164,6 +185,8 @@ def build_variants(kernel, variants):
         lib = ctypes.CDLL(path)
         if kernel == "csr" and not hasattr(lib, "pgsd_csr_block_shape"):
             libs[name] = PlanlessBuild(lib)
+        elif kernel == "bsr" and not hasattr(lib, "pgsd_bsr_config"):
+            libs[name] = LegacyBsrBuild(lib)
         elif kernel == "csr":
             shape = [ctypes.c_int() for _ in range(3)]
             lib.pgsd_csr_block_shape(*map(ctypes.byref, shape))
@@ -228,33 +251,7 @@ def per_call_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def graph_ms(fn, reps=20):
-    """Milliseconds per call of ``fn`` captured ``reps`` times into one
-    CUDA graph and replayed: the device's time alone, where a call's host
-    work (the wrapper's checks, its plan arguments, the launch) would
-    otherwise outlast a short kernel.  None where ``fn`` cannot be
-    captured."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    try:
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-    except RuntimeError:
-        torch.cuda.synchronize()
-        return None
-    graph.replay()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+graph_ms = chip_smoke.graph_ms
 
 
 def in_turns(module, libs, label, fn, extras=(), graphed=(), plan=None):
@@ -264,6 +261,14 @@ def in_turns(module, libs, label, fn, extras=(), graphed=(), plan=None):
     replays of a CUDA graph of 20 calls (the third number)."""
     runs = [(n, libs[n], f) for n, f in per_build(libs, fn, plan).items()
             ] + [(n, None, f) for n, f in extras]
+    time_runs(module, label, runs, graphed)
+
+
+def time_runs(module, label, runs, graphed=()):
+    """Time each (name, build or None, fn) of ``runs`` in order and then in
+    reverse (a build is swapped in behind the wrappers first); the builds,
+    and the other runs named in ``graphed``, also as replays of a CUDA
+    graph of 20 calls."""
     times = {n: [] for n, _, _ in runs}
     for n, lib, f in runs + runs[::-1]:
         if lib is not None:
@@ -749,28 +754,71 @@ def sddmm_template_cases(module, libs, gen):
                  extras)
 
 
-def bsr_cases(module, libs, gen, want):
+@contextlib.contextmanager
+def ctas_per_sm(c):
+    """bsr_spmm's CTAS_PER_SM set to ``c``."""
+    saved = bsr_spmm.CTAS_PER_SM
+    bsr_spmm.CTAS_PER_SM = c
+    try:
+        yield
+    finally:
+        bsr_spmm.CTAS_PER_SM = saved
+
+
+def bsr_turns(module, libs, gen, op, width, label, ctas):
+    """K5 on ``op`` at ``width`` under every build, held against its plain
+    version, then timed in turns with the dense ``torch.matmul`` and
+    ``torch.sparse.mm`` on a BSR tensor; each build under the operator's
+    plan and under a plan of each CTAS_PER_SM in ``ctas``."""
+    x = torch.randn(op.num_cols, width, device=DEV, generator=gen)
+    args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
+    splits = {"": op.split}
+    for c in ctas:
+        with ctas_per_sm(c):
+            splits[f" ctas={c}"] = bsr_spmm.plan_block_split(
+                op.block_rowptr, op.blocks.shape[0], bsr_spmm.sm_count(DEV))
+    for split in splits.values():
+        check(module, libs, lambda split=split: bsr_spmm.bsr_matmul(
+            *args, split), bsr_spmm.bsr_matmul_plain(*args),
+            chip_smoke.F32_TOL)
+    dense = chip_smoke.dense_of(op)
+    n_bc = -(-op.num_cols // 128)
+    x_pad = torch.zeros((n_bc * 128, width), device=DEV)
+    x_pad[:op.num_cols] = x
+    A = torch.sparse_bsr_tensor(
+        op.block_rowptr.long(), op.block_cols.long(), op.blocks,
+        size=(dense.shape[0], n_bc * 128))
+    extras = (("dense matmul", lambda: torch.matmul(dense, x)),
+              ("sparse.mm BSR", lambda: torch.sparse.mm(A, x_pad)))
+    runs = [(n + tag, libs[n],
+             lambda split=split: bsr_spmm.bsr_matmul(*args, split))
+            for n in libs for tag, split in splits.items()]
+    time_runs(module, f"K5 {label} W={width} (blocks="
+              f"{op.blocks.shape[0]} pieces={op.split.pieces.shape[0]})",
+              runs + [(n, None, f) for n, f in extras],
+              graphed=[n for n, _ in extras])
+
+
+def bsr_cases(module, libs, gen, want, ctas=()):
+    """The bsr cell's operator (chip_smoke.py's N=8192 graph) and its
+    transpose at W=2 and 32, the operator at W=1, 8 and 64, and shard 0
+    of its four-shard partition (phase 13) at W=32."""
+    from pytorch_geometric_signed_directed_tpu_torch import parallel
+
     cfg = chip_smoke.BSR_GRAPH
     ei, w, _, _ = chip_smoke.slice_graph(cfg["nodes"], cfg["avg_deg"],
                                          seed=cfg["seed"])
-    B = magnet_propagators(ei, w, q=0.25, num_nodes=cfg["nodes"],
-                           mode="bsr", device=DEV).re.bsr
+    lap = magnet_propagators(ei, w, q=0.25, num_nodes=cfg["nodes"],
+                             mode="bsr", device=DEV)
+    B = lap.re.bsr
     for width in (2, 32):
-        for name, op in (("fwd", B), ("bwd", B.transposed)):
-            x = torch.randn(op.num_cols, width, device=DEV, generator=gen)
-            args = (op.blocks, op.block_rowptr, op.block_cols, x,
-                    op.num_rows)
-            check(module, libs, lambda: bsr_spmm.bsr_matmul(*args, op.split),
-                  bsr_spmm.bsr_matmul_plain(*args), chip_smoke.F32_TOL)
-            dense = chip_smoke.dense_of(op)
-            A = torch.sparse_bsr_tensor(
-                op.block_rowptr.long(), op.block_cols.long(), op.blocks,
-                size=(dense.shape[0], dense.shape[1]))
-            extras = (("dense matmul", lambda: torch.matmul(dense, x)),
-                      ("sparse.mm BSR", lambda: torch.sparse.mm(A, x)))
-            in_turns(module, libs, f"K5 bsr {name} W={width}",
-                     lambda: bsr_spmm.bsr_matmul(*args, op.split), extras)
-            del dense, A
+        for name, op in (("bsr fwd", B), ("bsr bwd", B.transposed)):
+            bsr_turns(module, libs, gen, op, width, name, ctas)
+    for width in (1, 8, 64):
+        bsr_turns(module, libs, gen, B, width, "bsr fwd", ctas)
+    shard = parallel.shard_magnet_laplacian(
+        lap, chip_smoke.four_shards()).re.sharded.shards[0]
+    bsr_turns(module, libs, gen, shard, 32, "sharded bsr shard 0", ctas)
 
 
 def main():
@@ -779,11 +827,13 @@ def main():
     args = sys.argv[1:]
     if not args or args[0] not in KERNELS:
         sys.exit(f"usage: {sys.argv[0]} {{{','.join(KERNELS)}}} "
-                 f"[--only group,...] name=flags ...")
+                 f"[--only group,...] [--ctas a,b] name=flags ...")
     kernel, args = args[0], args[1:]
-    only = None
+    only, ctas = None, ()
     if args[:1] == ["--only"]:
         only, args = set(args[1].split(",")), args[2:]
+    if args[:1] == ["--ctas"]:
+        ctas, args = tuple(int(c) for c in args[1].split(",")), args[2:]
     variants = {}
     for arg in args or ["base="]:
         name, _, flags = arg.partition("=")
@@ -795,7 +845,9 @@ def main():
     print(f"card: {smi}; ms as (in order)/(in reverse)")
     module, libs = build_variants(kernel, variants)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    cases = {"csr": csr_cases, "bsr": bsr_cases, "sddmm": sddmm_cases}
+    cases = {"csr": csr_cases, "bsr": functools.partial(bsr_cases,
+                                                         ctas=ctas),
+             "sddmm": sddmm_cases}
     cases[kernel](module, libs, gen,
                   lambda group: only is None or group in only)
 

@@ -393,6 +393,57 @@ def test_bsr_kernel_on_few_unequal_block_rows_on_card(card, width):
     torch.cuda.synchronize()
 
 
+def bsr_x(op, width, card, offset):
+    """x [op.num_cols, width], as a view at storage offset 1 (a base off 16
+    bytes) when ``offset``."""
+    n = op.num_cols * width
+    flat = torch.randn(n + offset, device=card)[offset:]
+    return flat.view(op.num_cols, width)
+
+
+BSR_WIDTH_CASES = ("full grid", "rectangular", "x off 16 bytes")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3, 8, 9, 16, 31, 32, 33, 64, 100])
+@pytest.mark.parametrize("case", BSR_WIDTH_CASES)
+def test_bsr_tensor_core_kernel_at_every_width_on_card(card, case, width):
+    """K5 (3xTF32 on the tensor cores) at feature tiles of 8 to 64 lanes,
+    ragged and whole, against its plain version: a fully occupied 8 x 8
+    block grid (N=1024, 24 entries a row), the rectangular operator with
+    empty block rows and its transpose, and x from a base off 16 bytes
+    (4-byte copies); two calls give the same bits."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.bsr import (
+        bsr_from_coo)
+
+    if case == "rectangular":
+        B = bsr_from_coo(bsr_operator(700, 520, 6000, seed=width,
+                                      device=card))
+        ops = (B, B.transposed)
+    else:
+        rng = np.random.default_rng(width)
+        n = 1024
+        row, col = rng.integers(0, n, 24 * n), rng.integers(0, n, 24 * n)
+        val = rng.standard_normal(24 * n).astype(np.float32)
+        B = bsr_from_coo(build_coo(row, col, val, n, device=card))
+        assert B.blocks.shape[0] == 64
+        ops = (B,)
+    for op in ops:
+        x = bsr_x(op, width, card, offset=int(case == "x off 16 bytes"))
+        if case == "x off 16 bytes":
+            assert x.data_ptr() % 16 == 4
+        args = (op.blocks, op.block_rowptr, op.block_cols, x, op.num_rows)
+        got = bsr_spmm.bsr_matmul(*args, op.split)
+        torch.testing.assert_close(got, bsr_spmm.bsr_matmul_plain(*args),
+                                   **F32_TOL)
+        assert torch.equal(got, bsr_spmm.bsr_matmul(*args, op.split))
+    if case == "rectangular":
+        out = bsr_spmm.bsr_matmul(B.blocks, B.block_rowptr, B.block_cols,
+                                  torch.randn(520, width, device=card), 700)
+        assert not out[128:256].any() and not out[384:512].any()
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_bsr_propagator_backward_on_card(card):
     A = bsr_operator(700, 700, 6000, seed=3, device=card)

@@ -23,11 +23,15 @@ from pytorch_geometric_signed_directed_tpu.ops import build_coo as jx_build_coo
 from pytorch_geometric_signed_directed_tpu.ops.pallas import scatter_mxu
 from pytorch_geometric_signed_directed_tpu.ops.pallas.bsr_spmm import (
     bsr_from_coo as jx_bsr_from_coo, bsr_spmm as jx_bsr_spmm)
+from pytorch_geometric_signed_directed_tpu.spectral import (
+    magnet_propagators as jx_magnet_propagators)
 
 from pytorch_geometric_signed_directed_tpu_torch.ops import (
     bsr as bsr_mod, build_coo, layout)
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
     bsr_spmm, scatter_csr)
+from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+    magnet_propagators)
 
 from test_torch_worker_memory import release_memory  # noqa: F401
 
@@ -521,13 +525,14 @@ def test_emulated_row_blocks_match_jax_scatter_accum(width, monkeypatch):
 
 # --- the BSR plan ------------------------------------------------------------
 
-@pytest.mark.parametrize("n_blocks,n_sms,chunk", [(4096, 132, 8),
-                                                  (4096, 1, 1024),
+@pytest.mark.parametrize("n_blocks,n_sms,chunk", [(4096, 132, 16),
+                                                  (4096, 1, 2048),
                                                   (100, 132, 1),
-                                                  (529, 1, 133)])
+                                                  (529, 1, 265)])
 def test_block_plan_lists_every_block_row(n_blocks, n_sms, chunk):
-    """Every block row in order, cut into pieces of ceil(blocks / (4 *
+    """Every block row in order, cut into pieces of ceil(blocks / (2 *
     SMs)) blocks; a block row without blocks has no piece."""
+    assert bsr_spmm.CTAS_PER_SM == 2
     rng = np.random.default_rng(n_blocks)
     per_row = rng.multinomial(n_blocks, rng.dirichlet(np.ones(40) * 0.3))
     per_row[[3, 11]] = 0
@@ -585,7 +590,7 @@ def test_emulated_bsr_pieces_match_plain_and_jax(n_sms):
     split = bsr_spmm.plan_block_split(B.block_rowptr, B.blocks.shape[0],
                                       n_sms)
     if n_sms == 2:
-        assert split.piece_len == 12          # the 60-block row in 5 pieces
+        assert split.piece_len == 24          # the 60-block row in 3 pieces
     xt = torch.from_numpy(x)
     got = emulate_bsr(B, xt, split)
     torch.testing.assert_close(
@@ -595,3 +600,104 @@ def test_emulated_bsr_pieces_match_plain_and_jax(n_sms):
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(jx_bsr_spmm(J, jnp.asarray(x))),
                                **F32_TOL)
+
+
+# --- K5's arithmetic: 3xTF32 products on the tensor cores -------------------
+
+def tf32(t):
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half a unit of the 13 dropped bits
+    to the magnitude, then clear them."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def emulate_bsr_tf32(B, x, split, products=3):
+    """K5's arithmetic with ``split``: each operand split into hi =
+    tf32(v) and lo = tf32(v - hi); every 8-deep K step of a block adds
+    a_lo·x_hi, a_hi·x_lo and a_hi·x_hi (``products`` 3) or a_hi·x_hi alone
+    (1), each as one tensor-core product: the 8 exact products summed,
+    then added to the float32 accumulator with one rounding.  A piece runs
+    over its blocks in order; then each block row's pieces are added in
+    piece order, as ``emulate_bsr``."""
+    f = x.shape[1]
+    n_br = B.block_rowptr.numel() - 1
+    x_pad = torch.zeros((-(-x.shape[0] // 128) * 128, f))
+    x_pad[:x.shape[0]] = x
+    tiles = x_pad.view(-1, 128, f)[B.block_cols.long()]
+    a_hi = tf32(B.blocks)
+    a_lo = tf32(B.blocks - a_hi)
+    x_hi = tf32(tiles)
+    x_lo = tf32(tiles - x_hi)
+    terms = ([(a_lo, x_hi), (a_hi, x_lo), (a_hi, x_hi)] if products == 3
+             else [(a_hi, x_hi)])
+    partial = []
+    for a, b in split.pieces.long().tolist():
+        acc = torch.zeros((128, f), dtype=torch.float64)
+        for i in range(a, b):
+            for k in range(0, 128, 8):
+                for ta, tx in terms:
+                    acc = (acc + ta[i, :, k:k + 8].double()
+                           @ tx[i, k:k + 8].double()).float().double()
+        partial.append(acc.float())
+    out = torch.zeros((n_br, 128, f))
+    for br in range(n_br):
+        for p in range(int(split.ptr[br]), int(split.ptr[br + 1])):
+            out[br] += partial[p]
+    return out.view(-1, f)[:B.num_rows]
+
+
+def magnet_bsr_case(seed, width, n=1024, degree=24):
+    """A MagNet Laplacian's real part on the bsr tier (N=1024, average
+    degree 24, q=0.25; every block of the 8 x 8 grid occupied), in both
+    packages, with x."""
+    rng = np.random.default_rng(seed)
+    row, col = rng.integers(0, n, n * degree), rng.integers(0, n, n * degree)
+    keep = row != col
+    ei = np.stack([row[keep], col[keep]])
+    w = rng.uniform(0.5, 1.5, ei.shape[1])
+    lap = magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="bsr",
+                             device="cpu")
+    jlap = jx_magnet_propagators(ei, w, q=0.25, num_nodes=n, mode="bsr")
+    x = rng.standard_normal((n, width)).astype(np.float32)
+    return lap.re.bsr, jlap.re.bsr, x
+
+
+BSR_CASES = {"unequal": unequal_bsr_case, "magnet": magnet_bsr_case}
+
+
+@pytest.mark.parametrize("width", [2, 32, 33])
+@pytest.mark.parametrize("case", sorted(BSR_CASES))
+def test_emulated_3xtf32_bsr_matches_plain_and_jax(case, width):
+    """Three TF32 products a K step, summed in float32 in the kernel's
+    piece order, stay within F32_TOL of the plain version and of the
+    Pallas K5 at HIGHEST."""
+    B, J, x = BSR_CASES[case](width, width)
+    if case == "magnet":
+        assert B.blocks.shape[0] == 64
+    xt = torch.from_numpy(x)
+    got = emulate_bsr_tf32(B, xt, B.split)
+    torch.testing.assert_close(
+        got, bsr_spmm.bsr_matmul_plain(B.blocks, B.block_rowptr,
+                                       B.block_cols, xt, B.num_rows),
+        **F32_TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jx_bsr_spmm(J, jnp.asarray(x))),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(BSR_CASES))
+def test_one_tf32_product_misses_f32_tol(case):
+    """Why three products: one TF32 product a K step (about 2^-11 of each
+    product) misses F32_TOL on the same operators."""
+    B, _, x = BSR_CASES[case](32, 32)
+    xt = torch.from_numpy(x)
+    want = bsr_spmm.bsr_matmul_plain(B.blocks, B.block_rowptr, B.block_cols,
+                                     xt, B.num_rows)
+    got = emulate_bsr_tf32(B, xt, B.split, products=1)
+    excess = (got - want).abs() - (F32_TOL["atol"]
+                                   + F32_TOL["rtol"] * want.abs())
+    assert float(excess.max()) > 0
+    three = emulate_bsr_tf32(B, xt, B.split)
+    assert float((three - want).abs().max()) < \
+        float((got - want).abs().max()) / 20
