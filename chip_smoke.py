@@ -539,9 +539,12 @@ def log_case(label, r):
         dev += f" graph_ms={r['graph_ms']:.4f}"
     if r.get("library_device_ms") is not None:
         dev += f" library_device_ms={r['library_device_ms']:.4f}"
+    # K1/K2 gathers: edges x W x element size, read from L2 where the
+    # table stays there (the byte bound counts the table once)
+    gathered = (f" gathered={r['gathered']} B" if "gathered" in r else "")
     log(f"{label}: kernel_ms={r['ms']:.4f}{dev} plain_ms={r['plain_ms']:.4f} "
         f"library_ms={r['library_ms']} bound_us={r['bound_ms'] * 1e3:.2f} "
-        f"({r['bound_by']}, {r['bytes']} B) "
+        f"({r['bound_by']}, {r['bytes']} B){gathered} "
         f"max_abs_err={r['max_abs_err']:.3g}")
 
 
@@ -598,7 +601,7 @@ def dual_kernel_case(D, width, dtype, seed, single=False):
     return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, library_device_ms=library_device_ms,
-                bytes=nbytes,
+                bytes=nbytes, gathered=nnz * width * x.element_size(),
                 shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
 
 
@@ -872,6 +875,7 @@ def accum_kernel_case(D, b, table_rows, width, dtype, seed,
     return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, bytes=nbytes,
+                gathered=nnz * width * x.element_size(),
                 shape=f"{what}: rows={rows} nnz={nnz} "
                       f"cut rows={b.split.rows.numel()} "
                       f"pieces={b.split.pieces.shape[0]} "
@@ -1020,6 +1024,8 @@ def hub_row_cases(table_rows, width=64):
             r = dict(max_abs_err=err, ms=time_ms(timed),
                      plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
                      library_ms=None, bytes=nbytes)
+            if "scatter" not in name:
+                r["gathered"] = e * width * x.element_size()
             cases[name] = r
             log_case(f"hub CSR {name} W={width} float32", r)
         cases.update(hub_sddmm_cases(rowptr, split, col, (va, vb, wa, wb), x,
@@ -1032,10 +1038,17 @@ def short_row_cases(table_rows):
     tenth empty) beside a hub row of 100,000 edges, rows of the block
     length and one edge more, and uncut rows of 64 to 1,024 edges (which
     csr_scatter_sum walks a warp a row at V = 1).  The dual, plain and
-    accumulate, at W = 1, 5, 10, 32 and 64, and ``csr_scatter_sum`` at
+    accumulate, at W = 1, 5, 10, 32 and 64 and at the wide widths 33, 48,
+    96 and 128 (the walk's lanes as vectors at 48, 96, 128, strided at 33;
+    the row blocks walked, and again in tiles of 32 lanes with the rule of
+    ``scatter_csr.WIDE_BLOCK_L2`` set to 0), and ``csr_scatter_sum`` at
     every width from 1 to 40 and at 64 with message rows 16-byte aligned
     and not, f32 and bf16: against the plain version, the same bits twice,
-    rows without edges 0 or untouched."""
+    rows without edges 0 or untouched.  At the wide widths the cut hub row
+    is held at LIBRARY_TOL, as the A/B script holds cut rows: its
+    compensated f32 pieces lie ~1e-5 of its sums from float64, which
+    F32_TOL misses where a lane cancels to near 0, and more lanes make
+    such a lane likelier."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
         scatter_csr)
@@ -1059,6 +1072,8 @@ def short_row_cases(table_rows):
         f"{split.blocks.shape[0]} mid rows={split.mids.numel()} walked rows="
         f"{split.walks.numel()} cut rows={split.rows.numel()}")
     worst = {}
+    cut = torch.zeros(n, dtype=torch.bool, device=DEV)
+    cut[split.rows.long()] = True
     for dtype in (torch.float32, torch.bfloat16):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         for width in (1, 5, 10, 32, 64):
@@ -1075,18 +1090,8 @@ def short_row_cases(table_rows):
                          *args, out0.clone(), 0, split),
                      lambda: scatter_csr.csr_dual_spmm_accum_plain(*args,
                                                                    out0))):
-                got = kernel()
-                torch.testing.assert_close(got, plain(), **tol)
-                same_bits(got, kernel(), name)
-                untouched = (torch.equal(got[empty], out0[empty])
-                             if name.endswith("accum")
-                             else bool(torch.all(got[empty] == 0)))
-                if not untouched:
-                    raise AssertionError(f"short-row CSR {name} W={width}: "
-                                         f"a row without edges changed")
-                key = (name, str(dtype)[6:])
-                worst[key] = max(worst.get(key, 0.0),
-                                 float((got - plain()).abs().max()))
+                dual_row_check(name, kernel, plain, tol, tol, cut, empty,
+                               out0, f"W={width}", worst, dtype)
         flat = torch.randn(e * 64 + 1, generator=gen, device=DEV).to(dtype)
         for width in [*range(1, 41), 64]:
             for base in (0, 1):
@@ -1103,9 +1108,74 @@ def short_row_cases(table_rows):
                 key = ("csr_scatter_sum", str(dtype)[6:])
                 worst[key] = max(worst.get(key, 0.0),
                                  float((got - want).abs().max()))
+    wide_dual_cases(rowptr, split, col, va, vb, cut, empty, table_rows,
+                    worst)
     log("short-row CSR: every case agrees with its plain version and "
         "repeats bit for bit; max abs err " +
         ", ".join(f"{k[0]} {k[1]} {v:.3g}" for k, v in worst.items()))
+
+
+def dual_row_check(name, kernel, plain, tol, cut_tol, cut, empty, out0,
+                   what, worst, dtype):
+    """One dual case of the short-row CSR: the rows at ``tol`` and its cut
+    rows at ``cut_tol`` against the plain version, the same bits twice,
+    rows without edges 0 (plain) or untouched (accumulate); the worst
+    error kept in ``worst``."""
+    import torch
+
+    got, want = kernel(), plain()
+    torch.testing.assert_close(got[~cut], want[~cut], **tol)
+    torch.testing.assert_close(got[cut], want[cut], **cut_tol)
+    same_bits(got, kernel(), name)
+    untouched = (torch.equal(got[empty], out0[empty])
+                 if name.endswith("accum")
+                 else bool(torch.all(got[empty] == 0)))
+    if not untouched:
+        raise AssertionError(f"short-row CSR {name} {what}: a row without "
+                             f"edges changed")
+    key = (name, str(dtype)[6:])
+    worst[key] = max(worst.get(key, 0.0), float((got - want).abs().max()))
+
+
+def wide_dual_cases(rowptr, split, col, va, vb, cut, empty, table_rows,
+                    worst):
+    """The dual, plain and accumulate, on the short-row CSR at the wide
+    widths 33, 48, 64, 96 and 128, f32 and bf16: the row blocks walked (the
+    L2 rule for this table) and in tiles of 32 lanes (the rule set to 0).
+    The cut hub row at LIBRARY_TOL in f32 (see short_row_cases)."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    n = rowptr.numel() - 1
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    rule = scatter_csr.WIDE_BLOCK_L2
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            cut_tol = LIBRARY_TOL if dtype == torch.float32 else tol
+            for width in (33, 48, 64, 96, 128):
+                x = torch.randn(table_rows, width, generator=gen,
+                                device=DEV).to(dtype)
+                out0 = torch.randn(n, width, generator=gen, device=DEV)
+                args = (rowptr, col, va, vb, x, width // 2)
+                for tiled in (False, True):
+                    scatter_csr.WIDE_BLOCK_L2 = 0 if tiled else rule
+                    what = f"W={width} {'tiled' if tiled else 'walked'}"
+                    dual_row_check(
+                        "csr_dual_spmm",
+                        lambda: scatter_csr.csr_dual_spmm(*args, split),
+                        lambda: scatter_csr.csr_dual_spmm_plain(*args), tol,
+                        cut_tol, cut, empty, out0, what, worst, dtype)
+                    dual_row_check(
+                        "csr_dual_spmm_accum",
+                        lambda: scatter_csr.csr_dual_spmm_accum(
+                            *args, out0.clone(), 0, split),
+                        lambda: scatter_csr.csr_dual_spmm_accum_plain(
+                            *args, out0), tol, cut_tol, cut, empty, out0,
+                        what, worst, dtype)
+    finally:
+        scatter_csr.WIDE_BLOCK_L2 = rule
 
 
 def hub_sddmm_cases(rowptr, split, col, terms, g, out0, empty, dtype):
@@ -1308,19 +1378,21 @@ def giant_phase(smi):
         out = torch.zeros((n, 64), device=DEV)
         for i, b in enumerate(D.blocks):
             lens = b.rowptr[1:] - b.rowptr[:-1]
-            bms = time_ms(lambda b=b, src=(x_hot if i < D.hot_blocks else xm):
-                          scatter_csr.csr_dual_spmm_accum(
-                              b.rowptr, D.col[b.e0:b.e1], D.val_a[b.e0:b.e1],
-                              D.val_b[b.e0:b.e1], src, 32, out, b.row0,
-                              b.split),
-                          reps=5)
+            def block_k2(b=b, src=(x_hot if i < D.hot_blocks else xm)):
+                return scatter_csr.csr_dual_spmm_accum(
+                    b.rowptr, D.col[b.e0:b.e1], D.val_a[b.e0:b.e1],
+                    D.val_b[b.e0:b.e1], src, 32, out, b.row0, b.split)
+
+            bms = time_ms(block_k2, reps=5)
             cut = b.split.rows.numel()
             log(f"  block {i} ({'hot' if i < D.hot_blocks else 'cold'}): "
                 f"rows={lens.numel()} edges={b.e1 - b.e0} largest row "
                 f"piece={int(lens.max())} cut rows={cut} (pieces="
                 f"{b.split.pieces.shape[0]}, edges in them="
-                f"{int(lens[b.split.rows.long()].sum()) if cut else 0}) "
-                f"kernel_ms={bms:.4f}")
+                f"{int(lens[b.split.rows.long()].sum()) if cut else 0}, "
+                f"row blocks={b.split.blocks.shape[0]}) kernel_ms={bms:.4f} "
+                f"device_ms={back_to_back_ms(block_k2):.4f} gathered="
+                f"{(b.e1 - b.e0) * 64 * xm.element_size()} B")
     finally:
         spmm.set_message_dtype(None)
     del layouts

@@ -24,14 +24,14 @@ class DiGCNConv(nn.Module):
     """``P(x W) + bias``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 bias: bool = True, *, device: DeviceLike = None,
+                 use_bias: bool = True, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.linear = linear(in_channels, out_channels, False, device,
                              generator)
         self.bias = (nn.Parameter(zeros((out_channels,)).to(device))
-                     if bias else None)
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor, P: Propagator) -> torch.Tensor:
         out = P(self.linear(x))

@@ -20,7 +20,8 @@ def gat_graph(edge_index, num_nodes: int,
               device: DeviceLike = None) -> AttnGraph:
     """The edges, self-edges dropped, and a self-loop for every node (PyG
     ``add_self_loops``)."""
-    return build_attention_graph([(edge_index, 0, True)], num_nodes, device)
+    return build_attention_graph([(edge_index, 0, True)], num_nodes,
+                                 device=device)
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:

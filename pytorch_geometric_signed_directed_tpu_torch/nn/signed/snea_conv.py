@@ -70,11 +70,13 @@ class AttnGraph:
 
 
 def build_attention_graph(edge_sets, num_nodes: int,
+                          pad_multiple: int = 8,
                           device: DeviceLike = None) -> AttnGraph:
     """``edge_sets``: list of (edge_index [2, E], flag, add_self_loops).
     Self-edges are dropped from every set; a set with the flag gets one
     loop a node appended.  Duplicate edges are kept (each counts in the
-    softmax)."""
+    softmax).  ``pad_multiple`` is accepted for the JAX signature and not
+    read: the graph holds exactly its edges, unpadded."""
     device = resolve_device(device)
     srcs, dsts, flags = [], [], []
     for edge_index, flag, loops in edge_sets:
@@ -214,12 +216,12 @@ def snea_graphs(pos_edge_index, neg_edge_index, num_nodes: int,
     edges flagged 1): the structures the reference rebuilds each forward,
     built once."""
     g_pos = build_attention_graph([(pos_edge_index, 0, True)], num_nodes,
-                                  device)
+                                  device=device)
     g_neg = build_attention_graph([(neg_edge_index, 0, True)], num_nodes,
-                                  device)
+                                  device=device)
     g_cat = build_attention_graph(
         [(pos_edge_index, 0, True), (neg_edge_index, 1, False)], num_nodes,
-        device)
+        device=device)
     return g_pos, g_neg, g_cat
 
 

@@ -69,7 +69,21 @@
 //     while it works on the current one, issues the x-row loads of a batch
 //     of edges before it adds any of them, then adds them in edge order.  A
 //     piece's chain is about piece_len / depth latencies, tens of
-//     microseconds.
+//     microseconds.  The pair sums a batch's products plainly and adds the
+//     batch sum compensated (one kahan_add a batch); the dual adds every
+//     product compensated.  In the dual the batch sums lost: their
+//     registers took the walk past 64 a thread, and with them an SM's
+//     fourth CTA (P_s at W=32: 0.2993 -> 0.3739 ms, DGCN's A_in 0.1211 ->
+//     0.1808), and on the 324,064-edge hub row their roundings, about
+//     twice the per-edge error, came to 3.3e-5 at a value of 2.2, past
+//     the f32 tolerance of tests/test_torch_cuda.py (H100 runs).
+//   * The dual's bf16 products round two lanes at a time (one
+//     cvt.rn.bf16x2.f32).  Its lanes stay strided by the group, one
+//     scalar load each: a thread's KS neighbouring lanes in one 4- to
+//     16-byte load lost to them by 2-15% on 10 of the 14 K1/K2 cases above
+//     32 lanes, tied on 3 and won one by 1.5% (magnet_mxu 2F=64 bf16
+//     0.2259 against 0.2053 ms, the bench DiGCL W=64 0.0685 against
+//     0.0598; H100 runs, scripts/ab_kernel_variants.py).
 //   * pgsd_csr_scatter reads messages that lie contiguous in memory, a
 //     row's [edges, W] block.  A row (or piece) gets TL * P threads of a
 //     warp: each keeps V neighbouring lanes (one 16-byte load an edge: 4
@@ -101,8 +115,18 @@
 //     order, compensated as the group path does, and stores once.
 // So a block costs about three latencies instead of three a row.  Mid rows
 // keep a group each (the walk above, over the list) and cut rows their
-// pieces.  The dual takes the block path up to kTile lanes; wider x and
-// the pair keep a group per row for every row.
+// pieces.  The dual takes the block path up to kTile lanes, and above it
+// in tiles of kTile lanes (a warp a tile of a block; the block's rowptr
+// slice and edges staged once a tile, ~0.5 KB beside the tile's x rows,
+// so a warp's stage stays the size it has at W=32) where the wrapper
+// finds x far larger than L2 (scatter_csr.py, WIDE_BLOCK_L2).  There the
+// gathers come from device memory and a block's copies, all in flight at
+// once, beat the walk: the giant graph's cold block at 2F=64 0.8571 ->
+// 0.7102 ms (f32), 0.7908 -> 0.6011 (bf16).  From an L2-resident table
+// the walk won: the hot block 0.4965 against 0.5373, the bench SGCN dual
+// at 2F=128 0.1857 against 0.3045 (H100 runs,
+// scripts/ab_kernel_variants.py).  The pair keeps a group per row for
+// every row.
 //
 // Messages at widths off a multiple of 4, or from a base that is not
 // 16-byte aligned (pgsd_csr_scatter with V = 1), take csr_span_kernel at
@@ -166,7 +190,7 @@ constexpr int kBlockRows = PGSD_BLOCK_ROWS;    // most rows of a block
 #define PGSD_WALK_EDGES 64
 #endif
 constexpr int kWalkEdges = PGSD_WALK_EDGES;
-constexpr int kTile = 32;        // widest x of the dual's block path
+constexpr int kTile = 32;        // lanes of a tile of the dual's block path
 constexpr int kWarps = kBlock / 32;
 
 struct Blocks {
@@ -174,7 +198,7 @@ struct Blocks {
   const int* mids;     // [n_mids] the uncut rows in no block
   const int* walks;    // [n_walks] the uncut rows of more than kWalkEdges
   int n_blocks;
-  int n_mids;
+  int n_mids;          // < 0 (the dual above kTile lanes, no blocks): every row
   int n_walks;
 };
 
@@ -255,24 +279,51 @@ struct Div {
   }
 };
 
-// A warp's shared memory in the dual's block path (widths up to kTile);
-// the accumulate mode also stages the block's prior out rows, one
-// contiguous span, with 16 bytes to spare for its offset in its line.
+// A warp's shared memory in the dual's block path: one tile of up to
+// kTile lanes of the x rows its block's edges gather; the accumulate mode
+// also stages the tile of the block's prior out rows (one contiguous span
+// where the tile is whole rows, with 16 bytes to spare for its offset in
+// its line).
 template <typename T, bool ACCUM>
 struct __align__(16) BlockStage {
   float prior[ACCUM ? kBlockRows * kTile + 4 : 4];
-  T x[kBlockEdges * kTile];  // x[col[j], l] at j * width + l
+  T x[kBlockEdges * kTile];  // x[col[j], c0 + l] at j * tile width + l
   int col[kBlockEdges];
   float va[kBlockEdges];
   float vb[kBlockEdges];
   int rp[kBlockRows + 1];  // rowptr[first row + i]
 };
 
+// Products rounded to the message type: bf16 two at a time (one
+// cvt.rn.bf16x2.f32, each half rounded as round_msg rounds it), f32 as
+// they are.
+template <typename T, int N>
+__device__ __forceinline__ void round_msgs(float (&p)[N]) {
+  if constexpr (sizeof(T) == 2 && N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 f = __bfloat1622float2(
+          __float22bfloat162_rn(make_float2(p[i], p[i + 1])));
+      p[i] = f.x;
+      p[i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = round_msg<T>(p[i]);
+  }
+}
+
 // The message source of pgsd_csr_dual_spmm: message l of edge e is
 // round(sel_l(va, vb)[e] * x[col[e], l]).  A group stages a chunk of C
 // edges' (col, va, vb) in shared memory with one coalesced load per thread;
 // every thread then reads an edge's three words with one broadcast 16-byte
-// load (three warp shuffles an edge made the loop issue-bound).
+// load (three warp shuffles an edge made the loop issue-bound).  A batch
+// of D gathers is issued before any is added; then each product, rounded
+// to the message type (bf16 two lanes at a time), is added compensated in
+// edge order.  Thread t of a group owns lanes tile + t + k * G, k < KS:
+// neighbouring threads on neighbouring lanes.  It takes the plan's row
+// blocks, in tiles of kTile lanes (above kTile lanes only where the
+// wrapper finds x far larger than L2; else the launch walks every row).
 template <typename T, int G, int KS>
 struct DualSource {
   static constexpr int NS = 1;
@@ -280,10 +331,8 @@ struct DualSource {
   static constexpr int MIN_CTAS = min_ctas<KS>();
   static constexpr int S = D > G ? D / G : 1;  // edges a thread loads a chunk
   static constexpr int C = G * S;              // edges of a chunk
-  // the block path takes widths up to kTile (KS == 1: G >= width, one
-  // CTA lane tile); wider rows gain less from it than the group's walk,
-  // which loads KS lanes a thread
-  static constexpr bool kBlocks = KS == 1;
+  // the block path's tiles of kTile lanes in one lane tile (blockIdx.y)
+  static constexpr int TILES = G * KS > kTile ? G * KS / kTile : 1;
   static constexpr int kStageBytes = kBlock * S * (int)sizeof(int4);
   using Value = T;
   // the CTA's dynamic shared memory: the walk's stage, or with row blocks
@@ -291,7 +340,7 @@ struct DualSource {
   template <bool ACCUM>
   static constexpr int smem(bool blocks) {
     constexpr int b = kWarps * (int)sizeof(BlockStage<T, ACCUM>);
-    return blocks && kBlocks && b > kStageBytes ? b : kStageBytes;
+    return blocks && b > kStageBytes ? b : kStageBytes;
   }
   const int* col;
   const float* va;
@@ -311,7 +360,7 @@ struct DualSource {
   }
 
   // Adds staged edges [j0, j0 + D) (FULL) or [j0, n): D gathers issued,
-  // then added in edge order.
+  // then each product added compensated, in edge order.
   template <bool FULL>
   __device__ __forceinline__ void batch(const int4* edges, int j0, int n,
                                         int width, int f0, float (&acc)[KS],
@@ -334,14 +383,13 @@ struct DualSource {
 #pragma unroll
     for (int u = 0; u < D; ++u) {
       if (FULL || j0 + u < n) {
+        float p[KS];
 #pragma unroll
-        for (int k = 0; k < KS; ++k) {
-          const int f = f0 + k * G;
-          if (f < width)
-            kahan_add(acc[k], cmp[k],
-                      round_msg<T>(__fmul_rn(f < fa ? av[u] : bv[u],
-                                             xv[u][k])));
-        }
+        for (int k = 0; k < KS; ++k)
+          p[k] = __fmul_rn(f0 + k * G < fa ? av[u] : bv[u], xv[u][k]);
+        round_msgs<T, KS>(p);
+#pragma unroll
+        for (int k = 0; k < KS; ++k) kahan_add(acc[k], cmp[k], p[k]);
       }
     }
   }
@@ -370,67 +418,101 @@ struct DualSource {
     }
   }
 
-  // Starts the copies of x[col[j], l], j < ne, l < width, into st.x:
-  // 16-byte cp.async when the x rows are whole 16-byte lines, else 4-byte
-  // ones (bf16 in pairs of lanes); bf16 x of an odd width, or not 4-byte
-  // aligned, by plain loads, 8 a thread in flight.
+  // Starts the copies of x[col[j], c0 + l], j < ne, l < tw, into st.x at
+  // j * tw + l: 16-byte cp.async when x rows are whole 16-byte lines (then
+  // so is the tile, which starts at a multiple of kTile lanes), else
+  // 4-byte ones (bf16 in pairs of lanes); bf16 x of an odd width, or not
+  // 4-byte aligned, by plain loads, 8 a thread in flight.
   template <bool ACCUM>
   __device__ __forceinline__ void gather(BlockStage<T, ACCUM>& st, int ne,
-                                         int width, int lane) const {
+                                         int width, int c0, int tw,
+                                         int lane) const {
     constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte copy
     constexpr int kE = 4 / sizeof(T);   // elements of a 4-byte copy
+    const T* xc = x + c0;
     const uintptr_t base = reinterpret_cast<uintptr_t>(x);
     if (width % kV == 0 && (base & 15) == 0) {
-      const int per = width / kV;
+      const int per = tw / kV;
       const Div div(per);
       for (int q = lane; q < ne * per; q += 32) {
         const int j = div(q), c = (q - j * per) * kV;
-        cp_async16(&st.x[j * width + c], x + (int64_t)st.col[j] * width + c);
+        cp_async16(&st.x[j * tw + c], xc + (int64_t)st.col[j] * width + c);
       }
     } else if (width % kE == 0 && (base & 3) == 0) {
-      const int per = width / kE;
+      const int per = tw / kE;
       const Div div(per);
       for (int q = lane; q < ne * per; q += 32) {
         const int j = div(q), c = (q - j * per) * kE;
-        cp_async4(&st.x[j * width + c], x + (int64_t)st.col[j] * width + c);
+        cp_async4(&st.x[j * tw + c], xc + (int64_t)st.col[j] * width + c);
       }
     } else {
       constexpr int B = 8;
-      const Div div(width);
-      for (int q0 = lane; q0 < ne * width; q0 += 32 * B) {
+      const Div div(tw);
+      for (int q0 = lane; q0 < ne * tw; q0 += 32 * B) {
         T v[B];
 #pragma unroll
         for (int u = 0; u < B; ++u) {
           const int q = q0 + 32 * u;
-          if (q < ne * width) {
+          if (q < ne * tw) {
             const int j = div(q);
-            v[u] = x[(int64_t)st.col[j] * width + q - j * width];
+            v[u] = xc[(int64_t)st.col[j] * width + q - j * tw];
           }
         }
 #pragma unroll
         for (int u = 0; u < B; ++u) {
           const int q = q0 + 32 * u;
-          if (q < ne * width) st.x[q] = v[u];
+          if (q < ne * tw) st.x[q] = v[u];
         }
       }
     }
     cp_async_commit();
   }
 
-  // The block path (width <= kTile): this warp sums the rows of block
-  // `blk` into out (see the header).  Pair p = lane + 32 k is (row p /
-  // width, lane p % width), element p of the block's out rows.  ACCUM:
-  // each row from its prior value (staged with the block's edges), and
-  // rows without edges are left alone.
+  // Starts the copies of the tile [c0, c0 + tw) of the block's nr out
+  // rows ob (row stride width) into st.prior, and returns where (row r,
+  // lane l) lands: at r * tw + l.  Whole rows (tw == width) are one span;
+  // a tile of wider rows takes 16-byte copies where its rows start on
+  // 16-byte lines, else 4-byte ones.
+  template <bool ACCUM>
+  __device__ __forceinline__ const float* stage_prior(
+      BlockStage<T, ACCUM>& st, const float* ob, int nr, int width, int tw,
+      int lane) const {
+    if (tw == width)
+      return stage_span(reinterpret_cast<unsigned char*>(st.prior), ob,
+                        nr * width, lane);
+    if (width % 4 == 0 && (reinterpret_cast<uintptr_t>(ob) & 15) == 0) {
+      const int per = tw / 4;
+      const Div div(per);
+      for (int q = lane; q < nr * per; q += 32) {
+        const int r = div(q), c = (q - r * per) * 4;
+        cp_async16(&st.prior[r * tw + c], ob + (int64_t)r * width + c);
+      }
+    } else {
+      const Div div(tw);
+      for (int q = lane; q < nr * tw; q += 32) {
+        const int r = div(q);
+        cp_async4(&st.prior[q], ob + (int64_t)r * width + q - r * tw);
+      }
+    }
+    return st.prior;
+  }
+
+  // The block path: this warp sums lanes [c0, c0 + tw) of the rows of
+  // block `blk` into out, tw = min(kTile, width - c0) (see the header).
+  // Pair p = lane + 32 k is (row p / tw, lane c0 + p % tw); it sums its
+  // row's edges in edge order, compensated.  ACCUM: each row from its
+  // prior value (staged with the block's edges), and rows without edges
+  // are left alone.
   template <bool ACCUM>
   __device__ __forceinline__ void block(const int4 blk,
                                         const int* __restrict__ rowptr,
                                         BlockStage<T, ACCUM>& st,
                                         float* __restrict__ out, int width,
-                                        int row0) const {
+                                        int row0, int c0) const {
     const int lane = threadIdx.x & 31;
     const int r0 = blk.x, nr = blk.y - blk.x, e0 = blk.z, ne = blk.w - blk.z;
-    float* ob = out + ((int64_t)row0 + r0) * width;
+    const int tw = min(kTile, width - c0);
+    float* ob = out + ((int64_t)row0 + r0) * width + c0;
     for (int i = lane; i <= nr; i += 32) cp_async4(&st.rp[i], rowptr + r0 + i);
     if (lane < ne) {
       cp_async4(&st.col[lane], col + e0 + lane);
@@ -438,62 +520,64 @@ struct DualSource {
       cp_async4(&st.vb[lane], vb + e0 + lane);
     }
     const float* prior =
-        ACCUM ? stage_span(reinterpret_cast<unsigned char*>(st.prior), ob,
-                           nr * width, lane)
-              : nullptr;
+        ACCUM ? stage_prior(st, ob, nr, width, tw, lane) : nullptr;
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
-    gather(st, ne, width, lane);
+    gather(st, ne, width, c0, tw, lane);
     cp_async_wait<0>();
     __syncwarp();
-    const Div div(width);
-    for (int p = lane; p < nr * width; p += 32) {
+    const Div div(tw);
+    for (int p = lane; p < nr * tw; p += 32) {
       const int r = div(p);
-      const int l = p - r * width;
+      const int l = p - r * tw;
       const int ja = st.rp[r] - e0, jb = st.rp[r + 1] - e0;
       if (ACCUM && ja == jb) continue;
-      const bool lo = l < fa;
+      const bool lo = c0 + l < fa;
       float acc = ACCUM ? prior[p] : 0.f, cmp = 0.f;
       for (int j = ja; j < jb; ++j)
         kahan_add(acc, cmp,
                   round_msg<T>(__fmul_rn(lo ? st.va[j] : st.vb[j],
-                                         to_f32(st.x[j * width + l]))));
-      ob[p] = acc;
+                                         to_f32(st.x[j * tw + l]))));
+      ob[(int64_t)r * width + l] = acc;
     }
     __syncwarp();  // every read of the stage before the warp's next block
   }
 };
 
 // What the row kernel needs of a source beyond its walk: whether it takes
-// the plan's row blocks, and the shared memory of its walk and its blocks
-// (PairSource keeps its own).
+// the plan's row blocks (and in how many tiles of kTile lanes a lane tile),
+// and the shared memory of its walk and its blocks (PairSource keeps its
+// own).
 template <class Src>
 struct Traits {
   static constexpr bool kDual = false;
   static constexpr bool kBlocks = false;
+  static constexpr int kTiles = 1;
   template <bool ACCUM>
   static constexpr int smem(bool) { return 0; }
 };
 
 template <typename T, int G, int KS>
 struct Traits<DualSource<T, G, KS>> {
+  using Src = DualSource<T, G, KS>;
   static constexpr bool kDual = true;
-  static constexpr bool kBlocks = DualSource<T, G, KS>::kBlocks;
+  static constexpr bool kBlocks = true;
+  static constexpr int kTiles = Src::TILES;
   template <bool ACCUM>
   static constexpr int smem(bool blocks) {
-    return DualSource<T, G, KS>::template smem<ACCUM>(blocks);
+    return Src::template smem<ACCUM>(blocks);
   }
 };
 
 // CTAs [0, piece CTAs) sum one piece per group into `partial`; the next
 // ones sum one row of at most piece_len edges per group into `out`: the
-// plan's mid rows for a source that takes blocks, else every row (cut
-// ones skipped); the last ones, for a source that takes blocks, one row
-// block per warp.  A source keeps Src::NS sums a lane; sum s of lane f
-// lands in column s * width + f of out (row stride NS * width) and of the
-// partials.  ACCUM: start from out[row0 + row] and leave rows without
-// edges alone.
+// plan's mid rows for a source that takes blocks, else (or with
+// bp.n_mids < 0) every row, cut ones skipped; the last ones, for a source
+// that takes blocks, one tile of kTile lanes of one row block per warp.  A source keeps Src::NS sums a
+// lane; sum s of lane f lands in column s * width + f of out (row stride
+// NS * width) and of the partials.  ACCUM: start from out[row0 + row] and
+// leave rows without edges alone.
 template <class Src, int G, int KS, bool ACCUM>
 __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
     Src src, const int* __restrict__ rowptr, Split sp, Blocks bp,
@@ -503,18 +587,24 @@ __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
   constexpr int kSlots = kBlock / G;  // groups of a CTA
   extern __shared__ __align__(16) unsigned char smem[];  // Tr::smem<ACCUM>
   const int piece_ctas = (sp.n_pieces + kSlots - 1) / kSlots;
-  const int n_listed = Tr::kBlocks ? bp.n_mids : n_rows;
+  // (a constant up to kTile lanes, where the dual always takes blocks)
+  const bool every = !Tr::kBlocks || (KS > 1 && bp.n_mids < 0);
+  const int n_listed = every ? n_rows : bp.n_mids;
   const int row_ctas = (n_listed + kSlots - 1) / kSlots;
   if ((int)blockIdx.x >= piece_ctas + row_ctas) {
     if constexpr (Tr::kBlocks) {
-      const int b = (blockIdx.x - piece_ctas - row_ctas) * kWarps +
+      // warp w of these CTAs: tile w % kTiles of this lane tile, of block
+      // w / kTiles
+      const int w = (blockIdx.x - piece_ctas - row_ctas) * kWarps +
                     threadIdx.x / 32;
-      if (b < bp.n_blocks)
+      const int b = w / Tr::kTiles;
+      const int c0 = (blockIdx.y * Tr::kTiles + w % Tr::kTiles) * kTile;
+      if (b < bp.n_blocks && c0 < width)
         src.template block<ACCUM>(
             bp.blocks[b], rowptr,
             reinterpret_cast<BlockStage<typename Src::Value, ACCUM>*>(
                 smem)[threadIdx.x / 32],
-            out, width, row0);
+            out, width, row0, c0);
     }
     return;
   }
@@ -544,7 +634,7 @@ __global__ void __launch_bounds__(kBlock, Src::MIN_CTAS) csr_rows_kernel(
   }
   const int i = (blockIdx.x - piece_ctas) * kSlots + threadIdx.x / G;
   if (i >= n_listed) return;
-  const int row = Tr::kBlocks ? bp.mids[i] : i;
+  const int row = every ? i : bp.mids[i];
   const int start = rowptr[row];
   const int end = rowptr[row + 1];
   if (end - start > sp.piece_len) return;  // a cut row: its pieces sum it
@@ -578,8 +668,10 @@ void launch_rows(Src src, const int* rowptr, const Split& sp,
                  cudaStream_t s) {
   using Tr = Traits<Src>;
   constexpr int kSlots = kBlock / G;
-  const int listed = Tr::kBlocks ? bp.n_mids : n;
-  const int block_ctas = Tr::kBlocks ? (bp.n_blocks + kWarps - 1) / kWarps : 0;
+  const int listed = !Tr::kBlocks || (KS > 1 && bp.n_mids < 0) ? n
+                                                               : bp.n_mids;
+  const int block_ctas =
+      Tr::kBlocks ? (bp.n_blocks * Tr::kTiles + kWarps - 1) / kWarps : 0;
   const dim3 grid((sp.n_pieces + kSlots - 1) / kSlots +
                       (listed + kSlots - 1) / kSlots + block_ctas,
                   (w + G * KS - 1) / (G * KS));
@@ -601,14 +693,31 @@ void launch_rows(Src src, const int* rowptr, const Split& sp,
       <<<grid, kBlock, smem, s>>>(src, rowptr, sp, bp, out, n, w, row0);
 }
 
+// The dual at (G, KS): row blocks up to kTile lanes always, above it only
+// with `wide` (the wrapper's choice: x far larger than L2); without them
+// the launch walks every uncut row (no block CTAs, n_mids < 0).
+template <typename T, bool ACCUM, int G, int KS>
+void dual_launch(const int* rowptr, const int* col, const float* va,
+                 const float* vb, const T* x, int fa, const Split& sp,
+                 const Blocks& bp, float* out, int n, int w, int row0,
+                 bool wide, cudaStream_t s) {
+  Blocks walked = bp;
+  if (KS > 1 && !wide) {
+    walked.n_blocks = 0;
+    walked.n_mids = -1;
+  }
+  launch_rows<ACCUM, G, KS>(DualSource<T, G, KS>{col, va, vb, x, fa}, rowptr,
+                            sp, walked, out, n, w, row0, s);
+}
+
 template <typename T, bool ACCUM>
 void dual_dispatch(const int* rowptr, const int* col, const float* va,
                    const float* vb, const T* x, int fa, const Split& sp,
                    const Blocks& bp, float* out, int n, int w, int row0,
-                   cudaStream_t s) {
+                   bool wide, cudaStream_t s) {
 #define PGSD_DUAL(G, KS)                                                    \
-  launch_rows<ACCUM, G, KS>(DualSource<T, G, KS>{col, va, vb, x, fa}, rowptr, \
-                            sp, bp, out, n, w, row0, s)
+  dual_launch<T, ACCUM, G, KS>(rowptr, col, va, vb, x, fa, sp, bp, out, n, \
+                               w, row0, wide, s)
   PGSD_DISPATCH_WIDTH(w, PGSD_DUAL);
 #undef PGSD_DUAL
 }
@@ -1049,11 +1158,19 @@ extern "C" void pgsd_csr_block_shape(int* edges, int* rows, int* walk) {
   *walk = kWalkEdges;
 }
 
+// The lanes of a tile of the dual's row blocks (scatter_csr.py's
+// BLOCK_TILE); a build that exports it takes the wide_blocks argument.
+extern "C" int pgsd_csr_dual_tile() { return kTile; }
+
+// `wide_blocks`: above kTile lanes, sum the plan's row blocks in tiles of
+// kTile lanes (else every uncut row is walked); scatter_csr.py sets it
+// where x is far larger than L2.
 extern "C" int pgsd_csr_dual_spmm(const void* rowptr, const void* col,
                                   const void* val_a, const void* val_b,
                                   const void* x, void* out, int n_rows,
                                   int width, int fa, int x_is_bf16, int accum,
-                                  int row0, const void* pieces, int n_pieces,
+                                  int row0, int wide_blocks,
+                                  const void* pieces, int n_pieces,
                                   const void* rows, const void* ptr,
                                   int n_long, int piece_len, void* partial,
                                   const void* blocks, int n_blocks,
@@ -1073,18 +1190,19 @@ extern "C" int pgsd_csr_dual_spmm(const void* rowptr, const void* col,
   float* o = static_cast<float*>(out);
   const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
   const float* xf = static_cast<const float*>(x);
+  const bool wide = wide_blocks != 0;
   if (x_is_bf16 && accum)
     dual_dispatch<__nv_bfloat16, true>(rp, c, va, vb, xh, fa, sp, bp, o,
-                                       n_rows, width, row0, s);
+                                       n_rows, width, row0, wide, s);
   else if (x_is_bf16)
     dual_dispatch<__nv_bfloat16, false>(rp, c, va, vb, xh, fa, sp, bp, o,
-                                        n_rows, width, row0, s);
+                                        n_rows, width, row0, wide, s);
   else if (accum)
     dual_dispatch<float, true>(rp, c, va, vb, xf, fa, sp, bp, o, n_rows,
-                               width, row0, s);
+                               width, row0, wide, s);
   else
     dual_dispatch<float, false>(rp, c, va, vb, xf, fa, sp, bp, o, n_rows,
-                                width, row0, s);
+                                width, row0, wide, s);
   return combine(sp, o, width, row0, accum != 0, s);
 }
 

@@ -65,6 +65,17 @@ BLOCK_ROWS = 32
 # walks each of them, where a shorter row takes a thread a column (the
 # source's kWalkEdges, which bind() holds this to).
 WALK_EDGES = 64
+# Above BLOCK_TILE (32) lanes the dual sums the row blocks in tiles of
+# BLOCK_TILE lanes, a warp a tile of a block, only where x (the gathered
+# table) is more than WIDE_BLOCK_L2 times the card's L2: there the
+# gathers come from device memory, and a block's copies all in flight at
+# once beat the walk's short chains (giant cold blocks at 2F=64: 17-24%
+# faster); from an L2-resident table the walk of a row a warp won (the
+# hot blocks 8% at f32, the bench SGCN dual at 2F=128 39%; timed on an
+# H100 with scripts/ab_kernel_variants.py, PERF.md).  The source's kTile,
+# which bind() holds this to.
+BLOCK_TILE = 32
+WIDE_BLOCK_L2 = 2
 
 _SOURCE = "scatter_csr.cu"
 _lib = None
@@ -81,7 +92,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     plan = [p, i, p, p, i, i, p, p, i, p, i, p, i]
     lib.pgsd_csr_dual_spmm.restype = i
-    lib.pgsd_csr_dual_spmm.argtypes = [p] * 6 + [i] * 6 + plan + [p]
+    lib.pgsd_csr_dual_spmm.argtypes = [p] * 6 + [i] * 7 + plan + [p]
     lib.pgsd_csr_pair_spmm.restype = i
     lib.pgsd_csr_pair_spmm.argtypes = [p] * 8 + [i] * 6 + plan + [p]
     lib.pgsd_csr_scatter.restype = i
@@ -96,6 +107,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             f"{rows.value} rows and walks rows of more than {walk.value} "
             f"edges; scatter_csr.py plans {BLOCK_EDGES}, {BLOCK_ROWS} and "
             f"{WALK_EDGES}")
+    if lib.pgsd_csr_dual_tile() != BLOCK_TILE:
+        raise RuntimeError(f"{_SOURCE} tiles row blocks by "
+                           f"{lib.pgsd_csr_dual_tile()} lanes; "
+                           f"scatter_csr.py by {BLOCK_TILE}")
     return lib
 
 
@@ -338,6 +353,19 @@ def _on(device, fn, *args) -> int:
         return fn(*args)
 
 
+_L2_BYTES: Dict[int, int] = {}
+
+
+def _wide_blocks(x: torch.Tensor) -> int:
+    """1 where the dual takes row blocks above BLOCK_TILE lanes: x more
+    than WIDE_BLOCK_L2 times the L2 of its card (read once a device).
+    The kernel reads it only above BLOCK_TILE lanes."""
+    dev = x.device.index
+    if dev not in _L2_BYTES:
+        _L2_BYTES[dev] = torch.cuda.get_device_properties(dev).L2_cache_size
+    return int(x.numel() * x.element_size() > WIDE_BLOCK_L2 * _L2_BYTES[dev])
+
+
 def _add_rows_(out, rowptr, msgs, row0: int = 0) -> torch.Tensor:
     """``out[row0 + r] += sum of row r's messages`` in place, summed in
     float64 and rounded once to float32: the exact sum that the kernels'
@@ -411,10 +439,11 @@ def _edge_launch(name, entry, rowptr, col, vals, x, fa, out, row0, split):
     if not accum:
         out = torch.empty((n, wo), dtype=torch.float32, device=dev)
     plan, _partial = _plan_args(rowptr, split, wo, dev, blocks=True)
+    wide = (_wide_blocks(x),) if entry == "csr_dual_spmm" else ()
     err = _on(dev, getattr(_library(), "pgsd_" + entry),
               rowptr.data_ptr(), col.data_ptr(), *(v.data_ptr() for v in vals),
               x.data_ptr(), out.data_ptr(), n, w, fa,
-              int(x.dtype == torch.bfloat16), int(accum), row0, *plan,
+              int(x.dtype == torch.bfloat16), int(accum), row0, *wide, *plan,
               _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

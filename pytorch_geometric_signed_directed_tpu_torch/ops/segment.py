@@ -20,8 +20,12 @@ def _with_spare(segment_ids: torch.Tensor, num_segments: int):
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """out[s] = sum of data[e] over the e with segment_ids[e] == s."""
+                num_segments: int,
+                indices_are_sorted: bool = False) -> torch.Tensor:
+    """out[s] = sum of data[e] over the e with segment_ids[e] == s.
+
+    ``indices_are_sorted`` is accepted for the JAX signature and not
+    read: the ids may come in any order."""
     out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     out = out.index_add(0, _with_spare(segment_ids, num_segments), data)
@@ -29,9 +33,13 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
+                 num_segments: int,
+                 indices_are_sorted: bool = False) -> torch.Tensor:
     """The sum of each segment over its count, an empty segment's count
-    taken as 1 (its mean is 0)."""
+    taken as 1 (its mean is 0).
+
+    ``indices_are_sorted`` is accepted for the JAX signature and not
+    read: the ids may come in any order."""
     s = segment_sum(data, segment_ids, num_segments)
     ones = torch.ones(data.shape[:1], dtype=data.dtype, device=data.device)
     cnt = segment_sum(ones, segment_ids, num_segments).clamp_min(1.0)
@@ -39,9 +47,13 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int,
+                indices_are_sorted: bool = False) -> torch.Tensor:
     """out[s] = max of data[e] over the e with segment_ids[e] == s; an
-    empty segment holds -inf (``jax.ops.segment_max``'s identity)."""
+    empty segment holds -inf (``jax.ops.segment_max``'s identity).
+
+    ``indices_are_sorted`` is accepted for the JAX signature and not
+    read: the ids may come in any order."""
     ids = _with_spare(segment_ids, num_segments).long()
     out = torch.full((num_segments + 1,) + tuple(data.shape[1:]),
                      float("-inf"), dtype=data.dtype, device=data.device)
@@ -51,10 +63,14 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
-                    num_segments: int) -> torch.Tensor:
+                    num_segments: int,
+                    indices_are_sorted: bool = False) -> torch.Tensor:
     """Softmax of 1-D ``logits`` over the edges of each segment, shifted
     by the segment's max (0 where that max is not finite), the denominator
-    floored at ``finfo.tiny``; padding ids get weight 0."""
+    floored at ``finfo.tiny``; padding ids get weight 0.
+
+    ``indices_are_sorted`` is accepted for the JAX signature and not
+    read: the ids may come in any order."""
     valid = (segment_ids >= 0) & (segment_ids < num_segments)
     neg_inf = torch.finfo(logits.dtype).min
     maxes = segment_max(torch.where(valid, logits, neg_inf), segment_ids,

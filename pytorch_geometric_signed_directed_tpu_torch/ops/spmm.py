@@ -242,11 +242,15 @@ def make_propagator(
     num_nodes: Optional[int] = None,
     *,
     mode: str = "auto",
+    pad_to: Optional[int] = None,
+    dtype=np.float32,
     device: DeviceLike = None,
 ) -> Propagator:
     """Host-side factory.  ``mode`` in {'auto', 'dense', 'segment', 'mxu',
-    'bsr'}."""
-    A = build_coo(row, col, val, num_nodes, device=device)
+    'bsr'}.  ``dtype`` is the values' type, as in ``build_coo`` (the mxu
+    and bsr tiers hold float32 values, their kernels' type); ``pad_to`` is
+    accepted for the JAX signature and not read (no padding)."""
+    A = build_coo(row, col, val, num_nodes, dtype=dtype, device=device)
     return propagator_from_coo(A, mode=mode)
 
 
@@ -318,13 +322,16 @@ class DualPropagator:
 
 def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
                     num_cols: Optional[int] = None, mode: str = "auto",
+                    with_transpose: bool = True,
                     device: DeviceLike = None) -> Optional[DualPropagator]:
     """Build a fused operator pair from one shared (row, col) edge list.
 
     Returns None on the dense and bsr tiers, where fusion buys nothing:
     callers then apply the two operators separately.  On ``mxu`` the
     column split and the stream follow ops/layout.py's knobs, read at call
-    time; the transposed pair takes its own split and stream."""
+    time; the transposed pair takes its own split and stream.  With
+    ``with_transpose=False`` no transposed pair is built (``transposed``
+    is None): the pair then applies forward only, as in JAX."""
     _check_mode(mode)
     device = resolve_device(device)
     row = np.asarray(row, np.int64)
@@ -344,12 +351,14 @@ def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
     va = torch.from_numpy(val_a).to(device)
     vb = torch.from_numpy(val_b).to(device)
     if mode == "mxu":
-        L_t, p_t = build_layout(col, row, num_cols, num_nodes, device)
+        t = None
+        if with_transpose:
+            L_t, p_t = build_layout(col, row, num_cols, num_nodes, device)
+            t = DualPropagator(
+                row=None, val_a=va[p_t].contiguous(),
+                val_b=vb[p_t].contiguous(), num_nodes=num_cols,
+                num_cols=num_nodes, mode="mxu", **_layout_fields(L_t))
         L, p = build_layout(row, col, num_nodes, num_cols, device)
-        t = DualPropagator(
-            row=None, val_a=va[p_t].contiguous(), val_b=vb[p_t].contiguous(),
-            num_nodes=num_cols, num_cols=num_nodes, mode="mxu",
-            **_layout_fields(L_t))
         return DualPropagator(
             row=None, val_a=va[p].contiguous(), val_b=vb[p].contiguous(),
             num_nodes=num_nodes, num_cols=num_cols, mode="mxu",
@@ -367,7 +376,8 @@ def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
             mode="segment", transposed=t)
 
     return segment_one(r, c, num_nodes, num_cols,
-                       segment_one(c, r, num_cols, num_nodes))
+                       segment_one(c, r, num_cols, num_nodes)
+                       if with_transpose else None)
 
 
 def propagators_from_dual(D: DualPropagator) -> Tuple[Propagator, Propagator]:
@@ -421,6 +431,9 @@ class _DualSpmmStacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.D.transposed is None:
+            raise ValueError("the dual was built with with_transpose=False "
+                             "and has no backward")
         return _dual_forward_stacked(ctx.D.transposed, g.contiguous()), None
 
 

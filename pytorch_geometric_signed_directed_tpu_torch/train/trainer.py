@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .optim import OptimizerFactory
 
 @dataclass
 class TrainState:
@@ -33,18 +34,28 @@ class Trainer:
             as ``torch.optim.Adam(weight_decay=...)``: the decay joins the
             gradient before the moments (optax's ``add_decayed_weights``
             before ``adam``).
-        decoupled: take AdamW's decoupled decay instead (optax's
-            ``adamw``).
+        optimizer: a factory from the model's parameters to a
+            ``torch.optim.Optimizer`` (the form ``train.optim.adam`` gives),
+            which replaces the Adam of ``lr`` and ``weight_decay``, as the
+            JAX trainer's optax transformation does; None keeps that Adam.
         rng: seed of the ``torch.Generator`` handed to ``loss_fn`` (for
             dropout), on ``device``.
         device: where the generator lives; None means "cuda".
+        decoupled: take AdamW's decoupled decay instead (optax's
+            ``adamw``); only without ``optimizer``.
     """
 
     def __init__(self, loss_fn: Callable, lr: float = 1e-3,
-                 weight_decay: float = 0.0, rng: Optional[int] = None,
-                 device: DeviceLike = None, decoupled: bool = False):
+                 weight_decay: float = 0.0,
+                 optimizer: Optional[OptimizerFactory] = None,
+                 rng: Optional[int] = None, *, device: DeviceLike = None,
+                 decoupled: bool = False):
+        if optimizer is not None and decoupled:
+            raise ValueError("decoupled selects the default optimizer; "
+                             "with optimizer= the factory sets the decay")
         self.loss_fn = loss_fn
         self.lr, self.weight_decay = lr, weight_decay
+        self.optimizer = optimizer
         self.decoupled = decoupled
         self.device = resolve_device(device)
         self.generator = None
@@ -53,6 +64,9 @@ class Trainer:
             self.generator.manual_seed(rng)
 
     def init(self, model: torch.nn.Module) -> TrainState:
+        if self.optimizer is not None:
+            return TrainState(params=model,
+                              opt_state=self.optimizer(model.parameters()))
         opt = torch.optim.AdamW if self.decoupled else torch.optim.Adam
         return TrainState(params=model, opt_state=opt(
             model.parameters(), lr=self.lr, weight_decay=self.weight_decay))
@@ -76,10 +90,13 @@ class Trainer:
     def fit(self, state: TrainState, batch_fn: Callable[[], tuple],
             epochs: int, eval_fn: Optional[Callable] = None,
             eval_every: int = 10, patience: Optional[int] = None,
-            verbose: bool = False) -> TrainState:
+            verbose: bool = False, best_on_host: bool = True
+            ) -> TrainState:
         """batch_fn() -> loss args per step; eval_fn(model) -> float metric
-        (higher is better).  The best-metric snapshot is a CPU copy of the
-        state_dict."""
+        (higher is better).  The best-metric snapshot is a copy of the
+        state_dict: on the CPU with ``best_on_host``, else on the model's
+        device (no copy to the host at each improvement, one more set of
+        parameters in device memory)."""
         bad = 0
         t0 = time.perf_counter()
         raw_losses = []
@@ -93,7 +110,8 @@ class Trainer:
                 if metric > state.best_metric:
                     state.best_metric = metric
                     state.best_params = {
-                        k: v.detach().cpu().clone()
+                        k: (v.detach().cpu() if best_on_host
+                            else v.detach()).clone()
                         for k, v in state.params.state_dict().items()}
                     bad = 0
                 else:

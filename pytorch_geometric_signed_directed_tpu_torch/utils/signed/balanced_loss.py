@@ -15,7 +15,8 @@ from ...ops.spmm import Propagator, propagator_from_coo
 
 
 def _propagator(M: sp.spmatrix, mode: str, device: DeviceLike) -> Propagator:
-    return propagator_from_coo(coo_from_scipy(M.tocsc(), device), mode=mode)
+    return propagator_from_coo(coo_from_scipy(M.tocsc(), device=device),
+                               mode=mode)
 
 
 def _row_degrees(A: sp.spmatrix) -> sp.spmatrix:

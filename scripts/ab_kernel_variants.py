@@ -53,12 +53,14 @@ work a call (a third number).  Cases:
        2F=64), and on chip_smoke.py's hub CSR at 2F=64.
 
 ``--only a,b`` runs only the named groups of cases: ``dual``, ``giant``,
-``hub``, ``pair``, ``scatter``, ``giant_digrac``, ``odd`` and ``paths`` of
-``csr``;
+``hub``, ``pair``, ``scatter``, ``giant_digrac``, ``odd``, ``paths`` and
+``gather`` (the card's L2 gather rate, no build timed) of ``csr``;
 ``template`` and ``hub`` of ``sddmm``.
 
-A build of ``scatter_csr.cu`` from before the row blocks (no
-``pgsd_csr_block_shape``) is called without the plan's block arguments,
+A build of ``scatter_csr.cu`` from before the dual's wide row blocks (no
+``pgsd_csr_dual_tile``) is called without their flag, and one from
+before the row blocks (no ``pgsd_csr_block_shape``) also without the
+plan's block arguments,
 so the parent commit's source times against today's behind the same
 wrappers (``git show HEAD~1:<path> > build/scatter_csr_parent.cu``, with
 the parent's ``csr_common.cuh`` beside it; at V = 1 it is given the TL
@@ -143,6 +145,8 @@ class PlanlessBuild:
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
+        if name == "pgsd_csr_dual_spmm":
+            return lambda *args: fn(*args[:12], *args[13:-7], args[-1])
         if name != "pgsd_csr_scatter":
             return lambda *args: fn(*args[:-7], args[-1])
 
@@ -152,6 +156,29 @@ class PlanlessBuild:
                 args[9] = min(32, 1 << (args[4] - 1).bit_length())
             return fn(*args[:-7], args[-1])
         return scatter
+
+
+class UntiledBuild:
+    """A build of scatter_csr.cu with row blocks but from before the dual's
+    wide row blocks (no ``pgsd_csr_dual_tile``): its pgsd_csr_dual_spmm
+    takes no wide_blocks argument (the 13th), which a call here drops."""
+
+    def __init__(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        plan = [p, i, p, p, i, i, p, p, i, p, i, p, i]
+        for name, head in (("pgsd_csr_dual_spmm", [p] * 6 + [i] * 6),
+                           ("pgsd_csr_pair_spmm", [p] * 8 + [i] * 6),
+                           ("pgsd_csr_scatter", [p, p, p] + [i] * 7)):
+            fn = getattr(lib, name)
+            fn.restype = i
+            fn.argtypes = head + plan + [p]
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name == "pgsd_csr_dual_spmm":
+            return lambda *args: fn(*args[:12], *args[13:])
+        return fn
 
 
 def build_variants(kernel, variants):
@@ -192,7 +219,9 @@ def build_variants(kernel, variants):
             lib.pgsd_csr_block_shape(*map(ctypes.byref, shape))
             SHAPES[name] = tuple(v.value for v in shape)
             with planned_as(SHAPES[name]):
-                libs[name] = module.bind(lib)
+                libs[name] = (module.bind(lib)
+                              if hasattr(lib, "pgsd_csr_dual_tile")
+                              else UntiledBuild(lib))
         else:
             libs[name] = module.bind(lib)
     return module, libs
@@ -349,6 +378,42 @@ def csr_cases(module, libs, gen, want):
         odd_cases(module, libs, gen)
     if want("paths"):
         path_cases(module, libs, gen)
+    if want("gather"):
+        gather_rate(gen)
+
+
+def gather_rate(gen):
+    """The card's rate of row gathers from L2, measured without the
+    kernels on a table that fits in L2 (131,072 rows, the giant graph's
+    hot table: 32 MiB at W=64 f32): ``torch.nn.functional.embedding_bag``
+    (mode "sum") gathers 2^22 random rows in bags of 32, so it writes
+    1/32 of what it gathers, and ``torch.index_select`` gathers 2^16 rows
+    into an output that L2 holds too.  Gathered bytes over device time (20
+    calls back to back): library calls, so a floor under the rate that a
+    K1/K2 call's gathers (edges x W x element size) can meet when its
+    table stays in L2, not its ceiling."""
+    rows, n_idx, bag = 131_072, 1 << 22, 32
+    for width, dt in ((64, torch.float32), (32, torch.float32),
+                      (64, torch.bfloat16)):
+        table = torch.randn(rows, width, device=DEV, generator=gen).to(dt)
+        idx = torch.randint(0, rows, (n_idx,), device=DEV, generator=gen)
+        offsets = torch.arange(0, n_idx, bag, device=DEV)
+        # index_select of 2^16 rows into one output that L2 also holds
+        # (8-16 MiB, rewritten each call)
+        few = idx[:1 << 16]
+        buf = torch.empty(len(few), width, device=DEV, dtype=dt)
+        mb = table.numel() * table.element_size() / 2**20
+        for what, n, fn in (
+                (f"embedding_bag in bags of {bag}", n_idx,
+                 lambda: torch.nn.functional.embedding_bag(
+                     idx, table, offsets, mode="sum")),
+                ("index_select into an L2-sized output", len(few),
+                 lambda: torch.index_select(table, 0, few, out=buf))):
+            ms = per_call_ms(fn)
+            gathered = n * width * table.element_size()
+            print(f"L2 gather rate: {what}, {n} rows of a {rows}x{width} "
+                  f"{str(dt)[6:]} table ({mb:.0f} MiB): {ms:.4f} ms, "
+                  f"{gathered / ms / 1e9:.3f} TB/s gathered", flush=True)
 
 
 def accum_turns(module, libs, gen, D, width, label, single, library):

@@ -1326,3 +1326,64 @@ def test_scatter_on_long_uncut_rows_on_card(card, width, dtype):
         assert torch.equal(acc, scatter_csr.csr_scatter_accum(
             rowptr, msgs, out0.clone(), 0, split))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", ["walked", "tiled"])
+@pytest.mark.parametrize("accum", [False, True], ids=["plain", "accum"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [33, 48, 96, 128, 300])
+@pytest.mark.parametrize("kind", SHORT_KINDS)
+def test_dual_on_wide_row_blocks_on_card(card, kind, width, dtype, accum,
+                                         blocks, monkeypatch):
+    """K1 and K2 above 32 lanes, the row blocks walked a warp a row (x
+    within the L2 rule) or taken in tiles of 32 lanes a warp (the rule
+    set to 0, as for an x far larger than L2), the walk's lanes as one
+    vector a thread (48, 96, 128) or strided one by one (33, 300, and x
+    from a base off the vector's alignment): against the plain version,
+    the same bits twice, rows without edges 0 (plain) or untouched
+    (accumulate).
+    A cut hub row is held at 1e-4, as chip_smoke.py and
+    scripts/ab_kernel_variants.py hold it: its compensated float32 pieces
+    lie ~1e-5 of its sums from float64, which F32_TOL misses where a lane
+    of the row cancels to near 0 (at 300 lanes, 2.9e-5 at a value of 0.63
+    on an H100, the parent's arithmetic on pieces)."""
+    if blocks == "tiled":
+        monkeypatch.setattr(scatter_csr, "WIDE_BLOCK_L2", 0)
+    mdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = F32_TOL if dtype == "f32" else BF16_TOL
+    rowptr, split, lengths = short_row_csr(kind, width, card)
+    cut = torch.zeros(len(lengths), dtype=torch.bool, device=card)
+    cut[split.rows.long()] = True
+    n, e, m = len(lengths), int(lengths.sum()), 5000
+    gen = torch.Generator(device=card).manual_seed(width)
+    col = torch.randint(0, m, (e,), generator=gen, device=card,
+                        dtype=torch.int32)
+    va, vb = torch.randn(2, e, generator=gen, device=card)
+    flat = torch.randn(m * width + 1, generator=gen, device=card).to(mdt)
+    empty = torch.from_numpy(lengths == 0).to(card)
+    for x in (flat[:m * width].view(m, width), flat[1:].view(m, width)):
+        args = (rowptr, col, va, vb, x, width // 3)
+        if accum:
+            row0 = 3
+            out0 = torch.randn(n + 7, width, generator=gen, device=card)
+            got = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(), row0,
+                                                  split)
+            want = scatter_csr.csr_dual_spmm_accum_plain(*args, out0, row0)
+            again = scatter_csr.csr_dual_spmm_accum(*args, out0.clone(),
+                                                    row0, split)
+            inner = slice(row0, row0 + n)
+            assert torch.equal(got[inner][empty], out0[inner][empty])
+            assert torch.equal(got[:row0], out0[:row0])
+            assert torch.equal(got[row0 + n:], out0[row0 + n:])
+            got, want, again = got[inner], want[inner], again[inner]
+        else:
+            got = scatter_csr.csr_dual_spmm(*args, split)
+            want = scatter_csr.csr_dual_spmm_plain(*args)
+            again = scatter_csr.csr_dual_spmm(*args, split)
+            assert torch.all(got[empty] == 0)
+        torch.testing.assert_close(got[~cut], want[~cut], **tol)
+        torch.testing.assert_close(got[cut], want[cut], rtol=1e-4,
+                                   atol=1e-4)
+        assert torch.equal(got, again)
+    torch.cuda.synchronize()

@@ -347,6 +347,55 @@ def test_batch_compensated_sum_is_as_close_as_per_edge_on_a_hub_row():
     assert max(errs[8]) < 1e-4
 
 
+def hub_row_errors(blocks, rows=48, seed=100):
+    """The mean absolute error against float64 of ``rows`` independent
+    rows the length of the giant graph's hub (316 pieces) of products of
+    two standard normals, summed as piece_sums does for each ``block``;
+    the rows' pieces in one vectorised pass."""
+    L = scatter_csr.PIECE_EDGES
+    rng = np.random.default_rng(seed)
+    m = (rng.standard_normal((rows, 316 * L), dtype=np.float32)
+         * rng.standard_normal((rows, 316 * L), dtype=np.float32))
+    exact = m.astype(np.float64).sum(1)
+    pieces = m.reshape(-1, L)
+    errs = {}
+    for block in blocks:
+        s = np.zeros(len(pieces), np.float32)
+        c = np.zeros_like(s)
+        for j in range(0, L, max(block, 1)):
+            if block == 0:
+                s = s + pieces[:, j]
+                continue
+            b = np.zeros_like(s)
+            for v in pieces[:, j:j + block].T:
+                b = b + v
+            y = b - c
+            t = s + y
+            c = (t - s) - y
+            s = t
+        got = (s.astype(np.float64) - c.astype(np.float64)).reshape(
+            rows, -1).sum(1)
+        errs[block] = float(np.abs(got - exact).mean())
+    return errs
+
+
+@pytest.mark.parametrize("depth", [4, 8])
+def test_dual_batch_sum_on_a_hub_row(depth):
+    """PairSource's batch sums (D products plainly, the batch sum
+    compensated) at the dual's batch depths (D = 4 at 2 or 8 lanes a
+    thread, 8 otherwise) over 48 rows the length of the giant graph's
+    hub: within 3x the error of a compensated add an edge (2.2x in
+    expectation) and five times below a plain float32 sum's (10.2x in
+    expectation: the ratio grows as the square root of the piece length,
+    so ten times cannot be held from a sample).  The dual keeps a
+    compensated add an edge: on the card its batch sums missed the hub
+    row's f32 tolerance in tests/test_torch_cuda.py, and their registers
+    cost the walk an SM's fourth CTA (csrc/scatter_csr.cu)."""
+    errs = hub_row_errors((1, depth, 0))
+    assert errs[depth] < 3 * errs[1]
+    assert errs[depth] < errs[0] / 5
+
+
 # --- the pair forward against the JAX package --------------------------------
 
 def zipf_graph(n, e, seed):

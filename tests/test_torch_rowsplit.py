@@ -233,17 +233,28 @@ def test_blocks_of_short_rows_within_their_shape(block_edges, block_rows,
 
 class BlockShapeBuild:
     """The ctypes surface of a build of scatter_csr.cu whose row blocks
-    and walked rows are ``shape`` (edges, rows, walk): settable entry
-    signatures and ``pgsd_csr_block_shape``."""
+    and walked rows are ``shape`` (edges, rows, walk) and whose dual tiles
+    its row blocks by ``tile`` lanes: settable entry signatures,
+    ``pgsd_csr_block_shape`` and ``pgsd_csr_dual_tile``."""
 
-    def __init__(self, shape):
-        self.shape = shape
+    def __init__(self, shape, tile=scatter_csr.BLOCK_TILE):
+        self.shape, self.tile = shape, tile
         for name in ("pgsd_csr_dual_spmm", "pgsd_csr_pair_spmm",
                      "pgsd_csr_scatter"):
             setattr(self, name, types.SimpleNamespace())
 
     def pgsd_csr_block_shape(self, edges, rows, walk):
         edges._obj.value, rows._obj.value, walk._obj.value = self.shape
+
+    def pgsd_csr_dual_tile(self):
+        return self.tile
+
+
+def test_bind_rejects_another_dual_tile():
+    shape = (scatter_csr.BLOCK_EDGES, scatter_csr.BLOCK_ROWS,
+             scatter_csr.WALK_EDGES)
+    with pytest.raises(RuntimeError, match="tiles row blocks"):
+        scatter_csr.bind(BlockShapeBuild(shape, tile=16))
 
 
 def test_plan_rejects_block_shapes_the_kernels_do_not_take(monkeypatch):
@@ -520,6 +531,141 @@ def test_emulated_row_blocks_match_jax_scatter_accum(width, monkeypatch):
     assert split.blocks.shape[0] > 20 and split.mids.numel() == 3
     got = emulate(rowptr, torch.from_numpy(msgs), split,
                   torch.from_numpy(out0[:n].copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], **F32_TOL)
+
+
+# --- the dual's float32 arithmetic, emulated at widths above 32 lanes ------
+
+KTILE = scatter_csr.BLOCK_TILE  # the lanes of a tile of the wide row blocks
+
+
+def kahan(acc, cmp, v):
+    """csr_common.cuh's kahan_add on float32 numpy lanes."""
+    y = v - cmp
+    t = acc + y
+    return t, (t - acc) - y
+
+
+def compensated(m, acc):
+    """Rows of float32 messages ``m`` [edges, lanes] added to ``acc`` in
+    edge order, each compensated; returns the sum and the compensation."""
+    cmp = np.zeros_like(acc)
+    for v in m:
+        acc, cmp = kahan(acc, cmp, v)
+    return acc, cmp
+
+
+def emulate_dual_f32(rowptr, msgs, split, out=None, row0=0, tiled=True):
+    """The float32 arithmetic of ``csr_dual_spmm[_accum]`` with ``split``
+    at the width of ``msgs``: with ``tiled`` each row block in tiles of
+    KTILE lanes (each (row, lane) of the block by one tile), else its rows
+    walked over every lane, as each mid row is; a row from its prior value
+    in the accumulate mode (only rows with edges), each product added
+    compensated; each piece from 0, its (sum - compensation) in float64;
+    then each cut row's partials in piece order onto its prior value in
+    float64, rounded once.  Returns the output and how often each (row,
+    lane) was summed."""
+    rp = rowptr.long().numpy()
+    n, width = rp.size - 1, msgs.shape[1]
+    accum = out is not None
+    res = (out.clone() if accum else torch.zeros((n, width))).numpy()
+    m = msgs.numpy().astype(np.float32)
+    seen = np.zeros((n, width), np.int64)
+
+    def row(r, lanes):
+        a, b = rp[r], rp[r + 1]
+        seen[r, lanes] += 1
+        if accum and a == b:
+            return
+        prior = (res[row0 + r, lanes] if accum
+                 else np.zeros(len(lanes), np.float32))
+        res[row0 + r, lanes] = compensated(m[a:b, lanes], prior)[0]
+
+    tiles = [np.arange(c0, min(c0 + KTILE, width))
+             for c0 in range(0, width, KTILE)] if tiled else \
+        [np.arange(width)]
+    for r0, r1, e0, e1 in split.blocks.long().tolist():
+        for lanes in tiles:
+            for r in range(r0, r1):
+                assert e0 <= rp[r] <= rp[r + 1] <= e1
+                row(r, lanes)
+    for r in split.mids.long().tolist():
+        row(r, np.arange(width))
+    partial = []
+    for a, b in split.pieces.long().tolist():
+        acc, cmp = compensated(m[a:b], np.zeros(width, np.float32))
+        partial.append(acc.astype(np.float64) - cmp.astype(np.float64))
+    for j, r in enumerate(split.rows.tolist()):
+        seen[r] += 1
+        s = (res[row0 + r].astype(np.float64) if accum
+             else np.zeros(width))
+        for p in range(int(split.ptr[j]), int(split.ptr[j + 1])):
+            s = s + partial[p]
+        res[row0 + r] = s.astype(np.float32)
+    return torch.from_numpy(res), seen
+
+
+@pytest.mark.parametrize("tiled", [True, False], ids=["tiled", "walked"])
+@pytest.mark.parametrize("accum", [False, True])
+@pytest.mark.parametrize("width", [33, 64, 128])
+def test_emulated_wide_dual_matches_the_plain_versions(width, accum, tiled,
+                                                       monkeypatch):
+    """Above 32 lanes: row blocks (of 8 edges) in tiles of 32 lanes or
+    walked, mid rows and pieces (of 16 edges) in the kernel's float32
+    arithmetic against the plain versions (float64 sums): every (row,
+    lane) summed once, rows without edges 0 (plain) or untouched
+    (accumulate)."""
+    rowptr, lengths, col, va, vb, x = short_block(width + 1, width)
+    monkeypatch.setattr(scatter_csr, "BLOCK_EDGES", 8)
+    split = scatter_csr.plan_row_split(rowptr, 16)
+    assert split.blocks.shape[0] > 20 and split.mids.numel() == 3
+    assert split.rows.numel() == 2
+    fa = width // 3
+    msgs = scatter_csr._dual_msgs(col, va, vb, x, fa)
+    n = len(lengths)
+    empty = torch.from_numpy(lengths == 0)
+    if accum:
+        row0 = 2
+        out0 = torch.from_numpy(np.random.default_rng(width).standard_normal(
+            (n + 4, width)).astype(np.float32))
+        got, seen = emulate_dual_f32(rowptr, msgs, split, out0, row0,
+                                     tiled)
+        want = scatter_csr.csr_dual_spmm_accum_plain(rowptr, col, va, vb, x,
+                                                     fa, out0, row0)
+        assert torch.equal(got[row0:row0 + n][empty],
+                           out0[row0:row0 + n][empty])
+        assert torch.equal(got[:row0], out0[:row0])
+    else:
+        got, seen = emulate_dual_f32(rowptr, msgs, split, tiled=tiled)
+        want = scatter_csr.csr_dual_spmm_plain(rowptr, col, va, vb, x, fa)
+        assert torch.all(got[empty] == 0)
+    assert np.all(seen == 1)
+    torch.testing.assert_close(got, want, **EMU_TOL)
+
+
+@pytest.mark.parametrize("width", [33, 64, 128])
+def test_emulated_wide_dual_matches_jax_scatter_accum(width, monkeypatch):
+    """The same float32 passes (row blocks in tiles) on the dual's
+    messages against the Pallas K2 (interpret mode) accumulating the same
+    messages into the same prior output."""
+    rowptr, lengths, col, va, vb, x = short_block(width + 2, width)
+    msgs = scatter_csr._dual_msgs(col, va, vb, x, width // 2)
+    n = len(lengths)
+    row = np.repeat(np.arange(n), lengths)
+    plan, perm = scatter_mxu.build_scatter_plan(row, n)
+    (msgs_plan,) = scatter_mxu.permute_edge_data(perm, msgs.numpy())
+    out0 = np.random.default_rng(width).standard_normal(
+        (plan.num_windows * plan.window, width)).astype(np.float32)
+    want = scatter_mxu._scatter_accum(
+        plan.win, plan.local_rows, jnp.asarray(msgs_plan),
+        jnp.asarray(out0), window=plan.window, interpret=True,
+        precision=jax.lax.Precision.HIGHEST)
+    monkeypatch.setattr(scatter_csr, "BLOCK_EDGES", 8)
+    split = scatter_csr.plan_row_split(rowptr, 16)
+    assert split.blocks.shape[0] > 20 and split.rows.numel() == 2
+    got, seen = emulate_dual_f32(rowptr, msgs, split,
+                                 torch.from_numpy(out0[:n].copy()))
+    assert np.all(seen == 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], **F32_TOL)
 
 
