@@ -1,0 +1,9 @@
+"""The port_bench tests import the harness as ``port_bench`` from the root
+of the checkout."""
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
