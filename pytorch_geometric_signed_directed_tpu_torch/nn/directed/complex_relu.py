@@ -1,7 +1,10 @@
 """Complex ReLU: mask both parts by (real >= 0)."""
 import torch
 
+from ...train.profiling import layer
 
+
+@layer("nn.complex_relu")
 def complex_relu(real: torch.Tensor, imag: torch.Tensor):
     mask = (real >= 0).to(real.dtype)
     return mask * real, mask * imag

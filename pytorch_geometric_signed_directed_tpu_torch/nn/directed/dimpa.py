@@ -13,6 +13,7 @@ from torch import nn
 
 from ...device import DeviceLike, resolve_device
 from ...ops.spmm import DualPropagator, dual_spmm_stacked
+from ...train import profiling
 from ..dropout import dropout
 from ..inits import linear, xavier_1414, zeros
 from ..normalize import l2_normalize
@@ -29,6 +30,7 @@ class DIMPA(nn.Module):
         self._w_s = nn.Parameter(torch.ones(hop + 1, 1, device=device))
         self._w_t = nn.Parameter(torch.ones(hop + 1, 1, device=device))
 
+    @profiling.layer("nn.dimpa")
     def forward(self, x_s, x_t, P_s, P_t=None):
         """``P_s``/``P_t``: the two walk Propagators, or ``P_s`` one fused
         DualPropagator and ``P_t`` None: each hop then applies
@@ -76,16 +78,21 @@ class DIGRAC_node_clustering(nn.Module):
             xavier_1414((2 * hidden, nclass), generator).to(device))
         self.bias = nn.Parameter(zeros((nclass,)).to(device))
 
+    @profiling.layer("nn.digrac_mlp")
     def _mlp(self, x, first, second, training, generator):
         x = torch.relu(first(x))
         return second(dropout(x, self.dropout, training, generator))
 
+    @profiling.layer("nn.digrac")
     def forward(self, P_s, P_t, features, training: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:
         x_s = self._mlp(features, self.w_s0, self.w_s1, training, generator)
         x_t = self._mlp(features, self.w_t0, self.w_t1, training, generator)
-        z = self.dimpa(x_s, x_t, P_s, P_t)
+        return self._head(self.dimpa(x_s, x_t, P_s, P_t))
+
+    @profiling.layer("nn.digrac_head")
+    def _head(self, z):
         output = z @ self.W_prob + self.bias
         return (l2_normalize(z), torch.log_softmax(output, dim=1),
                 output.argmax(dim=1), torch.softmax(output, dim=1))

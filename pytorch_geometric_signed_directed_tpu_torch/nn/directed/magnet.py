@@ -12,6 +12,7 @@ from torch import nn
 from ...device import DeviceLike, resolve_device
 from ...ops.spmm import Propagator
 from ...spectral.magnetic import MagneticTemplate
+from ...train import profiling
 from ..dropout import dropout
 from ..inits import linear
 from .complex_relu import complex_relu
@@ -49,6 +50,7 @@ class _MagNetTrunk(nn.Module):
     def _drop(self, x, training, generator):
         return dropout(x, self.dropout, training, generator)
 
+    @profiling.layer("nn.magnet_head")
     def _head(self, x, training, generator):
         return torch.log_softmax(
             self.linear(self._drop(x, training, generator)), dim=1)
@@ -71,6 +73,7 @@ class MagNet_node_classification(_MagNetTrunk):
                          trainable_q, layer, dropout, normalization,
                          2 * hidden, device, generator)
 
+    @profiling.layer("nn.magnet_node")
     def forward(self, real, imag, lap, training: bool = False,
                 generator: Optional[torch.Generator] = None):
         real, imag = self._trunk(real, imag, lap)

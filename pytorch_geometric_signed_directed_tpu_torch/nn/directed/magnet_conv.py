@@ -29,6 +29,7 @@ from ...spectral.magnetic import (
     template_dual_apply,
     template_propagators,
 )
+from ...train import profiling
 from ..inits import glorot, zeros
 
 
@@ -89,6 +90,7 @@ class MagNetConv(nn.Module):
         else:
             self.register_parameter("bias", None)
 
+    @profiling.layer("nn.magnet_conv")
     def forward(self, x_real: torch.Tensor, x_imag: torch.Tensor,
                 lap) -> Tuple[torch.Tensor, torch.Tensor]:
         apply = dual_spmm_stacked

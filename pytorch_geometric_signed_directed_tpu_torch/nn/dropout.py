@@ -5,10 +5,18 @@ from typing import Optional
 
 import torch
 
+from ..train.profiling import layer
+
 
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     if not training or not p:
         return x
+    return _drop(x, p, generator)
+
+
+@layer("nn.dropout")
+def _drop(x: torch.Tensor, p: float,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

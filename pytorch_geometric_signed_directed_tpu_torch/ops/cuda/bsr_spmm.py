@@ -28,7 +28,8 @@ lanes.
 ``bsr_matmul`` takes its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
 counts calls that launched (one per call; each call makes two device
-launches).
+launches); each such call is also the span ``pgsd.kernel.bsr_spmm``
+(``train.profiling``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ...train.profiling import span
 from . import build
 from .scatter_csr import (RowSplit, _check, _check_split, _row_ids,
                           _stream_ptr, plan_row_split)
@@ -161,15 +163,17 @@ def bsr_matmul(blocks: torch.Tensor, block_rowptr: torch.Tensor,
     if num_rows == 0 or w == 0:
         return out
     n_pieces = split.pieces.shape[0]
-    partial = torch.empty((n_pieces, BLOCK, w), dtype=torch.float32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        err = _library().pgsd_bsr_spmm(
-            blocks.data_ptr(), block_cols.data_ptr(), x.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), split.pieces.data_ptr(),
-            split.ptr.data_ptr(), n_pieces, blocks.shape[0], num_rows,
-            x.shape[0], w, _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"bsr_spmm launch failed: CUDA error {err}")
-    LAUNCHES["bsr_spmm"] += 1
+    with span("kernel.bsr_spmm", rows=num_rows, nnz=blocks.shape[0],
+              width=w):
+        partial = torch.empty((n_pieces, BLOCK, w), dtype=torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            err = _library().pgsd_bsr_spmm(
+                blocks.data_ptr(), block_cols.data_ptr(), x.data_ptr(),
+                out.data_ptr(), partial.data_ptr(), split.pieces.data_ptr(),
+                split.ptr.data_ptr(), n_pieces, blocks.shape[0], num_rows,
+                x.shape[0], w, _stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"bsr_spmm launch failed: CUDA error {err}")
+        LAUNCHES["bsr_spmm"] += 1
     return out

@@ -24,7 +24,8 @@ the rowptr itself at the cost of a host sync), as in K1 and K2.
 Each entry has its plain PyTorch version beside it, summing in float64.  A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that
-launched.
+launched; each such call is also the span ``pgsd.kernel.<entry>``
+(``train.profiling``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ...train.profiling import span
 from . import build
 from .scatter_csr import (RowSplit, _check, _check_rowptr, _plan_args,
                           _row_ids, _stream_ptr)
@@ -135,18 +137,19 @@ def _check_args(rowptr, col, va, vb, wa, wb, g, x, fa: int, row0: int):
 def _launch(entry: str, args, dev, n: int, w: int, split, *tail) -> None:
     lib = _library()
     rowptr, col, va, vb, wa, wb, g, x, out, acc = args
-    plan, _partial = _plan_args(rowptr, split, w, dev)
-    parts = torch.empty((lib.pgsd_csr_dual_sddmm_parts(n, w, plan[1]), w),
-                        dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, "pgsd_" + entry)(
-            rowptr.data_ptr(), col.data_ptr(), va.data_ptr(), vb.data_ptr(),
-            wa.data_ptr(), wb.data_ptr(), g.data_ptr(), x.data_ptr(),
-            out.data_ptr(), acc.data_ptr(), parts.data_ptr(), n, w, *tail,
-            *plan, _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    LAUNCHES[entry] += 1
+    with span("kernel." + entry, rows=n, nnz=col.numel(), width=w):
+        plan, _partial = _plan_args(rowptr, split, w, dev)
+        parts = torch.empty((lib.pgsd_csr_dual_sddmm_parts(n, w, plan[1]),
+                             w), dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, "pgsd_" + entry)(
+                rowptr.data_ptr(), col.data_ptr(), va.data_ptr(),
+                vb.data_ptr(), wa.data_ptr(), wb.data_ptr(), g.data_ptr(),
+                x.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                parts.data_ptr(), n, w, *tail, *plan, _stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        LAUNCHES[entry] += 1
 
 
 def csr_dual_sddmm(rowptr: torch.Tensor, col: torch.Tensor,

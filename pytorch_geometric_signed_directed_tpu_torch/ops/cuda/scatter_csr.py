@@ -30,7 +30,8 @@ Each entry has its plain PyTorch version beside it.  A wrapper takes the
 plain version only for tensors on the CPU (which need no plan); for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that
 launched, one per call, whether the call made one device launch or two
-(the second when a row is cut).
+(the second when a row is cut); each such call is also the span
+``pgsd.kernel.<wrapper>`` (``train.profiling``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ...train.profiling import span
 from . import build
 
 LAUNCHES: Dict[str, int] = {"csr_dual_spmm": 0, "csr_scatter_sum": 0,
@@ -438,16 +440,17 @@ def _edge_launch(name, entry, rowptr, col, vals, x, fa, out, row0, split):
                                              device=dev)
     if not accum:
         out = torch.empty((n, wo), dtype=torch.float32, device=dev)
-    plan, _partial = _plan_args(rowptr, split, wo, dev, blocks=True)
-    wide = (_wide_blocks(x),) if entry == "csr_dual_spmm" else ()
-    err = _on(dev, getattr(_library(), "pgsd_" + entry),
-              rowptr.data_ptr(), col.data_ptr(), *(v.data_ptr() for v in vals),
-              x.data_ptr(), out.data_ptr(), n, w, fa,
-              int(x.dtype == torch.bfloat16), int(accum), row0, *wide, *plan,
-              _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with span("kernel." + name, rows=n, nnz=nnz, width=wo):
+        plan, _partial = _plan_args(rowptr, split, wo, dev, blocks=True)
+        wide = (_wide_blocks(x),) if entry == "csr_dual_spmm" else ()
+        err = _on(dev, getattr(_library(), "pgsd_" + entry),
+                  rowptr.data_ptr(), col.data_ptr(),
+                  *(v.data_ptr() for v in vals), x.data_ptr(),
+                  out.data_ptr(), n, w, fa, int(x.dtype == torch.bfloat16),
+                  int(accum), row0, *wide, *plan, _stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
     return out
 
 
@@ -597,14 +600,15 @@ def _scatter_launch(name, rowptr, msgs, out, row0, split):
                                              device=dev)
     if not accum:
         out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    plan, _partial = _plan_args(rowptr, split, w, dev, blocks=True)
-    err = _on(dev, _library().pgsd_csr_scatter,
-              rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
-              int(msgs.dtype == torch.bfloat16), int(accum), row0,
-              *_msg_geometry(msgs), *plan, _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with span("kernel." + name, rows=n, nnz=msgs.shape[0], width=w):
+        plan, _partial = _plan_args(rowptr, split, w, dev, blocks=True)
+        err = _on(dev, _library().pgsd_csr_scatter,
+                  rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
+                  int(msgs.dtype == torch.bfloat16), int(accum), row0,
+                  *_msg_geometry(msgs), *plan, _stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
     return out
 
 

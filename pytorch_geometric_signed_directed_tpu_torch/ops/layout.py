@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..train.profiling import span
 from .cuda.scatter_csr import RowSplit, plan_row_split
 
 # The column split: operators with more than COL_SPLIT_MIN_COLS columns
@@ -145,12 +146,21 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
     Returns (CsrLayout, perm) with ``perm`` [nnz] int64 on ``device``
     mapping layout order to input edge order (to permute edge values).
     Sorts are stable: edges that share a row (and section) keep their
-    input order."""
+    input order.  The call is the span ``pgsd.prep.layout``."""
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
     nnz = len(row)
     if nnz >= 2 ** 31:
         raise ValueError(f"nnz={nnz} does not fit int32 offsets")
+    streamed = stream and nnz > STREAM_THRESHOLD_EDGES
+    with span("prep.layout", rows=n_rows, nnz=nnz, streamed=int(streamed)):
+        return _layout(row, col, n_rows, n_cols, device, col_split,
+                       streamed)
+
+
+def _layout(row, col, n_rows, n_cols, device, col_split, streamed):
+    """``build_layout``'s work on int64 host edges."""
+    nnz = len(row)
     r = torch.from_numpy(row).to(device)
     split = col_degree_split(col, n_cols) if col_split else None
     hot_ids, n_hot, key = None, 0, r
@@ -163,7 +173,6 @@ def build_layout(row: np.ndarray, col: np.ndarray, n_rows: int, n_cols: int,
                                + row).to(device)
     perm = torch.argsort(key, stable=True)
     c = torch.from_numpy(col).to(device)[perm].to(torch.int32)
-    streamed = stream and nnz > STREAM_THRESHOLD_EDGES
     if split is None and not streamed:
         rp = rowptr_of(r, n_rows)
         return CsrLayout(col=c, rowptr=rp, row_split=plan_row_split(rp)), \

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..train.profiling import NO_SPAN, span, tracing
 from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo, check_indices
 from .cuda.scatter_csr import _row_ids, csr_dual_spmm, csr_dual_spmm_accum
@@ -135,6 +136,18 @@ def _csr_from_coo(A: COO) -> CSR:
                num_cols=A.num_cols, transposed=t, **_layout_fields(L))
 
 
+def _apply_span(d, val_a, val_b, n_rows: int, x: torch.Tensor):
+    """The span ``pgsd.spmm.apply`` of one apply, with what its least
+    time is counted from: the layout, the operator's rows, columns,
+    nonzeros and value arrays (1 where both lanes take one), the lanes,
+    the message bytes and the K2 blocks."""
+    layout = "streamed" if d.streamed else "split" if d.blocks else "flat"
+    return span("spmm.apply", layout=layout, rows=n_rows, cols=x.shape[0],
+                nnz=d.col.numel(), values=1 if val_a is val_b else 2,
+                width=x.shape[1], elem=_kernel_dtype(x).itemsize,
+                blocks=len(d.blocks))
+
+
 def _layout_apply(d, val_a, val_b, n_rows: int, x: torch.Tensor,
                   fa: int) -> torch.Tensor:
     """Apply one direction of a kernel-tier operator (a CSR or a
@@ -143,20 +156,25 @@ def _layout_apply(d, val_a, val_b, n_rows: int, x: torch.Tensor,
     Flat layouts are one K1 call.  Split or streamed layouts gather the
     hot table ``x[hot_ids]`` once, then call K2 for each block, in order,
     into one float32 output; rows no block touches stay 0.  Each call
-    takes its rowptr's plan of cut rows."""
-    xm = x.to(_kernel_dtype(x)).contiguous()
-    if not d.blocks:
-        out = csr_dual_spmm(d.rowptr, d.col, val_a, val_b, xm, fa,
-                            d.row_split)
+    takes its rowptr's plan of cut rows, and is the span
+    ``pgsd.spmm.apply``."""
+    with (_apply_span(d, val_a, val_b, n_rows, x) if tracing()
+          else NO_SPAN):
+        xm = x.to(_kernel_dtype(x)).contiguous()
+        if not d.blocks:
+            out = csr_dual_spmm(d.rowptr, d.col, val_a, val_b, xm, fa,
+                                d.row_split)
+            return out.to(x.dtype)
+        x_hot = (xm.index_select(0, d.hot_ids) if d.hot_ids is not None
+                 else None)
+        out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        for i, b in enumerate(d.blocks):
+            csr_dual_spmm_accum(b.rowptr, d.col[b.e0:b.e1],
+                                val_a[b.e0:b.e1], val_b[b.e0:b.e1],
+                                x_hot if i < d.hot_blocks else xm, fa, out,
+                                b.row0, b.split)
         return out.to(x.dtype)
-    x_hot = xm.index_select(0, d.hot_ids) if d.hot_ids is not None else None
-    out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    for i, b in enumerate(d.blocks):
-        csr_dual_spmm_accum(b.rowptr, d.col[b.e0:b.e1], val_a[b.e0:b.e1],
-                            val_b[b.e0:b.e1], x_hot if i < d.hot_blocks
-                            else xm, fa, out, b.row0, b.split)
-    return out.to(x.dtype)
 
 
 class _CsrSpmm(torch.autograd.Function):

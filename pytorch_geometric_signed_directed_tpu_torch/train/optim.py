@@ -10,6 +10,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from .profiling import span
+
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]],
                             torch.optim.Optimizer]
 
@@ -21,12 +23,14 @@ def adam(lr: float, weight_decay: float = 0.0,
     ``add_decayed_weights`` then ``adam``), or AdamW's decoupled decay with
     ``decoupled`` (optax's ``adamw``), as ``Trainer`` takes them.  On CUDA
     parameters the optimizer is ``capturable``: its step count and bias
-    corrections live on the device, so a CUDA graph can replay its step."""
+    corrections live on the device, so a CUDA graph can replay its step.
+    The construction is the span ``pgsd.train.optimizer_build``."""
 
     def make(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        params = list(params)
-        opt = torch.optim.AdamW if decoupled else torch.optim.Adam
-        return opt(params, lr=lr, weight_decay=weight_decay,
-                   capturable=any(p.is_cuda for p in params))
+        with span("train.optimizer_build"):
+            params = list(params)
+            opt = torch.optim.AdamW if decoupled else torch.optim.Adam
+            return opt(params, lr=lr, weight_decay=weight_decay,
+                       capturable=any(p.is_cuda for p in params))
 
     return make

@@ -16,10 +16,12 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.cuda import launch_counts
+from ..ops import cuda
 from .optim import OptimizerFactory
+from .profiling import capture_table, layer
 
 
+@layer("loss.masked_nll")
 def masked_nll(logp: torch.Tensor, y: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood over ``mask`` (float [N])."""
@@ -34,7 +36,7 @@ def _masked_acc(pred, y, mask):
 
 
 def _count_delta(before: Dict[str, int]) -> Dict[str, int]:
-    return {k: v - before.get(k, 0) for k, v in launch_counts().items()
+    return {k: v - before.get(k, 0) for k, v in cuda.launch_counts().items()
             if v != before.get(k, 0)}
 
 
@@ -59,7 +61,12 @@ class SplitRun:
     the eager epochs (all of them, or the first before a capture) and
     ``launches_per_replay`` those of the capture.  The graph
     and its memory pool (which holds the kernels' scratch) live as long as
-    this object."""
+    this object.
+
+    With the port's spans on (``profiling.set_tracing``), ``capture()``
+    also keeps ``span_table``, the capture's ``profiling.SpanTable``,
+    which maps a replay's device operations onto the spans recorded while
+    it was captured; else it is None."""
 
     def __init__(self, apply_fn: Callable, model: torch.nn.Module,
                  tx: OptimizerFactory, y: torch.Tensor, mask_tr: torch.Tensor,
@@ -83,6 +90,7 @@ class SplitRun:
         self.launches: Dict[str, int] = {}
         self.launches_per_replay: Dict[str, int] = {}
         self.capture_seconds = 0.0
+        self.span_table = None
 
     def epoch(self) -> None:
         self.opt.zero_grad(set_to_none=True)
@@ -107,7 +115,7 @@ class SplitRun:
         dev = self.y.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        before = launch_counts()
+        before = cuda.launch_counts()
         with torch.cuda.stream(side):
             self.epoch()
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -116,11 +124,12 @@ class SplitRun:
         if self.generator is not None:
             # each replay then advances the dropout generator's offset
             graph.register_generator_state(self.generator)
-        before = launch_counts()
+        before = cuda.launch_counts()
         t0 = perf_counter()
         try:
             with torch.cuda.graph(graph):
-                self.epoch()
+                with capture_table() as table:
+                    self.epoch()
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing the training epoch as a CUDA graph failed "
@@ -128,13 +137,14 @@ class SplitRun:
             ) from e
         self.capture_seconds = perf_counter() - t0
         self.launches_per_replay = _count_delta(before)
+        self.span_table = table
         self.graph = graph
 
     def run(self, captured: bool) -> "SplitRun":
         """All ``epochs`` epochs: captured and replayed, or eagerly (the
         plain version, and the reference a captured run is held to)."""
         if not captured:
-            before = launch_counts()
+            before = cuda.launch_counts()
             for _ in range(self.epochs):
                 self.epoch()
             self.launches = _count_delta(before)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ...ops.spmm import DualPropagator, dual_spmm_stacked
+from ...train.profiling import layer
 
 
 class Prob_Imbalance_Loss:
@@ -31,6 +32,7 @@ class Prob_Imbalance_Loss:
         else:
             self.sel = None
 
+    @layer("loss.prob_imbalance")
     def __call__(self, P: torch.Tensor, A, K: int,
                  normalization: str = "vol_sum",
                  threshold: str = "sort") -> torch.Tensor:

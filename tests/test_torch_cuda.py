@@ -931,6 +931,60 @@ def test_captured_epochs_match_eager_epochs_on_card(card, dropout):
         assert torch.equal(run.results(), eager.results())
 
 
+@pytest.mark.cuda
+def test_replayed_spans_match_eager_spans_on_card(card):
+    """With the port's spans on, a captured epoch's span table maps one
+    replay's device operations onto the spans: the same kernels under
+    each span, in the same order, as an eager epoch's operations matched
+    to their launches through the profiler's correlation; the kernel
+    wrapper spans number the launch counters' calls and hold K1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_geometric_signed_directed_tpu_torch.train import (
+        SplitRun, adam, profiling)
+    from pytorch_geometric_signed_directed_tpu_torch.train.scan_trainer \
+        import split_generator
+
+    apply_fn, init, y, masks = _hub_magnet(card, 0.5)
+    profiling.set_tracing(True)
+    try:
+        run = SplitRun(apply_fn, init(), adam(1e-2, 5e-4), y, *masks, 8,
+                       split_generator(0, 0, card))
+        run.capture()
+        torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as eager:
+            run.epoch()
+            torch.cuda.synchronize()
+        with profile(activities=acts) as replay:
+            run.graph.replay()
+            torch.cuda.synchronize()
+    finally:
+        profiling.set_tracing(False)
+        profiling.drain()
+    table = run.span_table
+    assert table is not None and table.nodes > 0
+    by_eager = profiling.attribute(eager)
+    by_replay = profiling.attribute(replay, table)
+    assert by_replay is not None and by_replay.replays == 1
+
+    def kernels(att):
+        out = {}
+        for op in att.ops:
+            if op.spans:
+                out.setdefault(tuple(s.name for s in op.spans),
+                               []).append(op.name)
+        return out
+
+    assert kernels(by_replay) == kernels(by_eager)
+    names = [r.name for r in table.rows]
+    assert names.count("spmm.apply") == 10
+    assert names.count("kernel.csr_dual_spmm") == sum(
+        run.launches_per_replay.values())
+    assert all(op.innermost.name == "kernel.csr_dual_spmm"
+               for op in by_replay.ops if "DualSource" in op.name)
+
+
 def _trainable_q_magnet(device, sharded):
     """Trainable-q MagNet (K=2, hidden 8, q from 0.25) on the mxu template
     of a 3,000-node graph with a 2,000-edge hub row, flat or sharded on

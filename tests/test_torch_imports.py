@@ -141,7 +141,7 @@ def test_port_module_has_the_jax_modules_public_names(module):
 
 def test_the_port_scripts_import_nothing_forbidden():
     for script in ("giant_digrac_torch.py", "dryrun_multiprocess_torch.py",
-                   "profile_torch_magnet_step.py"):
+                   "profile_torch_magnet_step.py", "span_report_torch.py"):
         path = ROOT / "scripts" / script
         assert [m for m in _imports(path) if _forbidden(m)] == [], script
 
