@@ -17,7 +17,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Laplacian pair at q=0.25, MagNet K=2 hidden 32, 2 layers), checks the
    kernel tier's forward against the plain segment tier on the card and
    the gradients against the CPU on a small graph, then trains 30 Adam
-   steps at lr 1e-2 on K1 alone.
+   steps at lr 1e-2 on K1, MagNetConv running fused over the frozen pair
+   (one ``complex_epilogue`` launch a layer forward, one
+   ``complex_epilogue_backward`` a layer backward).  The epilogue kernel
+   is held bit for bit against its plain version at the path's shape
+   (N=65,536, hidden 32) and at the giant MagNet benchmark cell's
+   (N=2,388,953, hidden 64), bias and complex ReLU on, and timed beside
+   its byte bound.
 4. Giant phase: the giant bench's WikiTalk-scale power-law digraph
    (N=2,400,000, 10M draws, alpha 1.0, seed 0) on the column-split and
    streamed layouts, applied by K2 (``csr_dual_spmm_accum``).  Checks the
@@ -235,6 +241,9 @@ LABEL_FREQ = (0.4, 0.25, 0.15, 0.12, 0.08)
 # bench.py's headline MagNet graph (_build_magnet(8192, 24))
 BSR_GRAPH = dict(nodes=8192, avg_deg=24, seed=0, steps=30)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+GIANT_CELL_NODES = 2_388_953  # port_bench's giant MagNet cell (WikiTalk)
+# MagNetConv's epilogue a step of a 2-layer MagNet over a frozen pair
+EPILOGUE_STEP = {"complex_epilogue": 2, "complex_epilogue_backward": 2}
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 REPS = 20
 # the experiments at N=9000, just over the dense tier's 8192 nodes, at
@@ -481,11 +490,12 @@ def make_model(device, seed=0, trainable_q=False):
 
 def train(model, x, y, lap, steps):
     """``steps`` Adam steps at lr 1e-2 on the mean NLL over all nodes, the
-    launch counters set to 0 just before and read just after.  Returns
-    (losses, launches, per-step device ms, host seconds)."""
+    launch counters (the sparse kernels' and MagNetConv's epilogue's) set
+    to 0 just before and read just after.  Returns (losses, launches,
+    per-step device ms, host seconds)."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        complex_epilogue, launch_counts, reset_launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
     def loss_fn(m):
@@ -496,6 +506,7 @@ def train(model, x, y, lap, steps):
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     torch.cuda.synchronize()
     reset_launch_counts()
+    complex_epilogue.reset_launch_counts()
     t0 = time.perf_counter()
     events[0].record()
     losses = []
@@ -504,7 +515,7 @@ def train(model, x, y, lap, steps):
         events[i + 1].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {**launch_counts(), **complex_epilogue.LAUNCHES}
     losses = [float(v) for v in losses]
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
     if not all(np.isfinite(losses)):
@@ -526,7 +537,8 @@ def check_launches(launches, expected, steps, what):
 
 def kernel_entry(name, r, launches, source, replaces):
     return {"name": name, "route": "cuda", "source": SRC + source,
-            "replaces": TPU + replaces, "launches": launches,
+            "replaces": TPU + replaces if replaces else None,
+            "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -603,6 +615,63 @@ def dual_kernel_case(D, width, dtype, seed, single=False):
                 library_ms=library_ms, library_device_ms=library_device_ms,
                 bytes=nbytes, gathered=nnz * width * x.element_size(),
                 shape=f"N={n} nnz={nnz} W={width} {str(dtype)[6:]}")
+
+
+def epilogue_cases(n, f, seed):
+    """MagNetConv's complex epilogue (``ops/cuda/complex_epilogue``) at n
+    rows of width 2F, with a bias and the complex ReLU: forward and
+    backward against their plain versions, the same bits for z, the mask
+    and the gradient of [o1 | o2], the bias gradient (float64 sums in
+    another order) to float32 rounding; the same bits twice; re = 0
+    exactly on a third of the rows in a quarter of the lanes (the mask's
+    edge); each timed beside its byte bound, ``bytes_moved``.  Returns
+    {"complex_epilogue": r, "complex_epilogue_backward": r}."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        complex_epilogue as epi)
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    y = torch.randn(n, 2 * f, device=DEV, generator=gen)
+    dz = torch.randn(n, 2 * f, device=DEV, generator=gen)
+    bias = torch.randn(f, device=DEV, generator=gen)
+    bias[: f // 4] = 0
+    y[: n // 3, :f] = y[: n // 3, f:]
+    z, mask = epi.complex_epilogue(y, bias, True)
+    want, want_mask = epi.complex_epilogue_plain(y, bias, True)
+    if not (torch.equal(z, want) and torch.equal(mask, want_mask)):
+        raise AssertionError(f"complex_epilogue N={n} F={f} differs from "
+                             f"its plain version")
+    if not mask[: n // 3, : f // 4].all():
+        raise AssertionError("complex_epilogue masked out re = 0")
+    same_bits(z, epi.complex_epilogue(y, bias, True)[0], "complex_epilogue")
+    uv, db = epi.complex_epilogue_backward(dz, mask, True)
+    want_uv, want_db = epi.complex_epilogue_backward_plain(dz, mask, True)
+    if not torch.equal(uv, want_uv):
+        raise AssertionError(f"complex_epilogue_backward N={n} F={f} "
+                             f"differs from its plain version")
+    torch.testing.assert_close(db, want_db, rtol=1e-6, atol=1e-5)
+    again = epi.complex_epilogue_backward(dz, mask, True)
+    same_bits(uv, again[0], "complex_epilogue_backward")
+    same_bits(db, again[1], "complex_epilogue_backward")
+    del z, want, want_mask, uv, want_uv, again
+    nbytes = epi.bytes_moved(n, f)
+    cases = {}
+    for name, kernel, plain, flops, err in (
+            ("complex_epilogue",
+             lambda: epi.complex_epilogue(y, bias, True),
+             lambda: epi.complex_epilogue_plain(y, bias, True), 6, 0.0),
+            ("complex_epilogue_backward",
+             lambda: epi.complex_epilogue_backward(dz, mask, True),
+             lambda: epi.complex_epilogue_backward_plain(dz, mask, True), 5,
+             float((db - want_db).abs().max()))):
+        b_ms, b_by = bound(nbytes, flops * n * f)
+        cases[name] = dict(
+            max_abs_err=err, ms=time_ms(kernel),
+            device_ms=back_to_back_ms(kernel), plain_ms=time_ms(plain),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes,
+            shape=f"N={n} 2F={2 * f} bias relu float32")
+        log_case(f"{name} N={n} 2F={2 * f}", cases[name])
+    return cases
 
 
 def same_bits(a, b, name):
@@ -746,6 +815,8 @@ def magnet_mxu_phase(smi):
                                     dtype, seed=width)
             cases[("csr_scatter_sum", width, dtype)] = r
             log_case(f"csr_scatter_sum W={width} {str(dtype)[6:]}", r)
+    # the path's epilogue: hidden 32, both layers
+    cases.update(epilogue_cases(n, 32, seed=5))
 
     small_model_check()
     x = torch.from_numpy(x_np).to(DEV)
@@ -761,14 +832,16 @@ def magnet_mxu_phase(smi):
     del lap_plain
 
     losses, launches, step_ms, wall = train(model, x, y, lap, STEPS)
-    # 4 forward applies, 2 transposed ones (layer 2's), all flat: K1 only
-    check_launches(launches, {"csr_dual_spmm": 6}, STEPS, "magnet_mxu")
+    # 4 forward applies, 2 transposed ones (layer 2's), all flat: K1; one
+    # epilogue a layer each way
+    check_launches(launches, {"csr_dual_spmm": 6, **EPILOGUE_STEP}, STEPS,
+                   "magnet_mxu")
     with torch.no_grad():
         acc = float((model(x, x, lap).argmax(1) == y).float().mean())
     ms_step = statistics.median(step_ms[1:])
     log(f"slice train: {STEPS} steps, loss {losses[0]:.5f} -> "
         f"{losses[-1]:.5f}, train acc {acc:.4f}; launches {launches} "
-        f"(6 csr_dual_spmm per step)")
+        f"(6 csr_dual_spmm and {EPILOGUE_STEP} per step)")
     log(f"slice speed on {smi}: median {ms_step:.3f} ms/step "
         f"(first step {step_ms[0]:.3f} ms, mean {wall / STEPS * 1e3:.3f} ms "
         f"by host clock), {e / (ms_step / 1e3):.1f} input edges/s")
@@ -1362,6 +1435,9 @@ def giant_phase(smi):
     log_case("csr_scatter_accum block 0 W=64 float32", k2_own)
     hub_row_cases(D.hot_ids.numel())
     short_row_cases(D.hot_ids.numel())
+    # the epilogue at the giant MagNet benchmark cell's shape (hidden 64)
+    epi = epilogue_cases(GIANT_CELL_NODES, 64, seed=6)
+    torch.cuda.empty_cache()
 
     # one apply at the path's widest shape, in each layout
     spmm.set_message_dtype("bf16")
@@ -1426,8 +1502,9 @@ def giant_phase(smi):
     finally:
         spmm.set_message_dtype(None)
         spmm.set_matmul_precision("highest")
-    # 4 forward applies of D and 2 of its transpose (layer 2's backward)
-    expected = {}
+    # 4 forward applies of D and 2 of its transpose (layer 2's backward);
+    # one epilogue a layer each way
+    expected = dict(EPILOGUE_STEP)
     for d, k in ((D, 4), (D.transposed, 2)):
         for name, count in per_apply(d).items():
             expected[name] = expected.get(name, 0) + k * count
@@ -1439,7 +1516,7 @@ def giant_phase(smi):
         f"{step_ms[0]:.3f} ms, mean {wall / g['steps'] * 1e3:.3f} ms by "
         f"host clock), {e / (ms_step / 1e3):.1f} input edges/s; largest "
         f"rows {largest}")
-    return k2, k2_own, launches
+    return k2, k2_own, launches, epi
 
 
 # ---------------------------------------------------------------------------
@@ -4122,7 +4199,7 @@ def main():
         torch.cuda.empty_cache()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     k1_cases, k1_launches, _ = phases["magnet_mxu"]
-    k2, k2_own, k2_launches = phases["giant"]
+    k2, k2_own, k2_launches, epi_cases = phases["giant"]
     k5_cases, k5_launches = phases["bsr"]
     tq_cases, k4, tq_runs = phases["trainable_q"]
     exp_runs, exp_cases = phases["experiments"]
@@ -4151,6 +4228,17 @@ def main():
             kernel_entry("bsr_spmm", k5_cases[(32, "fwd")],
                          k5_launches["bsr_spmm"], "bsr_spmm.cu",
                          "bsr_spmm.py:119"),
+        ] + [
+            # MagNetConv's epilogue (no TPU kernel: XLA fuses these steps
+            # into the layer's einsums) at the giant benchmark cell's shape
+            # with the giant run's launches, and at magnet_mxu's with its
+            {**kernel_entry(name, case, launches[name],
+                            "complex_epilogue.cu", None), "path": path}
+            for path, cases, launches in (
+                ("giant", epi_cases, k2_launches),
+                ("magnet_mxu", k1_cases, k1_launches))
+            for name, case in ((n, cases[n]) for n in (
+                "complex_epilogue", "complex_epilogue_backward"))] + [
             # K1 on the flat trainable-q pair forward
             {**kernel_entry("csr_pair_spmm",
                             tq_cases[("csr_pair_spmm", 64, torch.float32)],

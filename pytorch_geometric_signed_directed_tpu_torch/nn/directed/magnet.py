@@ -15,7 +15,6 @@ from ...spectral.magnetic import MagneticTemplate
 from ...train import profiling
 from ..dropout import dropout
 from ..inits import linear
-from .complex_relu import complex_relu
 from .magnet_conv import MagNetConv
 
 # what the models' forward takes as ``lap``: an operator pair (a
@@ -41,11 +40,22 @@ class _MagNetTrunk(nn.Module):
         self.linear = linear(head_in, label_dim, True, device, generator)
 
     def _trunk(self, real, imag, lap):
+        """The convs, each followed by the complex ReLU with
+        ``activation``: the head's input ``[real | imag]`` [N, 2 hidden].
+        The state stays lane-stacked from the features on, each layer one
+        ``MagNetConv._stacked`` (the ReLU inside it)."""
+        z = torch.cat([real, imag], dim=-1)
         for conv in self.convs:
-            real, imag = conv(real, imag, lap)
-            if self.activation:
-                real, imag = complex_relu(real, imag)
-        return real, imag
+            z = conv._stacked(z, lap, self.activation)
+        return z
+
+    @staticmethod
+    def _edge_features(z, query_edges):
+        """``[real_s, real_t, imag_s, imag_t]`` at ``query_edges`` [Q, 2],
+        gathered from the halves of the lane-stacked ``z``."""
+        h = z.shape[1] // 2
+        s, t = query_edges[:, 0], query_edges[:, 1]
+        return torch.cat([z[s, :h], z[t, :h], z[s, h:], z[t, h:]], dim=-1)
 
     def _drop(self, x, training, generator):
         return dropout(x, self.dropout, training, generator)
@@ -76,9 +86,7 @@ class MagNet_node_classification(_MagNetTrunk):
     @profiling.layer("nn.magnet_node")
     def forward(self, real, imag, lap, training: bool = False,
                 generator: Optional[torch.Generator] = None):
-        real, imag = self._trunk(real, imag, lap)
-        return self._head(torch.cat([real, imag], dim=-1), training,
-                          generator)
+        return self._head(self._trunk(real, imag, lap), training, generator)
 
 
 class MagNet_link_prediction(_MagNetTrunk):
@@ -97,7 +105,6 @@ class MagNet_link_prediction(_MagNetTrunk):
 
     def forward(self, real, imag, lap, query_edges, training: bool = False,
                 generator: Optional[torch.Generator] = None):
-        real, imag = self._trunk(real, imag, lap)
-        s, t = query_edges[:, 0], query_edges[:, 1]
-        x = torch.cat([real[s], real[t], imag[s], imag[t]], dim=-1)
-        return self._head(x, training, generator)
+        return self._head(
+            self._edge_features(self._trunk(real, imag, lap), query_edges),
+            training, generator)

@@ -10,19 +10,41 @@ recurrences:
     out_im = sum_k (S1_k + S2_k) W_k + b
 
 On the sparse tiers both recurrences run in lockstep through the fused
-operator pair, one lane-stacked apply per order.  The K+1 weight applies
-are one float32 einsum.  With ``trainable_q`` the operators come from a
-MagneticTemplate for the clipped phase: through ``template_dual_apply``
-on the kernel tier (flat, split, streamed or sharded), through
+operator pair, one lane-stacked apply per order.  With frozen operators
+(a MagneticPair whose ``dual`` is set: the kernel tier, the segment tier
+or a sharded pair) the layer is one autograd Function, ``_FusedConv``,
+on lane-stacked state ``[x_re | x_im]`` ([N, 2F]):
+
+  * the applies give the terms; a term's ``view(2N, F)`` holds the real
+    row of node n at 2n and the imaginary one at 2n+1, so
+    ``sum_k T_k.view(2N, F) @ W_k`` is ``[o1 | o2]`` lane-stacked, with
+    no copy;
+  * the last term is never formed: ``T_K = 2 P T_{K-1} - T_{K-2}`` goes
+    into the weights (``P T_{K-1}`` by ``2 W_K``, ``W_{K-2} - W_K``);
+  * one kernel (``ops/cuda/complex_epilogue``) adds the complex combine,
+    the bias and, inside a model with the activation, the complex ReLU;
+  * the backward is written by hand: the weight gradients from the saved
+    terms, the input's gradient by the recurrence run backwards through
+    the transposed pair (Clenshaw's order), with the adds taken into the
+    products' ``beta`` and the weight differences.
+
+Trainable q and pairs without a dual (the dense and bsr tiers) take the
+generic recurrence below, with the K+1 weight applies one float32
+einsum.  With ``trainable_q`` the operators come from a MagneticTemplate
+for the clipped phase: through ``template_dual_apply`` on the kernel
+tier (flat, split, streamed or sharded), through
 ``template_propagators`` on the dense and segment tiers.
 """
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
-from ...ops.spmm import DualPropagator, Propagator, dual_spmm_stacked
+from ...ops.cuda.complex_epilogue import (complex_epilogue,
+                                          complex_epilogue_backward)
+from ...ops.spmm import (DualPropagator, Propagator, _dual_forward_stacked,
+                         dual_spmm_stacked)
 from ...spectral.magnetic import (
     MagneticPair,
     MagneticTemplate,
@@ -31,6 +53,7 @@ from ...spectral.magnetic import (
 )
 from ...train import profiling
 from ..inits import glorot, zeros
+from .complex_relu import complex_relu
 
 
 def chebyshev_stack(P: Propagator, x: torch.Tensor, K: int) -> torch.Tensor:
@@ -49,14 +72,162 @@ def dual_chebyshev_stacks(D: DualPropagator, x_a: torch.Tensor,
     """Both Chebyshev stacks through the fused pair.  The recurrence state
     stays lane-stacked [N, 2F] throughout; the split back into the two
     streams happens once at the end."""
+    s = _dual_chebyshev(D, torch.cat([x_a, x_b], dim=1), K, apply)
     f = x_a.shape[1]
-    ts = [torch.cat([x_a, x_b], dim=1)]
+    return s[:, :, :f], s[:, :, f:]
+
+
+def _dual_chebyshev(D: DualPropagator, x: torch.Tensor, K: int,
+                    apply=dual_spmm_stacked) -> torch.Tensor:
+    """[K+1, N, 2F] stack of the recurrence on lane-stacked x."""
+    ts = [x]
     if K >= 1:
         ts.append(apply(D, ts[0]))
     for _ in range(2, K + 1):
         ts.append(2.0 * apply(D, ts[-1]) - ts[-2])
-    s = torch.stack(ts)                      # [K+1, N, 2F]
-    return s[:, :, :f], s[:, :, f:]
+    return torch.stack(ts)
+
+
+# Calls of the fused layer since the last reset: forwards (training and
+# evaluation) and hand-written backwards.  Not part of
+# ``ops.cuda.launch_counts()``, which counts the sparse kernels.
+FUSED_CALLS: Dict[str, int] = {"forward": 0, "backward": 0}
+
+
+def reset_fused_calls() -> None:
+    for k in FUSED_CALLS:
+        FUSED_CALLS[k] = 0
+
+
+def _terms(D: DualPropagator, x: torch.Tensor, K: int) -> List[torch.Tensor]:
+    """T_0 .. T_{K-1} of the recurrence, then ``P T_{K-1}``: K applies.
+    A T_k with 2 <= k < K is formed in place on its apply's output."""
+    ts = [x]
+    a = _dual_forward_stacked(D, x)
+    for k in range(2, K + 1):
+        ts.append(a if k == 2 else a.mul_(2).sub_(ts[-2]))
+        a = _dual_forward_stacked(D, ts[-1])
+    return ts + [a]
+
+
+def _term_weights(weight: torch.Tensor, K: int) -> torch.Tensor:
+    """The weights of ``_terms``: T_K is formed in them, ``P T_{K-1}`` by
+    ``2 W_K`` and ``T_{K-2}`` by ``W_{K-2} - W_K`` (as they are at K=1).
+    Built by kernels alone (no device-to-device copy), so an eager epoch
+    and its CUDA graph replay run the same kernels."""
+    if K == 1:
+        return weight
+    return torch.cat([weight[:K - 2], weight[K - 2:K - 1] - weight[K:],
+                      weight[K - 1:K], 2 * weight[K:]])
+
+
+def _fused_forward(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor], D: DualPropagator,
+                   activation: bool, keep_mask: bool):
+    """``(z, mask, terms, cat)``: the layer's lane-stacked output, the
+    complex ReLU's mask, the terms and, at narrow input widths, their
+    [2N, (K+1)F] concatenation (then the weight products are one GEMM:
+    writing an operand no wider than the output costs less than the output
+    pass that each further ``addmm`` takes)."""
+    K, f, f_out = weight.shape[0] - 1, weight.shape[1], weight.shape[2]
+    n = x.shape[0]
+    if x.shape[1] != 2 * f:
+        raise ValueError(f"lane-stacked input must be [N, {2 * f}], got "
+                         f"{tuple(x.shape)}")
+    terms = _terms(D, x, K)
+    w = _term_weights(weight, K)
+    cat = None
+    if (K + 1) * f <= f_out:
+        cat = torch.cat([t.view(2 * n, f) for t in terms], dim=1)
+        y = cat @ w.reshape((K + 1) * f, f_out)
+    else:
+        y = terms[0].view(2 * n, f) @ w[0]
+        for t, w_k in zip(terms[1:], w[1:]):
+            y.addmm_(t.view(2 * n, f), w_k)
+    z, mask = complex_epilogue(y.view(n, 2 * f_out), bias, activation,
+                               keep_mask)
+    return z, mask, terms, cat
+
+
+def _weight_grads(dws: torch.Tensor, K: int) -> torch.Tensor:
+    """The weights' gradient from those of ``_term_weights`` (in place)."""
+    if K > 1:
+        dws[K].mul_(2).sub_(dws[K - 2])
+    return dws
+
+
+def _input_grad(D: DualPropagator, uv: torch.Tensor, weight: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """The input's gradient: the recurrence run backwards through the
+    transposed pair, Clenshaw's order.  With ``G_k = UV W_k^T``,
+
+        dT_K = G_K,   dT_k = G_k + 2 P^T dT_{k+1} - dT_{k+2}   (k >= 1),
+        dT_0 = G_0 + P^T dT_1 - dT_2,
+
+    each ``G_k`` added by the ``addmm`` that computes it, onto the
+    transposed apply scaled by its ``beta``; ``- dT_K`` goes into the
+    weight (``W_{K-2} - W_K`` of ``_term_weights``).  K transposed
+    applies."""
+    if D.transposed is None:
+        raise ValueError("the dual was built with with_transpose=False and "
+                         "has no backward")
+    K, f = weight.shape[0] - 1, weight.shape[1]
+    w = _term_weights(weight, K)
+    d, d2 = uv @ weight[K].t(), None         # dT_{k+1}, dT_{k+2}
+    for k in range(K - 1, -1, -1):
+        p = _dual_forward_stacked(D.transposed, d.view(n, 2 * f))
+        p = p.view(2 * n, f).addmm_(uv, w[k].t(), beta=2 if k else 1)
+        if k + 2 < K:
+            p.sub_(d2)
+        d, d2 = p, d
+    return d.view(n, 2 * f)
+
+
+class _FusedConv(torch.autograd.Function):
+    """The layer over a frozen dual, lane-stacked in and out; the backward
+    by hand (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, D, activation):
+        z, mask, terms, cat = _fused_forward(x, weight, bias, D, activation,
+                                             True)
+        ctx.D, ctx.stacked = D, cat is not None
+        ctx.save_for_backward(weight, mask,
+                              *(terms if cat is None else [cat]))
+        return z
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dz):
+        FUSED_CALLS["backward"] += 1
+        weight, mask, *saved = ctx.saved_tensors
+        K, f, f_out = weight.shape[0] - 1, weight.shape[1], weight.shape[2]
+        uv, db = complex_epilogue_backward(dz, mask, ctx.needs_input_grad[2])
+        n = uv.shape[0]
+        uv = uv.view(2 * n, f_out)
+        dw = dx = None
+        if ctx.needs_input_grad[1]:
+            dws = ((saved[0].t() @ uv).view(K + 1, f, f_out) if ctx.stacked
+                   else torch.stack([t.view(2 * n, f).t() @ uv
+                                     for t in saved]))
+            dw = _weight_grads(dws, K)
+        if ctx.needs_input_grad[0]:
+            dx = _input_grad(ctx.D, uv, weight, n)
+        return dx, dw, db, None, None
+
+
+def fused_conv(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], D: DualPropagator,
+               activation: bool) -> torch.Tensor:
+    """MagNetConv (and, with ``activation``, the complex ReLU after it) on
+    lane-stacked ``x = [x_re | x_im]`` [N, 2F] over the frozen dual ``D``;
+    returns ``[out_re | out_im]`` [N, 2F_out].  Without a gradient to take
+    it runs the forward alone and keeps no mask."""
+    FUSED_CALLS["forward"] += 1
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _FusedConv.apply(x, weight, bias, D, activation)
+    return _fused_forward(x, weight, bias, D, activation, False)[0]
 
 
 class MagNetConv(nn.Module):
@@ -91,8 +262,25 @@ class MagNetConv(nn.Module):
             self.register_parameter("bias", None)
 
     @profiling.layer("nn.magnet_conv")
-    def forward(self, x_real: torch.Tensor, x_imag: torch.Tensor,
-                lap) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _stacked(self, z: torch.Tensor, lap,
+                 activation: bool = False) -> torch.Tensor:
+        """The layer, and the complex ReLU with ``activation``, on
+        lane-stacked ``z = [x_re | x_im]``; lane-stacked out.  Over a frozen
+        dual one ``fused_conv``; trainable q and pairs without a dual take
+        the generic recurrence.  The model's trunk runs its layers through
+        this."""
+        if not self.trainable_q and isinstance(lap, MagneticPair) \
+                and lap.dual is not None:
+            return fused_conv(z.contiguous(), self.weight, self.bias,
+                              lap.dual, activation)
+        real, imag = self._generic(z, lap)
+        if activation:
+            real, imag = complex_relu(real, imag)
+        return torch.cat([real, imag], dim=1)
+
+    def _generic(self, z: torch.Tensor,
+                 lap) -> Tuple[torch.Tensor, torch.Tensor]:
+        f = self.in_channels
         apply = dual_spmm_stacked
         if self.trainable_q:
             # the original clamps q each forward; min(max(.)) passes half
@@ -114,11 +302,11 @@ class MagNetConv(nn.Module):
             P_re, P_im = lap
             dual = lap.dual if isinstance(lap, MagneticPair) else None
         if dual is not None:
-            s1, s2 = dual_chebyshev_stacks(dual, x_real, x_imag, self.K,
-                                           apply=apply)
+            s = _dual_chebyshev(dual, z, self.K, apply)   # [K+1, N, 2F]
+            s1, s2 = s[:, :, :f], s[:, :, f:]
         else:
-            s1 = chebyshev_stack(P_re, x_real, self.K)  # [K+1, N, F]
-            s2 = chebyshev_stack(P_im, x_imag, self.K)
+            s1 = chebyshev_stack(P_re, z[:, :f], self.K)  # [K+1, N, F]
+            s2 = chebyshev_stack(P_im, z[:, f:], self.K)
         o1 = torch.einsum("knf,kfo->no", s1, self.weight)
         o2 = torch.einsum("knf,kfo->no", s2, self.weight)
         out_real = o1 - o2
@@ -127,3 +315,8 @@ class MagNetConv(nn.Module):
             out_real = out_real + self.bias
             out_imag = out_imag + self.bias
         return out_real, out_imag
+
+    def forward(self, x_real: torch.Tensor, x_imag: torch.Tensor,
+                lap) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = self._stacked(torch.cat([x_real, x_imag], dim=1), lap)
+        return z[:, :self.out_channels], z[:, self.out_channels:]

@@ -45,10 +45,9 @@ class MSGNN_link_prediction(_MSGNN):
 
     def forward(self, real, imag, lap, query_edges, training: bool = False,
                 generator: Optional[torch.Generator] = None):
-        real, imag = self._trunk(real, imag, lap)
-        s, t = query_edges[:, 0], query_edges[:, 1]
-        z = self._drop(torch.cat([real[s], real[t], imag[s], imag[t]], dim=-1),
-                       training, generator)
+        z = self._drop(
+            self._edge_features(self._trunk(real, imag, lap), query_edges),
+            training, generator)
         return torch.log_softmax(self.linear(z), dim=1), z
 
 
@@ -71,8 +70,7 @@ class MSGNN_node_classification(_MSGNN):
 
     def forward(self, real, imag, lap, training: bool = False,
                 generator: Optional[torch.Generator] = None):
-        real, imag = self._trunk(real, imag, lap)
-        z = self._drop(torch.cat([real, imag], dim=-1), training, generator)
+        z = self._drop(self._trunk(real, imag, lap), training, generator)
         x = self.linear(z)
         log_prob = torch.log_softmax(x, dim=1)
         return (l2_normalize(z), log_prob, torch.argmax(log_prob, dim=1),

@@ -25,7 +25,9 @@ from .scatter_csr import (
 
 
 def launch_counts() -> dict:
-    """Launches of every kernel wrapper since the last reset, by name."""
+    """Launches of every sparse kernel wrapper since the last reset, by
+    name.  MagNetConv's epilogue counts its own
+    (``complex_epilogue.LAUNCHES``)."""
     return {**scatter_csr.LAUNCHES, **bsr_spmm.LAUNCHES,
             **dual_sddmm.LAUNCHES}
 

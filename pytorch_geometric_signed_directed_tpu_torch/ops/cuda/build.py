@@ -23,7 +23,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
     "build", "torch_kernels")
-SOURCES = ("scatter_csr.cu", "bsr_spmm.cu", "dual_sddmm.cu")
+SOURCES = ("scatter_csr.cu", "bsr_spmm.cu", "dual_sddmm.cu",
+           "complex_epilogue.cu")
 # headers the sources include: a change to one rebuilds every source
 HEADERS = ("csr_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

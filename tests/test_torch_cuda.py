@@ -866,12 +866,10 @@ def test_digcl_step_on_card_matches_the_cpu(card, batch_size):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
-def _hub_magnet(device, dropout=0.0):
-    """MagNet (K=2, hidden 8) on the kernel tier of a 3,000-node graph
-    whose node 7 has 2,000 in-edges, so its Laplacian row is cut into
-    pieces; features, labels and masks from a seed."""
-    from pytorch_geometric_signed_directed_tpu_torch.nn import (
-        MagNet_node_classification)
+def _hub_inputs(device):
+    """The kernel-tier Laplacian pair of a 3,000-node graph whose node 7
+    has 2,000 in-edges, so its Laplacian row is cut into pieces; features,
+    labels and masks from a seed."""
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
         magnet_propagators)
 
@@ -889,6 +887,15 @@ def _hub_magnet(device, dropout=0.0):
     y = torch.from_numpy(rng.integers(0, 3, n)).to(device)
     masks = torch.from_numpy(
         (rng.random((3, n)) < 0.3).astype(np.float32)).to(device)
+    return lap, x, y, masks
+
+
+def _hub_magnet(device, dropout=0.0):
+    """MagNet (K=2, hidden 8) on ``_hub_inputs``."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn import (
+        MagNet_node_classification)
+
+    lap, x, y, masks = _hub_inputs(device)
 
     def apply_fn(model, training, generator):
         return model(x, x, lap, training, generator)
@@ -1441,3 +1448,116 @@ def test_dual_on_wide_row_blocks_on_card(card, kind, width, dtype, accum,
                                    atol=1e-4)
         assert torch.equal(got, again)
     torch.cuda.synchronize()
+
+
+# --- MagNetConv's complex epilogue -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "shifted"])
+@pytest.mark.parametrize("width", [1, 5, 64, 130])
+def test_complex_epilogue_matches_plain_on_card(card, width, aligned):
+    """The epilogue kernel, forward and backward, against its plain
+    version: the same bits for z, the mask and the gradient of [o1 | o2],
+    the bias gradient (float64 sums in other orders) to float32 rounding;
+    rows off a multiple of the CTA's, widths off a multiple of 4, rows
+    that do not start 16-byte aligned, and re = 0 exactly."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        complex_epilogue as epi)
+
+    n, f = 2 * 1056 * 16 + 37, width
+    gen = torch.Generator(device=card).manual_seed(width)
+
+    def lane_stacked():
+        buf = torch.randn(n * 2 * f + 1, device=card, generator=gen)
+        return (buf[:-1] if aligned else buf[1:]).view(n, 2 * f)
+
+    y, dz = lane_stacked(), lane_stacked()
+    y[: n // 3, :f] = y[: n // 3, f:]          # re = 0 where there is no bias
+    for bias in (None, torch.randn(f, device=card, generator=gen)):
+        for act in (True, False):
+            before = dict(epi.LAUNCHES)
+            z, mask = epi.complex_epilogue(y, bias, act)
+            want, want_mask = epi.complex_epilogue_plain(y, bias, act)
+            assert torch.equal(z, want)
+            assert (mask is None and want_mask is None) or torch.equal(
+                mask, want_mask)
+            uv, db = epi.complex_epilogue_backward(dz, mask, bias is not None)
+            want_uv, want_db = epi.complex_epilogue_backward_plain(
+                dz, mask, bias is not None)
+            assert torch.equal(uv, want_uv)
+            if bias is None:
+                assert db is None
+            else:
+                torch.testing.assert_close(db, want_db, rtol=1e-6, atol=1e-5)
+                assert torch.equal(db, epi.complex_epilogue_backward(
+                    dz, mask, True)[1])                 # no atomics
+            assert epi.LAUNCHES["complex_epilogue"] == (
+                before["complex_epilogue"] + 1)
+    assert epi.complex_epilogue(y, None, True)[1][: n // 3].all()
+    assert not set(epi.LAUNCHES) & set(cuda_launch_counts())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_complex_epilogue_takes_float64_plain_on_card(card):
+    """A float64 model on the card (a reference run) takes the plain
+    versions: the kernel is float32, and launches nothing."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        complex_epilogue as epi)
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    y = torch.randn(100, 10, device=card, generator=gen, dtype=torch.float64)
+    bias = torch.randn(5, device=card, generator=gen, dtype=torch.float64)
+    before = dict(epi.LAUNCHES)
+    z, mask = epi.complex_epilogue(y, bias, True)
+    want, want_mask = epi.complex_epilogue_plain(y, bias, True)
+    assert torch.equal(z, want) and torch.equal(mask, want_mask)
+    uv, db = epi.complex_epilogue_backward(y, mask, True)
+    want_uv, want_db = epi.complex_epilogue_backward_plain(y, mask, True)
+    assert torch.equal(uv, want_uv) and torch.equal(db, want_db)
+    assert uv.dtype == db.dtype == torch.float64
+    assert epi.LAUNCHES == before
+
+
+def cuda_launch_counts():
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts)
+    return launch_counts()
+
+
+@pytest.mark.cuda
+def test_fused_magnet_matches_generic_on_card(card):
+    """MagNet on the kernel tier of the hub graph: the fused layers (one
+    epilogue launch a layer, forward and backward) against the same
+    operators without the dual, the generic recurrence, in the loss and
+    every gradient."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn.directed import (
+        magnet_conv)
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        complex_epilogue as epi)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        MagneticPair)
+
+    _, init, _, _ = _hub_magnet(card)
+    lap, x, y, masks = _hub_inputs(card)
+    unfused = MagneticPair(lap.re, lap.im, None)
+    results = []
+    for pair in (lap, unfused):
+        model = init()
+        magnet_conv.reset_fused_calls()
+        epi.reset_launch_counts()
+        logp = model(x, x, pair)
+        loss = -(logp[torch.arange(len(y), device=card), y] * masks[0]).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        fused = pair is lap
+        assert magnet_conv.FUSED_CALLS == (
+            {"forward": 2, "backward": 2} if fused
+            else {"forward": 0, "backward": 0})
+        assert epi.LAUNCHES == (
+            {"complex_epilogue": 2, "complex_epilogue_backward": 2} if fused
+            else {"complex_epilogue": 0, "complex_epilogue_backward": 0})
+        results.append([logp.detach()] + [p.grad for p in model.parameters()])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=2e-6 * float(b.abs().max()))
