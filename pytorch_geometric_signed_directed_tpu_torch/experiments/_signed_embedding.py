@@ -14,6 +14,7 @@ from ..nn.signed.sigat import prepare_sigat_inputs
 from ..nn.signed.snea import prepare_snea_inputs
 from ..train import Trainer
 from ..utils import negative_sampling, structured_negative_sampling
+from ..utils.signed.link_sign_loss import plan_edges
 from ._common import run_steps
 
 EMBEDDING_METHODS = ("sgcn", "snea", "sigat", "sdgnn")
@@ -60,14 +61,19 @@ def embedding_model(method: str, n: int, edge_index_s, in_dim: int,
         def samples():
             return (graphs, pos, neg)
     else:
+        # the motif stack, and the edge lists planned once on the device
         pos, neg, emb, graphs, w_pos, w_neg = prepare_sdgnn_inputs(
-            n, edge_index_s, in_dim, device=device)
+            n, edge_index_s, in_dim, fused=True, device=device)
         model = SDGNN(node_num=n, in_dim=in_dim, out_dim=out_dim,
-                      init_emb=emb, device=device, generator=gen)
+                      init_emb=emb, fused=True, device=device, generator=gen)
         fwd = (graphs,)
+        args = (graphs, plan_edges(pos, n, device),
+                plan_edges(neg, n, device),
+                torch.as_tensor(w_pos, device=device),
+                torch.as_tensor(w_neg, device=device))
 
         def samples():
-            return (graphs, pos, neg, w_pos, w_neg)
+            return args
     return SimpleNamespace(model=model, fwd=fwd, samples=samples)
 
 

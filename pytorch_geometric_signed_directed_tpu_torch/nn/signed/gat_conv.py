@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...train import profiling
 from ..inits import glorot, linear, zeros
 from .snea_conv import (AttnGraph, _check_aggregate,
                         attention_softmax_aggregate, build_attention_graph)
@@ -33,12 +34,14 @@ class GATConv(nn.Module):
     """h = x W (no bias); logits = leaky_relu(h a_src at the source + h
     a_dst at the destination); softmax by destination; the weighted sum of
     h at the sources; + bias.  ``aggregate``: ``"mxu"`` (K1) or
-    ``"segment"``."""
+    ``"segment"``.  ``motif``: its motif graph's index in its model, an
+    attribute of its span ``pgsd.nn.gat_conv``."""
 
     def __init__(self, in_dim: int, out_dim: int,
                  negative_slope: float = 0.2, aggregate: str = "mxu", *,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 motif: Optional[int] = None):
         super().__init__()
         _check_aggregate(aggregate)
         device = resolve_device(device)
@@ -48,7 +51,18 @@ class GATConv(nn.Module):
         self.att_src = nn.Parameter(glorot((out_dim, 1), generator).to(device))
         self.att_dst = nn.Parameter(glorot((out_dim, 1), generator).to(device))
         self.bias = nn.Parameter(zeros((out_dim,)).to(device))
+        self.motif = motif
 
+    def _span_attrs(self, x, g) -> dict:
+        """The span's attributes: the graph's rows and edges (self-loops
+        included; 0 on a sharded graph), the lanes of its K1 sum (1 +
+        out) and the motif (-1 where none was set)."""
+        return dict(rows=g.num_nodes,
+                    nnz=int(g.src.numel()) if isinstance(g, AttnGraph)
+                    else 0, width=1 + self.linear.out_features,
+                    motif=-1 if self.motif is None else self.motif)
+
+    @profiling.layer("nn.gat_conv", attrs=_span_attrs)
     def forward(self, x: torch.Tensor, g: AttnGraph) -> torch.Tensor:
         """``g``: an ``AttnGraph`` or a ``parallel.ShardedAttnGraph`` (K1
         a shard, whatever the aggregate)."""

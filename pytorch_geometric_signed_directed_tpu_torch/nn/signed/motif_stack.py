@@ -27,9 +27,10 @@ from torch import nn
 from ...device import DeviceLike, resolve_device
 from ...ops.cuda.scatter_csr import csr_scatter_sum
 from ...ops.scatter import ScatterPlan, build_scatter_plan
+from ...train import profiling
 from ..inits import glorot, zeros
 from .gat_conv import leaky_relu
-from .snea_conv import AttnGraph, _global_shift
+from .snea_conv import ATTENDS, AttnGraph, _global_shift
 
 
 @dataclass(frozen=True)
@@ -123,7 +124,9 @@ def motif_attend(slope: float, ms: MotifStackGraph, T: torch.Tensor,
                  a_src: torch.Tensor, a_dst: torch.Tensor) -> torch.Tensor:
     """One single-head GAT attend over the stacked row space: logits =
     leaky_relu(a_src[src] + a_dst[dst]), softmax by destination, the
-    weighted sum of T[src]; [G N, F].  One K1 call forward, two backward."""
+    weighted sum of T[src]; [G N, F].  One K1 call forward, two backward;
+    G aggregates in ``snea_conv.ATTENDS``."""
+    ATTENDS["mxu"] += ms.num_graphs
     return _MotifAttend.apply(T, a_src, a_dst, ms, slope)
 
 
@@ -172,6 +175,7 @@ class MotifGATStack(nn.Module):
             glorot((G, f, 1), generator, gain_sq=1.0 / G).to(device))
         self.bias = nn.Parameter(zeros((G, f)).to(device))
 
+    @profiling.layer("nn.motif_gat_stack")
     def forward(self, x: torch.Tensor, stack: MotifStackGraph
                 ) -> torch.Tensor:
         """[G, N, out]: each motif's attend of x, + its bias."""

@@ -21,6 +21,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ...ops.coalesce import sorted_unique
+from ...train.profiling import span
 from ...utils.signed.sampling import _member
 
 
@@ -66,7 +67,13 @@ def _uniq(pairs, num_nodes):
 
 def sigat_edge_lists(edge_index_s, num_nodes: int) -> List[np.ndarray]:
     """The 38 SiGAT motif edge lists ([2, E] arrays) in the reference's
-    order: 6 base + 16 positive-triangle + 16 negative-triangle."""
+    order: 6 base + 16 positive-triangle + 16 negative-triangle; the span
+    ``pgsd.prep.motifs``."""
+    with span("prep.motifs", rows=num_nodes, graphs=38):
+        return _sigat_edge_lists(edge_index_s, num_nodes)
+
+
+def _sigat_edge_lists(edge_index_s, num_nodes: int) -> List[np.ndarray]:
     P, N, pos, neg = _bool_adjs(edge_index_s, num_nodes)
     pos_und = np.vstack([pos, pos[:, [1, 0]]])
     neg_und = np.vstack([neg, neg[:, [1, 0]]])
@@ -88,7 +95,12 @@ _SDGNN_MASK_NEG = np.array([0, 1, 1, 0, 0, 0, 1, 0, 0, 1, 1, 0, 0, 1, 0, 0])
 def sdgnn_edge_lists(edge_index_s, num_nodes: int
                      ) -> Tuple[List[np.ndarray], sp.csc_matrix]:
     """SDGNN's 4 motif edge lists [pos_out, pos_in, neg_out, neg_in] and
-    the triangle-count weight matrix."""
+    the triangle-count weight matrix; the span ``pgsd.prep.motifs``."""
+    with span("prep.motifs", rows=num_nodes, graphs=4):
+        return _sdgnn_edge_lists(edge_index_s, num_nodes)
+
+
+def _sdgnn_edge_lists(edge_index_s, num_nodes: int):
     P, N, pos, neg = _bool_adjs(edge_index_s, num_nodes)
     n = num_nodes
     edge_lists = [_uniq(pos, n), _uniq(pos[:, [1, 0]], n),

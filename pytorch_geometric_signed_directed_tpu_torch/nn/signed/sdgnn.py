@@ -14,7 +14,9 @@ from torch import nn
 
 from ...device import DeviceLike, resolve_device
 from ...spectral.features import create_spectral_features
-from ...utils.signed.link_sign_loss import (Sign_Direction_Loss,
+from ...train import profiling
+from ...utils.signed.link_sign_loss import (PlannedEdges,
+                                            Sign_Direction_Loss,
                                             Sign_Triangle_Loss,
                                             sign_product_entropy_loss)
 from ..inits import kaiming_normal, linear
@@ -35,7 +37,7 @@ def prepare_sdgnn_inputs(node_num: int, edge_index_s, in_dim: int = 20,
     pos_edge_index, neg_edge_index = split_signed_edges(edge_index_s)
     if init_emb is None:
         init_emb = create_spectral_features(pos_edge_index, neg_edge_index,
-                                            node_num, in_dim)
+                                            node_num, in_dim, device=device)
     edge_lists, tri_weight = sdgnn_edge_lists(edge_index_s, node_num)
     if fused:
         graphs = build_motif_stack(edge_lists, node_num, device)
@@ -67,12 +69,14 @@ class SDRLayer(nn.Module):
         else:
             self.aggs = nn.ModuleList([
                 GATConv(in_dim, out_dim, aggregate=aggregate, device=device,
-                        generator=generator) for _ in range(num_graphs)])
+                        generator=generator, motif=i)
+                for i in range(num_graphs)])
         self.linear = linear(in_dim + num_graphs * out_dim, out_dim, True,
                              device, generator, init=kaiming_normal)
         self.linear1 = linear(out_dim, out_dim, True, device, generator,
                               init=kaiming_normal)
 
+    @profiling.layer("nn.sdr_layer")
     def forward(self, x: torch.Tensor, graphs) -> torch.Tensor:
         if self.fused != isinstance(graphs, MotifStackGraph):
             raise TypeError("a fused SDRLayer takes a MotifStackGraph, an "
@@ -113,6 +117,7 @@ class SDGNN(nn.Module):
         self.loss_tri = Sign_Triangle_Loss(out_dim, device=device,
                                            generator=generator)
 
+    @profiling.layer("nn.sdgnn")
     def forward(self, graphs) -> torch.Tensor:
         x = self.x
         for layer in self.layers:
@@ -121,9 +126,13 @@ class SDGNN(nn.Module):
 
     def loss(self, graphs, pos_edge_index, neg_edge_index, w_pos,
              w_neg) -> torch.Tensor:
+        """The edge lists as arrays, tensors or ``PlannedEdges``
+        (``plan_edges``: planned once, their gathers' backward on K1)."""
         z = self(graphs)
 
         def dev(a):
+            if isinstance(a, PlannedEdges):
+                return a
             return torch.as_tensor(a, device=z.device)
 
         pos, neg = dev(pos_edge_index), dev(neg_edge_index)

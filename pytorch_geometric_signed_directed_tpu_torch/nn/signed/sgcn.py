@@ -25,10 +25,13 @@ from .sgcn_conv import SGCNConv
 
 def register_embedding(module: nn.Module, init_emb, init_emb_grad: bool,
                        device: torch.device) -> None:
-    """``module.x``: a copy of ``init_emb`` (training must not write into
-    the caller's array), a parameter when ``init_emb_grad``, else a
-    buffer left out of the state_dict."""
-    x = torch.tensor(np.asarray(init_emb, np.float32), device=device)
+    """``module.x``: a copy of ``init_emb`` (an array or a tensor; training
+    must not write into the caller's), a parameter when ``init_emb_grad``,
+    else a buffer left out of the state_dict."""
+    if isinstance(init_emb, torch.Tensor):
+        x = init_emb.detach().to(device, torch.float32).clone()
+    else:
+        x = torch.tensor(np.asarray(init_emb, np.float32), device=device)
     if init_emb_grad:
         module.x = nn.Parameter(x)
     else:
@@ -78,7 +81,8 @@ def prepare_sgcn_inputs(node_num: int, edge_index_s, in_dim: int = 64,
     pos_edge_index, neg_edge_index = split_signed_edges(edge_index_s)
     if init_emb is None:
         init_emb = create_spectral_features(pos_edge_index, neg_edge_index,
-                                            node_num, in_dim)
+                                            node_num, in_dim,
+                                            device=resolve_device(device))
     if fused:
         D = sgcn_dual_propagator(pos_edge_index, neg_edge_index, node_num,
                                  mode="mxu" if mode == "auto" else mode,

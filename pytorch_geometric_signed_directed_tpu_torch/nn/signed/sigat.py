@@ -33,7 +33,7 @@ def prepare_sigat_inputs(node_num: int, edge_index_s, in_dim: int = 20,
     pos_edge_index, neg_edge_index = split_signed_edges(edge_index_s)
     if init_emb is None:
         init_emb = create_spectral_features(pos_edge_index, neg_edge_index,
-                                            node_num, in_dim)
+                                            node_num, in_dim, device=device)
     edge_lists = sigat_edge_lists(edge_index_s, node_num)
     if fused:
         graphs = build_motif_stack(edge_lists, node_num, device)
@@ -75,7 +75,8 @@ class SiGAT(nn.Module):
         else:
             self.aggs = nn.ModuleList([
                 GATConv(in_dim, out_dim, aggregate=aggregate, device=device,
-                        generator=generator) for _ in range(num_graphs)])
+                        generator=generator, motif=i)
+                for i in range(num_graphs)])
         width = in_dim + num_graphs * out_dim
         self.mlp1 = mlp_linear(width, out_dim, device, generator)
         self.mlp2 = mlp_linear(out_dim, out_dim, device, generator)

@@ -30,7 +30,7 @@ def prepare_snea_inputs(node_num: int, edge_index_s, in_dim: int = 20,
     pos_edge_index, neg_edge_index = split_signed_edges(edge_index_s)
     if init_emb is None:
         init_emb = create_spectral_features(pos_edge_index, neg_edge_index,
-                                            node_num, in_dim)
+                                            node_num, in_dim, device=device)
     graphs = snea_graphs(pos_edge_index, neg_edge_index, node_num, device)
     return pos_edge_index, neg_edge_index, init_emb, graphs
 

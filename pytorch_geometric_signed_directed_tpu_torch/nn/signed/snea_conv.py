@@ -25,7 +25,7 @@ source feature.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,17 @@ AGGREGATES = ("mxu", "segment")
 # The fused pair path gathers a lane-stacked [N, 4F] table; wider layers
 # take two separate attends, as in the JAX package.
 PAIR_FUSION_MAX_LANES = 128
+
+# Softmax-by-destination aggregates since the last reset, by aggregate
+# (a pair counts two, a motif stack one a motif; the sharded attends are
+# not counted).  Not part of ``ops.cuda.launch_counts()``, which counts
+# the kernel calls.
+ATTENDS: Dict[str, int] = {"mxu": 0, "segment": 0}
+
+
+def reset_attends() -> None:
+    for k in ATTENDS:
+        ATTENDS[k] = 0
 
 
 @dataclass(frozen=True)
@@ -112,12 +123,16 @@ def _segment_softmax_aggregate(g: AttnGraph, logits, msgs):
 
 
 def _global_shift(logits: torch.Tensor) -> torch.Tensor:
-    """The largest logit (0 if it is not finite, or there is none):
-    softmax by destination is invariant to one shift for all edges, and
-    the largest bounds exp() above."""
+    """The largest logit (0 if it is not finite, or there is none), as a
+    constant: softmax by destination is invariant to one shift for all
+    edges, and the largest bounds exp() above.  No gradient flows through
+    it (as in ``motif_attend``'s backward): through the max it would only
+    carry the rounding of that invariance, to the inputs of the edge that
+    holds the max, whose true gradient may be zero (an isolated node's
+    self-loop), where Adam's normalized step turns it into a full step."""
     if logits.numel() == 0:
         return logits.new_zeros(())
-    shift = logits.max()
+    shift = logits.detach().max()
     return torch.where(torch.isfinite(shift), shift, 0.0)
 
 
@@ -127,6 +142,7 @@ def attention_softmax_aggregate(g: AttnGraph, logits: torch.Tensor,
     """softmax(logits) over the edges of each destination, then the
     weighted sum of ``msgs`` [E, F] into [N, F]."""
     _check_aggregate(aggregate)
+    ATTENDS[aggregate] += 1
     if aggregate == "segment":
         return _segment_softmax_aggregate(g, logits, msgs)
     ex = torch.exp(logits - _global_shift(logits))[:, None]
@@ -141,6 +157,7 @@ def attention_softmax_aggregate_pair(g: AttnGraph, l1, m1, l2, m2,
     segment sum of ``[exp1 | m1 exp1 | exp2 | m2 exp2]`` (one shift shared
     by both): the math of two ``attention_softmax_aggregate`` calls."""
     _check_aggregate(aggregate)
+    ATTENDS[aggregate] += 2
     if aggregate == "segment":
         return (_segment_softmax_aggregate(g, l1, m1),
                 _segment_softmax_aggregate(g, l2, m2))

@@ -9,6 +9,11 @@ message (``row_ids``, int64, for the backward's gather) and the
 built, so a call makes no host sync.  The forward is
 ``scatter_csr.csr_scatter_sum`` (the kernel for CUDA tensors, its plain
 version for CPU ones); the backward gathers ``g[row_ids]``.
+
+The reverse, ``gather_rows(table, GatherPlan)``, is a row gather whose
+backward is K1 over the positions sorted by row: no sort and no atomics
+a step, and a row gathered many times (a hub) is cut into pieces like
+any long row.
 """
 from __future__ import annotations
 
@@ -66,3 +71,47 @@ def scatter_sum(plan: ScatterPlan, msgs: torch.Tensor) -> torch.Tensor:
     (float32; float64 for float64 messages on the CPU); rows without
     messages are 0.  Differentiable in ``msgs``: d msgs = g[row_ids]."""
     return _ScatterSum.apply(msgs.contiguous(), plan)
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """Rows ``index`` of a table of ``plan.num_rows`` rows, with the plan
+    of the gather's backward: ``order`` sorts the positions by row, and
+    ``plan`` sums the gradient rows so ordered into the table's rows."""
+
+    index: torch.Tensor
+    order: torch.Tensor
+    plan: ScatterPlan
+
+
+def build_gather_plan(index, num_rows: int,
+                      device: DeviceLike = None) -> GatherPlan:
+    """The plan of gathering rows ``index`` (in ``[0, num_rows)``)."""
+    device = resolve_device(device)
+    if isinstance(index, torch.Tensor):
+        index = index.cpu().numpy()
+    index = np.asarray(index, np.int64)
+    order = np.argsort(index, kind="stable")
+    return GatherPlan(index=torch.from_numpy(index).to(device),
+                      order=torch.from_numpy(order).to(device),
+                      plan=build_scatter_plan(index[order], num_rows, device))
+
+
+class _GatherRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, gplan):
+        ctx.gplan = gplan
+        return table[gplan.index]
+
+    @staticmethod
+    def backward(ctx, g):
+        gp = ctx.gplan
+        return csr_scatter_sum(gp.plan.rowptr, g[gp.order],
+                               gp.plan.split), None
+
+
+def gather_rows(table: torch.Tensor, gplan: GatherPlan) -> torch.Tensor:
+    """``table[gplan.index]``; differentiable in ``table``: its gradient is
+    the K1 segment sum of the output's gradient rows by index."""
+    return _GatherRows.apply(table, gplan)

@@ -1,9 +1,11 @@
-"""Spectral node features (host side, once per graph).
+"""Spectral node features (once per graph).
 
 Counterpart of ``pytorch_geometric_signed_directed_tpu/spectral/
 features.py``, without scikit-learn (the card's machine has none): a numpy
 standard scaler and a numpy randomized SVD in place of its
-``StandardScaler`` and ``TruncatedSVD``.
+``StandardScaler`` and ``TruncatedSVD``.  Given a CUDA ``device``, the
+randomized SVD's power iterations run there in float64 (torch sparse
+products and LU factorizations) from the same host-drawn start.
 
 ``eigs`` and ``svds`` draw a random start vector on every call unless
 given one, so the signed and Hermitian features differ from call to call
@@ -12,14 +14,19 @@ not.
 """
 from __future__ import annotations
 
+import contextlib
+import warnings
 from typing import Optional
 
 import numpy as np
 import scipy.linalg
 import scipy.sparse as sp
 import scipy.sparse.linalg  # noqa: F401  (binds sp.linalg)
+import torch
 
+from ..device import DeviceLike
 from ..ops.coalesce import sorted_unique
+from ..train.profiling import span
 
 
 def standard_scale(X: np.ndarray) -> np.ndarray:
@@ -156,7 +163,7 @@ def spectral_adjacency_reg_features(
 
 def randomized_svd_components(M: sp.spmatrix, dim: int, n_iter: int = 128,
                               n_oversamples: int = 10,
-                              random_state=None) -> np.ndarray:
+                              random_state=None, device: DeviceLike = None):
     """[dim, M.shape[1]]: the leading right singular vectors of M by
     scikit-learn's ``TruncatedSVD(algorithm="randomized")``: a Gaussian
     range finder of dim + n_oversamples columns drawn from a
@@ -165,7 +172,11 @@ def randomized_svd_components(M: sp.spmatrix, dim: int, n_iter: int = 128,
     ``n_iter`` power iterations normalized by LU, a QR, the SVD of the
     small projection, and the sign of each vector fixed so that its
     largest-magnitude entry is positive.  The same calls in the same order
-    as scikit-learn 1.9, so the same seed gives the same components."""
+    as scikit-learn 1.9, so the same seed gives the same components.
+
+    With a CUDA ``device`` the same range finder runs there in float64
+    (``_range_finder_torch``) from the same start, and the components come
+    back as a float64 tensor on that device; else a numpy array."""
     if random_state is None or random_state is np.random:
         rs = np.random.mtrand._rand
     elif isinstance(random_state, np.random.RandomState):
@@ -174,6 +185,8 @@ def randomized_svd_components(M: sp.spmatrix, dim: int, n_iter: int = 128,
         rs = np.random.RandomState(random_state)
     M = sp.csr_matrix(M)
     Q = rs.normal(size=(M.shape[1], dim + n_oversamples))
+    if device is not None and torch.device(device).type != "cpu":
+        return _range_finder_torch(M, Q, dim, n_iter, torch.device(device))
     if M.dtype == np.float32:
         Q = Q.astype(np.float32, copy=False)
     for _ in range(n_iter):
@@ -187,24 +200,97 @@ def randomized_svd_components(M: sp.spmatrix, dim: int, n_iter: int = 128,
     return Vt * np.sign(Vt[np.arange(dim), peak])[:, None]
 
 
+def _csr_tensor(M: sp.csr_matrix, device: torch.device) -> torch.Tensor:
+    """A float64 ``torch.sparse`` CSR tensor of ``M`` on ``device``."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+        return torch.sparse_csr_tensor(
+            *(torch.from_numpy(a).to(device) for a in (
+                M.indptr.astype(np.int64), M.indices.astype(np.int64),
+                M.data.astype(np.float64))),
+            size=M.shape, dtype=torch.float64, device=device,
+            check_invariants=False)
+
+
+def _lu_permute_l(A: torch.Tensor) -> torch.Tensor:
+    """``scipy.linalg.lu(A, permute_l=True)[0]`` for a tall [m, k] A: P @ L
+    of its partially pivoted LU (L unit lower trapezoidal [m, k]).  The
+    pivots are k row swaps, replayed on the host; P is never formed."""
+    LU, piv = torch.linalg.lu_factor(A)
+    _, L, _ = torch.lu_unpack(LU, piv, unpack_pivots=False)
+    perm = np.arange(A.shape[0])
+    for i, j in enumerate(piv.cpu().numpy() - 1):
+        perm[i], perm[j] = perm[j], perm[i]
+    # A[perm] = L U, so row perm[i] of P L is row i of L
+    return torch.empty_like(L).index_copy_(
+        0, torch.from_numpy(perm).to(A.device), L)
+
+
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """torch's linear algebra on cuSOLVER inside the block, on CUDA."""
+    if device.type != "cuda":
+        yield
+        return
+    library = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(library)
+
+
+def _range_finder_torch(M: sp.csr_matrix, Q: np.ndarray, dim: int,
+                        n_iter: int, device: torch.device) -> torch.Tensor:
+    """``randomized_svd_components``'s range finder in float64 on
+    ``device`` from the start ``Q`` (drawn on the host): the products by
+    ``torch.sparse`` CSR, the LU normalization as P @ L, then the QR, the
+    SVD of the projection and the sign fix.  The factorizations take
+    cuSOLVER (MAGMA's batched LU, which torch may pick for a single
+    matrix, is slower on these tall blocks and prints to stdout)."""
+    A, At = _csr_tensor(M, device), _csr_tensor(M.T.tocsr(), device)
+    Q = torch.from_numpy(Q).to(device, torch.float64)
+    with _cusolver(device):
+        for _ in range(n_iter):
+            Q = _lu_permute_l(A @ Q)
+            Q = _lu_permute_l(At @ Q)
+        Q, _ = torch.linalg.qr(A @ Q, mode="reduced")
+        # the right singular vectors of Q^T M are the left ones of the
+        # tall M^T Q
+        U, _, _ = torch.linalg.svd(At @ Q, full_matrices=False)
+    Vt = U.T[:dim]
+    peak = Vt.abs().argmax(dim=1)
+    sign = torch.sign(Vt[torch.arange(dim, device=device), peak])
+    return Vt * sign[:, None]
+
+
 def create_spectral_features(pos_edge_index, neg_edge_index, node_num: int,
-                             dim: int, seed: Optional[int] = None
-                             ) -> np.ndarray:
+                             dim: int, seed: Optional[int] = None,
+                             device: DeviceLike = None):
     """[node_num, dim] float32: SGCN's input embedding, the leading right
     singular vectors of the symmetrized signed adjacency (+1 on positive
     pairs, -1 on negative ones, 0 where a pair is both, duplicates
     counted as in the original library) by ``randomized_svd_components``
-    with 128 power iterations."""
-    pos = np.asarray(pos_edge_index)
-    neg = np.asarray(neg_edge_index)
-    row = np.concatenate([pos[0], neg[0], pos[1], neg[1]]).astype(np.int64)
-    col = np.concatenate([pos[1], neg[1], pos[0], neg[0]]).astype(np.int64)
-    val = np.tile(np.concatenate([np.full(pos.shape[1], 2.0),
-                                  np.zeros(neg.shape[1])]), 2)
-    keys, inverse = sorted_unique(row * node_num + col, return_inverse=True)
-    summed = np.zeros(len(keys))
-    np.add.at(summed, inverse, val)
-    A = sp.coo_matrix((summed - 1.0, (keys // node_num, keys % node_num)),
-                      shape=(node_num, node_num))
-    return randomized_svd_components(A, dim, random_state=seed).T.astype(
-        np.float32)
+    with 128 power iterations: a numpy array, or with a CUDA ``device`` a
+    tensor on it (the power iterations there).  The span
+    ``pgsd.prep.spectral_features``."""
+    with span("prep.spectral_features", rows=node_num, dim=dim):
+        pos = np.asarray(pos_edge_index)
+        neg = np.asarray(neg_edge_index)
+        row = np.concatenate([pos[0], neg[0], pos[1], neg[1]]).astype(
+            np.int64)
+        col = np.concatenate([pos[1], neg[1], pos[0], neg[0]]).astype(
+            np.int64)
+        val = np.tile(np.concatenate([np.full(pos.shape[1], 2.0),
+                                      np.zeros(neg.shape[1])]), 2)
+        keys, inverse = sorted_unique(row * node_num + col,
+                                      return_inverse=True)
+        summed = np.zeros(len(keys))
+        np.add.at(summed, inverse, val)
+        A = sp.coo_matrix((summed - 1.0, (keys // node_num, keys % node_num)),
+                          shape=(node_num, node_num))
+        V = randomized_svd_components(A, dim, random_state=seed,
+                                      device=device)
+        if isinstance(V, torch.Tensor):
+            return V.T.to(torch.float32).contiguous()
+        return V.T.astype(np.float32)

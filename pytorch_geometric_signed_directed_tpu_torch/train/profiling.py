@@ -8,7 +8,8 @@ synchronizes the card before and after (as ``block_until_ready`` does).
 ``spmm.apply`` (every kernel-tier apply, ``ops/spmm.py``),
 ``kernel.<wrapper>`` (each launch of a CUDA kernel wrapper, at its launch
 counter), ``nn.<layer>`` (the models' layers), ``loss.<name>``,
-``prep.layout`` (``ops/layout.build_layout``) and
+``prep.layout`` (``ops/layout.build_layout``), ``prep.spectral_features``
+and ``prep.motifs`` (the signed models' inputs) and
 ``train.optimizer_build`` (``train.optim.adam``'s factory).  Spans are
 off by default: ``span`` then returns one shared object that does
 nothing.  ``set_tracing(True)`` (or the block of ``trace``) turns them
@@ -145,13 +146,15 @@ def span(name: str, **attrs):
 
 
 class _Layer:
-    """One call of a layer span: its name and the layer span it was
-    called inside (on the forward thread)."""
+    """One call of a layer span: its name, attributes and the layer span
+    it was called inside (on the forward thread)."""
 
-    __slots__ = ("name", "parent", "open")
+    __slots__ = ("name", "attrs", "parent", "open")
 
-    def __init__(self, name: str, parent: Optional["_Layer"]):
-        self.name, self.parent, self.open = name, parent, None
+    def __init__(self, name: str, attrs: Dict[str, object],
+                 parent: Optional["_Layer"]):
+        self.name, self.attrs, self.parent = name, attrs, parent
+        self.open = None
 
     def inside(self, other: "_Layer") -> bool:
         s = self
@@ -200,7 +203,7 @@ def _open_backward(layer: _Layer) -> None:
     if not _pass_pending:
         _pass_pending = True
         torch.autograd.Variable._execution_engine.queue_callback(_finish_pass)
-    layer.open = _Span(layer.name + ".backward", {}).__enter__()
+    layer.open = _Span(layer.name + ".backward", layer.attrs).__enter__()
     stack.append(layer)
 
 
@@ -258,13 +261,18 @@ def layer_span(name: str, fn: Callable, *args, **kwargs):
     call."""
     if not _ON:
         return fn(*args, **kwargs)
+    return _layer_call(name, {}, True, fn, args, kwargs)
+
+
+def _layer_call(name: str, attrs: Dict[str, object], mark_inputs: bool,
+                fn: Callable, args, kwargs):
     stack = _forward_stack()
-    layer = _Layer(name, stack[-1] if stack else None)
+    layer = _Layer(name, attrs, stack[-1] if stack else None)
     grad = torch.is_grad_enabled()
-    with _Span(name, {}):
+    with _Span(name, attrs):
         stack.append(layer)
         try:
-            if grad:
+            if grad and mark_inputs:
                 args = _mark(_MarkIn, layer, args)
             out = fn(*args, **kwargs)
         finally:
@@ -277,14 +285,26 @@ def layer_span(name: str, fn: Callable, *args, **kwargs):
     return out
 
 
-def layer(name: str):
+def layer(name: str, attrs: Optional[Callable[..., Dict[str, object]]]
+          = None, mark_inputs: bool = True):
     """Decorator form of ``layer_span``: the function (or method) runs as
-    the layer span ``name``."""
+    the layer span ``name``.  ``attrs``, given the call's arguments,
+    returns the span's attributes (its backward's too); it is called only
+    with the spans on.  ``mark_inputs=False`` puts no marker on the
+    inputs, so the backward span closes at the next marker outside it or
+    when the pass ends: for a layer that reads an input shared with other
+    layers more than once (a loss gathering the embedding at both ends of
+    every edge), whose input marker would sum those reads' gradients
+    apart from the other layers' before adding them in, a regrouping that
+    changes the gradient's rounding."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def traced(*args, **kwargs):
-            return layer_span(name, fn, *args, **kwargs)
+            if not _ON:
+                return fn(*args, **kwargs)
+            return _layer_call(name, attrs(*args, **kwargs) if attrs
+                               else {}, mark_inputs, fn, args, kwargs)
 
         return traced
 

@@ -4,8 +4,11 @@ Counterpart of ``pytorch_geometric_signed_directed_tpu/utils/signed/
 link_sign_loss.py``.  Losses with weights are ``nn.Module``s whose Linear
 layers take flax's ``nn.Dense`` defaults (lecun-normal weight, zero bias)
 from ``generator``; the sampled index arrays (``utils.signed.sampling``)
-are drawn on the host and passed in.
+are drawn on the host and passed in.  A fixed edge list may come as
+``PlannedEdges`` (``plan_edges``): its gathers' backward is then K1 (see
+``ops.scatter.gather_rows``) rather than a sort and an accumulate a step.
 """
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -14,6 +17,29 @@ from torch import nn
 
 from ...device import DeviceLike, resolve_device
 from ...nn.inits import linear
+from ...ops.scatter import GatherPlan, build_gather_plan, gather_rows
+from ...train.profiling import layer
+
+
+@dataclass(frozen=True)
+class PlannedEdges:
+    """An edge list [2, E] held on the device with the plans of the
+    gathers at both of its ends."""
+
+    src: GatherPlan
+    dst: GatherPlan
+
+    @property
+    def shape(self):
+        return (2, self.src.index.numel())
+
+
+def plan_edges(edge_index, num_nodes: int,
+               device: DeviceLike = None) -> PlannedEdges:
+    """``edge_index`` [2, E] (an array or a tensor) planned once, for the
+    losses to take in place of the edge list at every step."""
+    return PlannedEdges(*(build_gather_plan(edge_index[i], num_nodes, device)
+                          for i in range(2)))
 
 
 def _bce_logits(logits, target_ones: bool, weight=None) -> torch.Tensor:
@@ -24,12 +50,21 @@ def _bce_logits(logits, target_ones: bool, weight=None) -> torch.Tensor:
     return loss.sum()
 
 
+def _ends(z, edge_index):
+    """The rows of ``z`` at the sources and at the destinations."""
+    if isinstance(edge_index, PlannedEdges):
+        return (gather_rows(z, edge_index.src),
+                gather_rows(z, edge_index.dst))
+    return z[edge_index[0]], z[edge_index[1]]
+
+
 def _pair(z, edge_index) -> torch.Tensor:
-    return torch.cat([z[edge_index[0]], z[edge_index[1]]], dim=1)
+    return torch.cat(_ends(z, edge_index), dim=1)
 
 
 def _dot(z, edge_index) -> torch.Tensor:
-    return (z[edge_index[0]] * z[edge_index[1]]).sum(dim=1)
+    src, dst = _ends(z, edge_index)
+    return (src * dst).sum(dim=1)
 
 
 class Sign_Triangle_Loss(nn.Module):
@@ -42,6 +77,7 @@ class Sign_Triangle_Loss(nn.Module):
         self.linear = linear(2 * emb_dim, 1, True, resolve_device(device),
                              generator)
 
+    @layer("loss.sign_triangle", mark_inputs=False)
     def forward(self, z, pos_edge_index, neg_edge_index, w_pos, w_neg):
         rs1 = self.linear(_pair(z, pos_edge_index))
         rs2 = self.linear(_pair(z, neg_edge_index))
@@ -61,9 +97,11 @@ class Sign_Direction_Loss(nn.Module):
         self.score_function2 = linear(emb_dim, 1, True, device, generator)
 
     def _diff(self, z, edge_index):
-        return (torch.sigmoid(self.score_function1(z[edge_index[0]]))
-                - torch.sigmoid(self.score_function2(z[edge_index[1]])))
+        src, dst = _ends(z, edge_index)
+        return (torch.sigmoid(self.score_function1(src))
+                - torch.sigmoid(self.score_function2(dst)))
 
+    @layer("loss.sign_direction", mark_inputs=False)
     def forward(self, z, pos_edge_index, neg_edge_index):
         d = self._diff(z, pos_edge_index)
         pos_loss = ((torch.where(d > -0.5, -0.5, d) - d) ** 2).sum()
@@ -72,6 +110,7 @@ class Sign_Direction_Loss(nn.Module):
         return pos_loss + neg_loss
 
 
+@layer("loss.sign_product", mark_inputs=False)
 def sign_product_entropy_loss(z, pos_edge_index, neg_edge_index):
     """BCE of the embeddings' dot products: positive edges toward 1,
     negative ones toward 0."""

@@ -26,9 +26,12 @@ from its own attributes, over the device time of every operation inside
 those spans); ``apply_overhead_ms`` (inside an apply, outside every
 ``pgsd.kernel.*`` span); ``layers_ms`` and ``loss_ms`` (innermost
 ``pgsd.nn.*`` / ``pgsd.loss.*``); ``layout_s`` and ``optimizer_build_s``
-(host seconds of those set-up spans); and the largest device operations
-of each span.  Prints one line per span and one JSON line, and writes
-the JSON to ``--out`` when given.
+(host seconds of those set-up spans) and ``prep_spans_s`` (host seconds
+of each ``pgsd.prep.*`` span: the layout, the spectral features, the
+motif lists); and the largest device operations of each span.  The
+traced stretches are read by ``idle_share``, ``mfu`` and the cell's own
+``device_trace`` metrics.  Prints one line per span and one JSON line,
+and writes the JSON to ``--out`` when given.
 
 Run from the root of the checkout, on a card:
 
@@ -56,6 +59,11 @@ from port_bench import cost, harness, trace  # noqa: E402
 from port_bench.reference import common as ref_common  # noqa: E402
 from pytorch_geometric_signed_directed_tpu_torch.train import (  # noqa: E402
     profiling)
+
+
+# ``--tiny``: the traffic's size keys by generator (2,000 nodes)
+TINY = {"signed_powerlaw": dict(nodes=2000, positive=8000, negative=2000)}
+TINY_DEFAULT = dict(nodes=2000, draws=8000)
 
 
 def seconds_in(records, name: str) -> float:
@@ -93,6 +101,8 @@ def quantities(att: profiling.Attribution, records, epochs: int) -> dict:
         loss_ms=innermost("loss."),
         layout_s=seconds_in(records, "prep.layout"),
         optimizer_build_s=seconds_in(records, "train.optimizer_build"),
+        prep_spans_s={name: seconds_in(records, name) for name in sorted(
+            {r.name for r in records if r.name.startswith("prep.")})},
         covered=(sum(_ms(op) for op in att.ops if op.spans) / total
                  if total > 0 else None),
         device_ms_per_epoch=total / epochs)
@@ -123,13 +133,13 @@ def _traced(prog, stamps, k, families, spans_on):
     return prof, trace.Trace.from_profile(prof, families), epochs, epoch_s
 
 
-def _bench_metrics(prog, tr, epochs, epoch_s, calls):
+def _bench_metrics(prog, tr, epochs, epoch_s, calls, names):
     run = harness.Run(trace=tr, traced_epochs=epochs, traced_epoch_s=epoch_s,
                       applies_per_epoch=prog.applies_per_epoch(),
                       flops_per_epoch=prog.flops_per_epoch(),
                       calls_per_epoch=calls)
     return {m: harness.load_module(ROOT, "metrics", m).read(run)
-            for m in ("idle_share", "mfu", "spmm_roofline")}
+            for m in names}
 
 
 def main(argv=None) -> int:
@@ -148,7 +158,12 @@ def main(argv=None) -> int:
     profiling.set_tracing(True)
     cell = harness.Cell.find(ROOT, args.workload)
     if args.tiny:
-        cell.traffic.update(nodes=2000, draws=8000)
+        cell.traffic.update(TINY.get(cell.traffic["generator"],
+                                     TINY_DEFAULT))
+    metrics = ["idle_share", "mfu"] + [
+        m["name"] for m in cell.per_layer
+        if m["source"] == "device_trace" and m["name"] not in
+        ("idle_share", "mfu")]
     stamps = harness.Stamps(device)
     seed = args.seed % (1 << 63)
     config = cell.config
@@ -193,9 +208,9 @@ def main(argv=None) -> int:
     calls = prog.calls_per_epoch(counted, k)
     families = trace.load_families(ROOT)
     _, tr_off, e_off, s_off = _traced(prog, stamps, k, families, False)
-    bench_off = _bench_metrics(prog, tr_off, e_off, s_off, calls)
+    bench_off = _bench_metrics(prog, tr_off, e_off, s_off, calls, metrics)
     prof, tr_on, e_on, s_on = _traced(prog, stamps, k, families, True)
-    bench_on = _bench_metrics(prog, tr_on, e_on, s_on, calls)
+    bench_on = _bench_metrics(prog, tr_on, e_on, s_on, calls, metrics)
     profiling.drain()
     att = profiling.attribute(prof, table)
     del prof
@@ -206,6 +221,8 @@ def main(argv=None) -> int:
                power_limit=harness.power_limit() if stamps.cuda else None,
                traced_epochs=e_on,
                prep_s=prep_s, calls_per_epoch=calls,
+               attends_per_epoch=(counted["attends"] / k
+                                  if "attends" in counted else None),
                applies_per_epoch=len(prog.applies_per_epoch()),
                table_rows=len(table.rows) if table else None,
                table_nodes=table.nodes if table else None,

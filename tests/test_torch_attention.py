@@ -1,6 +1,7 @@
 """The attention substrate in the port vs the JAX package: the segment
 ops (sum, mean, max, softmax), K1's segment sum with a gradient
-(``ops.scatter.scatter_sum``), ``build_attention_graph`` and the softmax
+(``ops.scatter.scatter_sum``) and its reverse (``gather_rows``, a
+gather whose backward is K1), ``build_attention_graph`` and the softmax
 aggregates on both paths ("mxu": K1, against JAX's Pallas scatter plan in
 interpret mode; "segment": against JAX's "xla" backend).  Same numpy
 inputs from a seed, values and gradients at 1e-5."""
@@ -19,6 +20,8 @@ from pytorch_geometric_signed_directed_tpu_torch.ops import (
     build_scatter_plan, scatter_sum, segment_max, segment_mean,
     segment_softmax, segment_sum)
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import scatter_csr
+from pytorch_geometric_signed_directed_tpu_torch.ops.scatter import (
+    build_gather_plan, gather_rows)
 
 from test_torch_worker_memory import release_memory  # noqa: F401
 
@@ -170,6 +173,59 @@ def test_plain_scatter_sum_keeps_float32_for_float32_messages():
     assert scatter_sum(plan, torch.ones(len(rows), 2,
                                         dtype=torch.bfloat16)).dtype == \
         torch.float32
+
+
+def gather_case(seed, e=300, n=40, hub=None):
+    """Row ids in [0, n) in no order, two rows never gathered, and with
+    ``hub`` one row gathered that many times more."""
+    rng = np.random.default_rng(seed)
+    index = rng.integers(0, n, e)
+    index[np.isin(index, [5, n - 1])] = 2
+    if hub:
+        index = rng.permutation(np.concatenate([index, np.full(hub, 7)]))
+    return index, n
+
+
+def test_gather_rows_gradcheck_float64():
+    index, n = gather_case(0, e=50, n=12)
+    gp = build_gather_plan(index, n, device="cpu")
+    table = torch.randn(n, 3, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(0),
+                        requires_grad=True)
+    assert torch.autograd.gradcheck(lambda x: gather_rows(x, gp), (table,))
+
+
+@pytest.mark.parametrize("width,hub", [(1, None), (32, None),
+                                       (33, scatter_csr.PIECE_EDGES + 9)])
+def test_gather_rows_matches_indexing_and_its_gradient(width, hub):
+    """The forward is ``table[index]`` bit for bit; the backward, K1 over
+    the positions sorted by row (a hub row cut into pieces), equals the
+    indexing's own backward at float32 rounding, with zero rows where
+    nothing was gathered."""
+    index, n = gather_case(width, hub=hub)
+    gp = build_gather_plan(torch.from_numpy(index), n, device="cpu")
+    assert gp.plan.split.rows.numel() == (1 if hub else 0)
+    rng = np.random.default_rng(width + 1)
+    table = t(rng.standard_normal((n, width))).requires_grad_(True)
+    g = t(rng.standard_normal((len(index), width)))
+    out = gather_rows(table, gp)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  table.detach().numpy()[index])
+    (out * g).sum().backward()
+    want = torch.zeros(n, width, dtype=torch.float64).index_add_(
+        0, torch.from_numpy(index), g.double())
+    np.testing.assert_allclose(table.grad.numpy(), want.numpy(), **OPS_TOL)
+    assert table.grad.dtype == torch.float32
+    assert (table.grad[[5, n - 1]] == 0).all()
+
+
+def test_gather_rows_of_no_index():
+    gp = build_gather_plan(np.zeros(0, np.int64), 6, device="cpu")
+    table = torch.ones(6, 4, requires_grad=True)
+    out = gather_rows(table, gp)
+    assert out.shape == (0, 4)
+    out.sum().backward()
+    assert (table.grad == 0).all()
 
 
 # --- build_attention_graph ---------------------------------------------------

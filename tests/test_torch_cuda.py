@@ -1561,3 +1561,102 @@ def test_fused_magnet_matches_generic_on_card(card):
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=2e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_range_finder_on_the_card_spans_the_numpys_subspace(card):
+    """The spectral features' randomized SVD run on the card (float64
+    torch sparse products and LU) against the numpy one from the same
+    start: the card twin of ``test_torch_sdgnn_cell``'s CPU test."""
+    import scipy.linalg
+    import scipy.sparse as sp
+
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        features)
+
+    rng = np.random.default_rng(0)
+    M = sp.random(400, 400, density=0.02, random_state=0, format="csr")
+    M = sp.csr_matrix(M + M.T)
+    M.data = np.sign(rng.standard_normal(M.nnz))
+    want = features.randomized_svd_components(M, 16, random_state=4)
+    got = features.randomized_svd_components(M, 16, random_state=4,
+                                             device=card)
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    angles = scipy.linalg.subspace_angles(want.T, got.cpu().numpy().T)
+    assert angles.max() < 1e-8
+
+
+@pytest.mark.cuda
+def test_spectral_features_on_the_card_at_epinions_size(card):
+    """``create_spectral_features`` at the SDGNN cell's size (the
+    ``epinions_signed`` traffic at seed 0: 131,580 nodes, 711,210 signed
+    pairs, width 32) on the card against the host's (about a minute of
+    numpy): the same subspace at float32 output."""
+    import json
+    import os
+    import time
+
+    import scipy.linalg
+
+    from port_bench.gen import signed_powerlaw
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed.sgcn import (
+        split_signed_edges)
+    from pytorch_geometric_signed_directed_tpu_torch.spectral import (
+        features)
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "port_bench", "traffic",
+                           "epinions_signed.json")) as f:
+        g = signed_powerlaw.generate(json.load(f), 0, device=card)
+    pos, neg = split_signed_edges(
+        np.vstack([g["edge_index"], g["edge_sign"]]).T)
+    n = g["num_nodes"]
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = features.create_spectral_features(pos, neg, n, 32, seed=5,
+                                                device=card)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    want = features.create_spectral_features(pos, neg, n, 32, seed=5)
+    angles = scipy.linalg.subspace_angles(
+        want.astype(np.float64), got.cpu().numpy().astype(np.float64))
+    print(f"card seconds {seconds}, largest principal angle "
+          f"{angles.max():.3e}")
+    assert got.shape == (n, 32) and got.dtype == torch.float32
+    assert angles.max() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 32, 33])
+def test_gather_rows_backward_on_the_card(card, width):
+    """``ops.scatter.gather_rows`` on the card: the forward is the
+    indexing's bits; the backward (K1 over the positions sorted by row,
+    a hub of 5,000 gathers cut into pieces) equals the float64 sum of
+    the gradient rows at float32 rounding, and twice the same bits."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.scatter import (
+        build_gather_plan, gather_rows)
+
+    rng = np.random.default_rng(width)
+    n = 20000
+    index = rng.permutation(np.concatenate(
+        [rng.integers(0, n, 200000), np.full(5000, 11)]))
+    gp = build_gather_plan(index, n, device=card)
+    assert gp.plan.split.rows.numel() >= 1
+    table = torch.tensor(rng.standard_normal((n, width)), dtype=torch.float32,
+                         device=card, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((len(index), width)),
+                     dtype=torch.float32, device=card)
+    grads = []
+    for _ in range(2):
+        table.grad = None
+        out = gather_rows(table, gp)
+        assert torch.equal(out, table.detach()[gp.index])
+        (out * g).sum().backward()
+        grads.append(table.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    want = torch.zeros(n, width, dtype=torch.float64, device=card
+                       ).index_add_(0, gp.index, g.double())
+    torch.testing.assert_close(grads[0].double(), want, rtol=1e-5,
+                               atol=1e-5)

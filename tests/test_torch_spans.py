@@ -15,7 +15,9 @@ import torch
 from pytorch_geometric_signed_directed_tpu_torch.graph import (
     adj_dual_propagator, rw_norm_dual_propagator)
 from pytorch_geometric_signed_directed_tpu_torch.nn import (
-    DIGRAC_node_clustering, MagNet_node_classification)
+    SDGNN, DIGRAC_node_clustering, MagNet_node_classification)
+from pytorch_geometric_signed_directed_tpu_torch.nn.signed.sdgnn import (
+    prepare_sdgnn_inputs)
 from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (
     magnet_propagators)
@@ -29,6 +31,18 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 N = 60
 CPU = torch.autograd.DeviceType.CPU
 CUDA = torch.autograd.DeviceType.CUDA
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Epochs of tiny ops: beside the suite's other parallel workers,
+    torch's intra-op threads contend for the cores (the SDGNN span report
+    took ~390 s so, 5 s alone); one thread keeps each test at its own
+    cost."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -85,6 +99,22 @@ def digrac_step(steps=1):
     return _steps(model, opt, loss_fn, steps)
 
 
+def sdgnn_step(steps=1):
+    """A tiny SDGNN (width 4, two layers, four motif GATs a layer on K1)
+    on its three losses, trained with AdamW."""
+    rng = np.random.default_rng(0)
+    ei, _, _, _ = _graph()
+    es = np.vstack([ei, rng.choice([-1, 1], ei.shape[1], p=[0.2, 0.8])]).T
+    pos, neg, emb, graphs, w_pos, w_neg = prepare_sdgnn_inputs(
+        N, es, 4, init_emb=rng.standard_normal((N, 4)), device="cpu")
+    model = SDGNN(N, 4, 4, init_emb=emb, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    opt = adam(1e-2, 1e-5, decoupled=True)(model.parameters())
+    args = (graphs, torch.as_tensor(pos), torch.as_tensor(neg),
+            torch.as_tensor(w_pos), torch.as_tensor(w_neg))
+    return _steps(model, opt, lambda: model.loss(*args), steps)
+
+
 def _steps(model, opt, loss_fn, steps):
     losses = []
     for i in range(steps):
@@ -99,7 +129,8 @@ def _steps(model, opt, loss_fn, steps):
     return losses, grads, loss, prof
 
 
-STEPS = {"magnet": magnet_step, "digrac": digrac_step}
+STEPS = {"magnet": magnet_step, "digrac": digrac_step,
+         "sdgnn": sdgnn_step}
 
 
 def _graph_nodes(loss):
@@ -205,6 +236,46 @@ def test_digrac_spans_reach_the_backward():
         assert [profiling.parse_label(e.name)[1]["width"]
                 for e in inner] == [6]
     assert names.count("spmm.apply") == 6
+
+
+def test_sdgnn_spans_reach_the_backward():
+    profiling.set_tracing(True)
+    _, _, _, prof = sdgnn_step()
+    events = sorted(_spans(prof), key=lambda e: e.time_range.start)
+    names = _names(events)
+    for name in ("nn.sdgnn", "loss.sign_product", "loss.sign_direction",
+                 "loss.sign_triangle"):
+        assert names.count(name) == names.count(name + ".backward") == 1
+    assert names.count("nn.sdr_layer") == 2
+    assert names.count("nn.sdr_layer.backward") == 2
+    convs = [profiling.parse_label(e.name)[1] for e in events
+             if profiling.parse_label(e.name)[0] == "nn.gat_conv"]
+    assert [a["motif"] for a in convs] == [0, 1, 2, 3] * 2
+    assert all(a["rows"] == N and a["width"] == 5 for a in convs)
+    assert convs[0]["nnz"] > N
+    backward = [profiling.parse_label(e.name)[1] for e in events
+                if profiling.parse_label(e.name)[0] ==
+                "nn.gat_conv.backward"]
+    assert sorted(a["motif"] for a in backward) == [0, 0, 1, 1, 2, 2, 3, 3]
+    # every K1 call of the forward runs inside a GAT's span
+    for e in events:
+        if e.name.startswith("pgsd.kernel.csr_scatter_sum"):
+            assert any(c.name.startswith("pgsd.nn.gat_conv(")
+                       and c.time_range.start <= e.time_range.start
+                       and e.time_range.end <= c.time_range.end
+                       for c in events)
+
+
+def test_sdgnn_setup_spans_are_recorded():
+    profiling.set_tracing(True)
+    ei, _, _, _ = _graph()
+    es = np.vstack([ei, np.where(np.arange(ei.shape[1]) % 5, 1, -1)]).T
+    prepare_sdgnn_inputs(N, es, 4, device="cpu")
+    records = profiling.drain()
+    assert [(r.name, r.attrs) for r in records
+            if r.name.startswith("prep.")] == [
+        ("prep.spectral_features", dict(rows=N, dim=4)),
+        ("prep.motifs", dict(rows=N, graphs=4))]
 
 
 def test_setup_spans_are_recorded():
@@ -443,4 +514,34 @@ def test_span_report_runs_a_tiny_cell_on_the_cpu(capsys, monkeypatch):
     assert out["layout_s"] > 0 and out["optimizer_build_s"] > 0
     assert out["device_ms_per_epoch"] == 0 and out["covered"] is None
     assert [r["spans"] for r in out["cost"]] == [False, True, True, False]
+    assert not profiling.tracing()
+
+
+def test_span_report_reads_the_sdgnn_cell(capsys, monkeypatch):
+    """The report on the SDGNN cell at 2,000 nodes on the CPU: its motif
+    stacks, layers and losses an epoch, and the set-up's spectral
+    features and motif lists."""
+    import json
+
+    from port_bench import harness
+
+    monkeypatch.setattr(harness, "TRACE_EPOCHS", (3, 3))
+    monkeypatch.setattr(harness, "WARMUP_S", 0.0)
+    rc = _report().main(["--workload", "sdgnn.epinions_signed", "--seed",
+                         str(2 ** 31 + 7), "--seconds", "0.1", "--device",
+                         "cpu", "--tiny"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    spans = out["spans"]
+    assert spans["nn.motif_gat_stack"][0] == 2
+    assert spans["nn.motif_gat_stack.backward"][0] == 2
+    assert spans["nn.sdr_layer"][0] == 2
+    for name in ("nn.sdgnn", "loss.sign_product", "loss.sign_direction",
+                 "loss.sign_triangle", "loss.sign_triangle.backward"):
+        assert spans[name][0] == 1, name
+    assert set(out["prep_spans_s"]) == {"prep.spectral_features",
+                                        "prep.motifs"}
+    assert all(v > 0 for v in out["prep_spans_s"].values())
+    assert set(out["bench_spans_on"]) == {"idle_share", "mfu",
+                                          "scatter_roofline"}
     assert not profiling.tracing()
