@@ -129,7 +129,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    20) trained 30 steps with one GAT a motif graph (SiGAT 38 K1 a step at
    W=21, SDGNN 8) and 30 with the fused motif stack from the same weights
    (SiGAT 3: one forward at W=21 over 38 N rows, two backward at W=21 by
-   source and W=1 by destination; SDGNN 6), whose first losses must agree
+   source and W=1 by destination; SDGNN 6; the two at W=21 read their
+   messages by index, and the backward's edge kernel runs once a layer),
+   whose first losses must agree
    at 1e-5.  Each run must launch exactly that, for the run and for each
    step, and its loss must fall.  Holds ``csr_scatter_sum`` on these CSRs
    at W = 17, 34, 21 and 1 against its plain version, timed beside its
@@ -206,6 +208,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at 1e-5.  Holds K2 on block 0 of P_s (W=32), of the walk dual (2F=64),
    of P_A (W=5) and of the A dual (2K=10) against its plain version, f32
    and bf16, timed beside its bound and one (or two) cuSPARSE ``addmm``.
+15. K1 reading its messages by index, at the SDGNN benchmark cell's
+   shapes (port_bench's ``epinions_signed`` traffic at seed 0, width 32;
+   run after phase 10): the motif attend's sums by destination and by
+   source (W=33 over 526,320 rows and 1,948,740 edges) and the losses'
+   gather backward (W=32 over the positive and negative lists'
+   sources), each against its plain version, timed beside its bound and
+   beside PyTorch's gather of the messages and K1 over them, which it
+   replaces; the attend backward's edge kernel (``attend_logit_grad``)
+   at the stack's edges against its plain version.
 
 Every kernel case also calls the kernel twice and requires the same
 bits (no atomics).  Each training run sets the launch counters to 0 just
@@ -246,6 +257,8 @@ GIANT_CELL_NODES = 2_388_953  # port_bench's giant MagNet cell (WikiTalk)
 EPILOGUE_STEP = {"complex_epilogue": 2, "complex_epilogue_backward": 2}
 F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 REPS = 20
+# SDGNN steps phase 15 counts at the SDGNN cell's shapes
+INDEXED_STEPS = 3
 # the experiments at N=9000, just over the dense tier's 8192 nodes, at
 # their default widths; each trains at least EXPERIMENT_EPOCHS steps
 EXPERIMENT_N = 9000
@@ -3097,8 +3110,10 @@ def motif_paths(model_name, smi, cases):
     layers = 1 if sigat else len(per.layers)
     runs = {}
     for form, model, graphs, per_step in (
-            ("per-motif", per, lists, G * layers),
-            ("fused", fused, stack, 3 * layers)):
+            ("per-motif", per, lists, {"csr_scatter_sum": G * layers}),
+            ("fused", fused, stack, {"csr_scatter_sum": 3 * layers,
+                                     "csr_scatter_sum_indexed": 2 * layers,
+                                     "attend_logit_grad": layers})):
         pos, neg = (torch.from_numpy(a).to(DEV)
                     for a in inputs[form][:2])
         extra = [torch.from_numpy(a).to(DEV) for a in inputs[form][4:]]
@@ -3107,13 +3122,14 @@ def motif_paths(model_name, smi, cases):
             return mo.loss(graphs, pos, neg, *extra)
 
         # per motif one K1 forward a GAT (W = 1 + 20), its backward a
-        # gather; fused one forward a layer (W = 21 over G N rows) and two
-        # in motif_attend's backward (W = 21 by source, W = 1 by
-        # destination)
+        # gather; fused one forward a layer (W = 21 over G N rows, its
+        # messages read by index) and two in motif_attend's backward (W =
+        # 21 by source, read by index, and W = 1 by destination), with the
+        # edge kernel once
         name = f"bench {model_name} {form}"
         runs[name] = dict(
-            train_path(name, loss_fn, model, steps,
-                       {"csr_scatter_sum": per_step}, smi, m), host=host)
+            train_path(name, loss_fn, model, steps, per_step, smi, m),
+            host=host)
     a = runs[f"bench {model_name} per-motif"]["losses"][0]
     b = runs[f"bench {model_name} fused"]["losses"][0]
     if abs(a - b) > 1e-5 * max(1.0, abs(a)):
@@ -3121,6 +3137,9 @@ def motif_paths(model_name, smi, cases):
                              f"per-motif and fused forms differ: {a} vs {b}")
     log(f"  first-step loss: per-motif {a:.6f}, fused {b:.6f} (|diff| "
         f"{abs(a - b):.3g})")
+    if not sigat:
+        attend_case(stack, dim, "sdgnn stack edges", "bench sdgnn fused",
+                    cases)
     if sigat:
         path = "bench sigat"
         attention_case(lists[0].plan, dim + 1, "sigat motif 0",
@@ -3136,13 +3155,20 @@ def motif_paths(model_name, smi, cases):
 
 def attention_entries(runs, cases):
     """The ``kernels`` entries of phase 10: K1's own contract on the
-    attention CSRs, with the launches of the path each case belongs to."""
-    return [{**kernel_entry("csr_scatter_sum", r,
-                            runs[r["path"]]["launches"]["csr_scatter_sum"],
-                            "scatter_csr.cu", "scatter_mxu.py:503"),
-             "path": r["path"], "launches_per_step":
-                 runs[r["path"]]["per_step"]["csr_scatter_sum"],
-             "library": "torch.segment_reduce"} for r in cases.values()]
+    attention CSRs, and the motif attend's edge kernel on the bench SDGNN
+    stack, with the launches of the path each case belongs to."""
+    out = []
+    for r in cases.values():
+        name = r.get("kernel", "csr_scatter_sum")
+        k1 = name == "csr_scatter_sum"
+        out.append({**kernel_entry(
+            name, r, runs[r["path"]]["launches"][name],
+            "scatter_csr.cu" if k1 else "attend_grad.cu",
+            "scatter_mxu.py:503" if k1 else None),
+            "path": r["path"], "launches_per_step":
+                runs[r["path"]]["per_step"][name],
+            "library": "torch.segment_reduce" if k1 else None})
+    return out
 
 
 def attention_phase(smi):
@@ -3164,6 +3190,200 @@ def attention_phase(smi):
         torch.cuda.empty_cache()
         log(f"  {name}: {time.perf_counter() - t0:.1f} s")
     return runs, cases
+
+
+def indexed_case(label, rowptr, split, table, kw, cases):
+    """K1 reading its messages by index (``csr_scatter_sum(..., index=)``)
+    against its plain version (float64 over the materialized messages),
+    twice the same bits, timed beside its bound (``port_bench``'s
+    ``cost_scatter``: row pointers, the [E, W] messages read once, the
+    output written once) and beside what it replaces: the messages
+    gathered (and weighted, concatenated, reordered) by PyTorch, then K1
+    over them."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    def kernel():
+        return scatter_csr.csr_scatter_sum(rowptr, table, split, **kw)
+
+    def replaced():
+        return scatter_csr.csr_scatter_sum(
+            rowptr, scatter_csr.indexed_messages(table, **kw), split)
+
+    got = kernel()
+    wide = {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
+            else v for k, v in kw.items()}
+    want = scatter_csr.csr_scatter_sum_plain(
+        rowptr, scatter_csr.indexed_messages(table.double(), **wide))
+    torch.testing.assert_close(got.double(), want, **F32_TOL)
+    same_bits(got, kernel(), "csr_scatter_sum (indexed)")
+    n, w, nnz = got.shape[0], got.shape[1], kw["index"].numel()
+    nbytes = 4 * (n + 1) + 4 * nnz * w + 4 * n * w
+    b_ms, b_by = bound(nbytes, nnz * w)
+    r = dict(max_abs_err=float((got.double() - want).abs().max()),
+             ms=time_ms(kernel), device_ms=back_to_back_ms(kernel),
+             graph_ms=graph_ms(kernel), plain_ms=time_ms(
+                 lambda: scatter_csr.csr_scatter_sum_plain(
+                     rowptr, scatter_csr.indexed_messages(table, **kw))),
+             replaced_ms=back_to_back_ms(replaced),
+             replaced_graph_ms=graph_ms(replaced), bound_ms=b_ms,
+             bound_by=b_by, library_ms=None, bytes=nbytes,
+             shape=f"{label}: N={n} nnz={nnz} W={w} (cut rows "
+                   f"{split.rows.numel()})")
+    cases[label] = r
+    log_case(f"csr_scatter_sum indexed {label}", r)
+    log(f"  replaced (PyTorch's gather + K1): device_ms="
+        f"{r['replaced_ms']:.4f} graph_ms={r['replaced_graph_ms']}")
+
+
+def attend_case(ms, f, label, path, cases):
+    """The motif attend backward's edge kernel (``attend_logit_grad``) on
+    the stack ``ms`` at width ``f``, random inputs, against its plain
+    version (the [E, F] gathers it replaces), twice the same bits, timed
+    beside its bound."""
+    import torch
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        attend_grad)
+
+    gen = torch.Generator(device=DEV).manual_seed(f)
+    gn, e = ms.g.num_nodes, ms.g.src.numel()
+    T, out, dout = (torch.randn(gn, f, device=DEV, generator=gen)
+                    for _ in range(3))
+    alpha = torch.rand(e, device=DEV, generator=gen)
+    pre = torch.randn(e, device=DEV, generator=gen)
+    args = (ms.g.dst, ms.g.src, T, out, dout, alpha, pre, 0.2)
+
+    def kernel():
+        return attend_grad.attend_logit_grad(*args)
+
+    got = kernel()
+    want = attend_grad.attend_logit_grad_plain(*args)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    same_bits(got, kernel(), "attend_logit_grad")
+    # an edge's two int64 indices, alpha, pre, dpre and its T row; each
+    # destination's out and dout rows once
+    nbytes = e * (2 * 8 + 3 * 4 + 4 * f) + 2 * 4 * gn * f
+    b_ms, b_by = bound(nbytes, 3 * e * f)
+    r = dict(max_abs_err=float((got - want).abs().max()), ms=time_ms(kernel),
+             device_ms=back_to_back_ms(kernel), graph_ms=graph_ms(kernel),
+             plain_ms=time_ms(
+                 lambda: attend_grad.attend_logit_grad_plain(*args)),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+             shape=f"{label}: E={e} F={f}", kernel="attend_logit_grad",
+             path=path)
+    cases[label] = r
+    log_case(f"attend_logit_grad {label}", r)
+
+
+def indexed_phase(smi):
+    """Phase 15: K1 reading its messages by index, and the motif attend's
+    edge kernel, at the SDGNN benchmark cell's shapes: the traffic
+    ``epinions_signed`` at seed 0 (131,580 nodes; 589,888 positive and
+    121,322 negative edges), width 32, its motif stack (4 graphs, 526,320
+    rows, 1,948,740 edges with the self-loops) and its planned edges.
+    The sums: the attend forward by destination and its backward by source
+    (W=33, the scalar first), the losses' gather backward (W=32 over the
+    positive and the negative list's sources).  Then SDGNN (2 layers,
+    width 32) trains ``INDEXED_STEPS`` steps on that stack and those
+    edges, the launch counters set to 0 just before and read just after:
+    18 ``csr_scatter_sum`` a step, 16 of them indexed, and 2
+    ``attend_logit_grad``."""
+    import torch
+    from port_bench.gen import signed_powerlaw
+    from pytorch_geometric_signed_directed_tpu_torch.nn import SDGNN
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        prepare_sdgnn_inputs)
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts, reset_launch_counts)
+    from pytorch_geometric_signed_directed_tpu_torch.utils.signed import (
+        link_sign_loss)
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "port_bench", "traffic",
+                           "epinions_signed.json")) as f:
+        g = signed_powerlaw.generate(json.load(f), 0, device=DEV)
+    n, f = g["num_nodes"], 32
+    es = np.vstack([g["edge_index"], g["edge_sign"]]).T
+    t0 = time.perf_counter()
+    pos, neg, _, ms, w_pos, w_neg = prepare_sdgnn_inputs(
+        n, es, f, init_emb=np.zeros((n, f), np.float32), fused=True,
+        device=DEV)
+    planned = [link_sign_loss.plan_edges(e, n, DEV) for e in (pos, neg)]
+    torch.cuda.synchronize()
+    log(f"indexed K1 on the SDGNN cell's shapes on {smi}: motif stack and "
+        f"planned edges {time.perf_counter() - t0:.1f} s; stack "
+        f"{graph_text(ms.g.plan)}; source CSR {graph_text(ms.src_plan)}")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=DEV, generator=gen)
+
+    gn, e = ms.g.num_nodes, ms.g.src.numel()
+    T, dout = randn(gn, f), randn(gn, f)
+    ex = torch.rand(e, device=DEV, generator=gen)
+    alpha, dpre = torch.rand(e, device=DEV, generator=gen), randn(e)
+    perm = ms.src_perm
+    cases = {}
+    indexed_case("stack by destination", ms.g.plan.rowptr, ms.g.plan.split,
+                 T, dict(index=ms.g.src, weight=ex, scalar=ex), cases)
+    indexed_case("stack by source", ms.src_plan.rowptr, ms.src_plan.split,
+                 dout, dict(index=ms.dst_by_src, weight=alpha[perm],
+                            scalar=dpre[perm]), cases)
+    # the backward puts its two [E] scalars in the source CSR's slot order
+    # before the sum by source
+    r = cases["stack by source"]
+    r["reorder_ms"] = back_to_back_ms(lambda: (alpha[perm], dpre[perm]))
+    log(f"  the [E] scalars' reorder (alpha[src_perm], dpre[src_perm]): "
+        f"device_ms={r['reorder_ms']:.4f}")
+    for name, pe in zip(("positive", "negative"), planned):
+        gp = pe.src
+        indexed_case(f"gather backward, {name} sources", gp.plan.rowptr,
+                     gp.plan.split, randn(gp.index.numel(), f),
+                     dict(index=gp.order), cases)
+    attend_case(ms, f, "stack edges", "sdgnn.epinions_signed", cases)
+    # SDGNN's steps at the cell's shapes, counted
+    model = SDGNN(n, in_dim=f, out_dim=f, fused=True, device=DEV,
+                  init_emb=np.random.default_rng(0).standard_normal(
+                      (n, f)).astype(np.float32))
+    weights = [torch.as_tensor(w, dtype=torch.float32, device=DEV)
+               for w in (w_pos, w_neg)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(INDEXED_STEPS):
+        model.zero_grad(set_to_none=True)
+        model.loss(ms, *planned, *weights).backward()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    per_step = {k: v / INDEXED_STEPS for k, v in launches.items()}
+    want = {"csr_scatter_sum": 18, "csr_scatter_sum_indexed": 16,
+            "attend_logit_grad": 2}
+    if per_step != want:
+        raise AssertionError(f"SDGNN at the cell's shapes: {per_step} "
+                             f"launches a step, not {want}")
+    log(f"  SDGNN, {INDEXED_STEPS} steps on the stack: launches {launches}")
+    return cases, dict(launches=launches, per_step=per_step)
+
+
+def indexed_entries(cases, run):
+    """The ``kernels`` entries of phase 15, with the launches of its
+    counted SDGNN steps at the cell's shapes."""
+    out = []
+    for label, r in cases.items():
+        name = r.get("kernel", "csr_scatter_sum")
+        k1 = name == "csr_scatter_sum"
+        key = "csr_scatter_sum_indexed" if k1 else name
+        entry = {**kernel_entry(name, r, run["launches"][key],
+                                "scatter_csr.cu" if k1 else
+                                "attend_grad.cu",
+                                "scatter_mxu.py:503" if k1 else None),
+                 "path": "sdgnn.epinions_signed, SDGNN steps",
+                 "launches_per_step": run["per_step"][key]}
+        if k1:
+            entry.update(indexed=True, replaced_ms=r["replaced_ms"],
+                         replaced_graph_ms=r["replaced_graph_ms"])
+        out.append(entry)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4190,6 +4410,7 @@ def main():
                         ("directed", directed_phase),
                         ("signed", signed_phase),
                         ("attention", attention_phase),
+                        ("indexed", indexed_phase),
                         ("digcl", digcl_phase),
                         ("captured", captured_phase),
                         ("sharded", sharded_phase),
@@ -4206,6 +4427,7 @@ def main():
     dir_runs, dir_cases = phases["directed"]
     sig_runs, sig_cases = phases["signed"]
     att_runs, att_cases = phases["attention"]
+    idx_cases, idx_run = phases["indexed"]
     dcl_runs, dcl_cases = phases["digcl"]
     cap_runs = phases["captured"]
     shd_runs, shd_cases = phases["sharded"]
@@ -4301,7 +4523,8 @@ def main():
                 ("bench sgcn dual", "bench sgcn fused", "csr_dual_spmm",
                  "scatter_mxu.py:503"))
             for (k2, width) in sig_cases if k2 == key]
-        + attention_entries(att_runs, att_cases) + [
+        + attention_entries(att_runs, att_cases)
+        + indexed_entries(idx_cases, idx_run) + [
             # phase 11: K1 on the bench DiGCL operator at the encoder's
             # widths, with the launches of the B=4096 run
             {**kernel_entry("csr_dual_spmm", dcl_cases[("bench digcl",

@@ -14,6 +14,13 @@ motif_stack.py``.  SiGAT runs 38 motif GATConvs over the same x and SDGNN
     da_src] in one segment sum over a second, source-keyed CSR (width
     F + 1), and da_dst in one over the destination CSR (width 1).  All
     three sums are K1 ``csr_scatter_sum``.
+
+The two sums of width F + 1 read their messages by index (K1's indexed
+loader): the forward's ``[ex | ex T[src]]`` from T, the backward's
+``[dpre | alpha dout[dst]]`` from dout, in the source CSR's slot order.
+The logits' gradient ``dpre`` is one edge kernel
+(``ops.cuda.attend_grad``).  So no [E, F] edge tensor is gathered,
+concatenated or reordered: only [E] scalars are.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...ops.cuda.attend_grad import attend_logit_grad
 from ...ops.cuda.scatter_csr import csr_scatter_sum
 from ...ops.scatter import ScatterPlan, build_scatter_plan
 from ...train import profiling
@@ -38,14 +46,18 @@ class MotifStackGraph:
     """G motif graphs as one ``AttnGraph`` ``g`` over G N rows, plus
     ``src_plan``, a CSR of the same edges keyed by source over G N + 1
     rows (the last, the JAX plan's trash row for padding slots, is empty
-    here), and ``src_perm`` [E] int64, the forward edge of each source-CSR
-    slot.  ``num_nodes`` is N, ``num_graphs`` G."""
+    here), and ``src_perm`` [E] int64, the forward edge of each
+    source-CSR slot.  ``num_nodes`` is N, ``num_graphs`` G.
+    ``dst_by_src`` [E] int64 is the destination of each source-CSR
+    slot's edge: the table row the backward's sum by source reads (a
+    field the JAX plan does not need: its backward gathers)."""
 
     g: AttnGraph
     src_plan: ScatterPlan
     src_perm: torch.Tensor
     num_nodes: int
     num_graphs: int
+    dst_by_src: torch.Tensor
 
 
 def build_motif_stack(edge_lists: List[np.ndarray], num_nodes: int,
@@ -73,59 +85,65 @@ def build_motif_stack(edge_lists: List[np.ndarray], num_nodes: int,
                   plan=plan, num_nodes=G * n)
     src_perm = np.argsort(src, kind="stable")
     src_plan = build_scatter_plan(src[src_perm], G * n + 1, device=device)
-    return MotifStackGraph(g=g, src_plan=src_plan,
-                           src_perm=torch.from_numpy(src_perm).to(device),
-                           num_nodes=n, num_graphs=G)
+    src_perm = torch.from_numpy(src_perm).to(device)
+    return MotifStackGraph(g=g, src_plan=src_plan, src_perm=src_perm,
+                           num_nodes=n, num_graphs=G,
+                           dst_by_src=plan.row_ids[src_perm])
 
 
-def _edge_terms(slope, ms: MotifStackGraph, T, a_src, a_dst):
+def _edge_terms(slope, ms: MotifStackGraph, a_src, a_dst):
+    """The [E] pre-activations and their exponentials, shifted by one
+    detached constant."""
     g = ms.g
     pre = a_src[g.src] + a_dst[g.dst]
     logit = leaky_relu(pre, slope)
-    ex = torch.exp(logit - _global_shift(logit))
-    return pre, ex, T[g.src]
+    return pre, torch.exp(logit - _global_shift(logit))
 
 
 class _MotifAttend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, T, a_src, a_dst, ms, slope):
-        _, ex, msgs = _edge_terms(slope, ms, T, a_src, a_dst)
+        T = T.contiguous()
+        pre, ex = _edge_terms(slope, ms, a_src, a_dst)
         plan = ms.g.plan
-        agg = csr_scatter_sum(plan.rowptr,
-                              torch.cat([ex[:, None], msgs * ex[:, None]], 1),
-                              plan.split)
+        # [ex | ex T[src]] by destination, read from T
+        agg = csr_scatter_sum(plan.rowptr, T, plan.split, index=ms.g.src,
+                              weight=ex, scalar=ex)
         S = agg[:, :1].clamp_min(torch.finfo(T.dtype).tiny)
         out = agg[:, 1:] / S
         ctx.ms, ctx.slope = ms, slope
-        ctx.save_for_backward(T, a_src, a_dst, out, S)
+        # the [E] edge terms are kept, not recomputed: 8 bytes an edge
+        ctx.save_for_backward(T, out, S, pre, ex)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        T, a_src, a_dst, out, S = ctx.saved_tensors
+        T, out, S, pre, ex = ctx.saved_tensors
         ms, slope = ctx.ms, ctx.slope
-        g, GN, f = ms.g, ms.g.num_nodes, T.shape[1]
-        pre, ex, msgs = _edge_terms(slope, ms, T, a_src, a_dst)
+        g, GN = ms.g, ms.g.num_nodes
+        dout = dout.contiguous()
         alpha = ex / S[g.dst, 0]
-        dout_e = dout[g.dst]
-        dmsgs = alpha[:, None] * dout_e
         # the logit gradient of a softmax-weighted sum
-        dl = alpha * ((msgs - out[g.dst]) * dout_e).sum(dim=1)
-        dpre = dl * torch.where(pre >= 0, 1.0, slope)
-        stacked = torch.cat([dmsgs, dpre[:, None]], dim=1)[ms.src_perm]
-        o2 = csr_scatter_sum(ms.src_plan.rowptr, stacked, ms.src_plan.split)
+        dpre = attend_logit_grad(g.dst, g.src, T, out, dout, alpha, pre,
+                                 slope)
+        # [dpre | alpha dout[dst]] by source, read from dout (the [E]
+        # scalars put in the source CSR's slot order)
+        p = ms.src_perm
+        o2 = csr_scatter_sum(ms.src_plan.rowptr, dout, ms.src_plan.split,
+                             index=ms.dst_by_src, weight=alpha[p],
+                             scalar=dpre[p])
         da_dst = csr_scatter_sum(g.plan.rowptr, dpre[:, None].contiguous(),
                                  g.plan.split)[:, 0]
-        return o2[:GN, :f], o2[:GN, f], da_dst, None, None
+        return o2[:GN, 1:], o2[:GN, 0], da_dst, None, None
 
 
 def motif_attend(slope: float, ms: MotifStackGraph, T: torch.Tensor,
                  a_src: torch.Tensor, a_dst: torch.Tensor) -> torch.Tensor:
     """One single-head GAT attend over the stacked row space: logits =
     leaky_relu(a_src[src] + a_dst[dst]), softmax by destination, the
-    weighted sum of T[src]; [G N, F].  One K1 call forward, two backward;
-    G aggregates in ``snea_conv.ATTENDS``."""
+    weighted sum of T[src]; [G N, F].  One K1 call forward, two backward
+    (with the edge kernel); G aggregates in ``snea_conv.ATTENDS``."""
     ATTENDS["mxu"] += ms.num_graphs
     return _MotifAttend.apply(T, a_src, a_dst, ms, slope)
 

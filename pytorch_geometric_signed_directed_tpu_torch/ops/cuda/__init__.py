@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, built with nvcc at first use."""
 
-from . import bsr_spmm, dual_sddmm, scatter_csr
+from . import attend_grad, bsr_spmm, dual_sddmm, scatter_csr
 from .bsr_spmm import bsr_matmul, bsr_matmul_plain
 from .dual_sddmm import (
     csr_dual_sddmm,
@@ -25,17 +25,18 @@ from .scatter_csr import (
 
 
 def launch_counts() -> dict:
-    """Launches of every sparse kernel wrapper since the last reset, by
-    name.  MagNetConv's epilogue counts its own
-    (``complex_epilogue.LAUNCHES``)."""
+    """Launches of every sparse kernel wrapper and of the attention's edge
+    kernel (``attend_grad``) since the last reset, by name.  MagNetConv's
+    epilogue counts its own (``complex_epilogue.LAUNCHES``)."""
     return {**scatter_csr.LAUNCHES, **bsr_spmm.LAUNCHES,
-            **dual_sddmm.LAUNCHES}
+            **dual_sddmm.LAUNCHES, **attend_grad.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     scatter_csr.reset_launch_counts()
     bsr_spmm.reset_launch_counts()
     dual_sddmm.reset_launch_counts()
+    attend_grad.reset_launch_counts()
 
 
 __all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_sddmm",

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
     "build", "torch_kernels")
 SOURCES = ("scatter_csr.cu", "bsr_spmm.cu", "dual_sddmm.cu",
-           "complex_epilogue.cu")
+           "complex_epilogue.cu", "attend_grad.cu")
 # headers the sources include: a change to one rebuilds every source
 HEADERS = ("csr_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -30,6 +30,13 @@
 //                        because its row gather is row-rate-bound.
 //   pgsd_csr_scatter     out[row0 + r, l] (+)= sum_{e in row r} msgs[e, l]
 //                        K1's (and K2's) own contract.
+//   pgsd_csr_scatter_indexed
+//                        K1 over messages it reads by index: message e is
+//                        [s_e | w_e * table[index[e]]] (with or without
+//                        the scalar lane), summed as pgsd_csr_scatter
+//                        sums the materialized messages, so the [E, F]
+//                        gathered rows never lie in device memory (the
+//                        motif attention's sums, the gather's backward).
 //
 // msg() rounds the product to the message type: f32, or bf16 when x (or
 // msgs) is bf16.  Sums are compensated f32 (Kahan) folded in float64
@@ -149,6 +156,24 @@
 // their neighbours' columns (at W = 1 a warp of pairs holds 32 rows).  At
 // W = 1 and above kSpanWidth nothing is staged: every uncut row that is
 // not walked by a warp is walked by threads.
+//
+// The three message kernels take their messages from a loader, a template
+// parameter: RowMsgs reads the contiguous [E, W] messages of
+// pgsd_csr_scatter, IndexedMsgs those of pgsd_csr_scatter_indexed, each
+// from its table row (and its weight and scalar) at the moment the sum
+// adds it.  What bounds an indexed sum is the table
+// rows it gathers, 4 f32 lanes a 16-byte load where the rows are whole
+// 16-byte lines (csr_msgs_kernel; a scalar lane is summed beside the row
+// lanes by lane thread 0 of the first lane tile, as its own lane 0 is, so
+// the [E, F + 1] sums of the motif attention need not take the V = 1
+// path), else V = 1 with every row walked (no contiguous span to stage).
+// Its sums are the sums of pgsd_csr_scatter over the materialized
+// messages at the same geometry, bit for bit.  Its time is the table
+// rows' gather: on the SDGNN cell's sums the rows come in no order from
+// tables of 67-75 MB, past L2, at 0.25-0.5 TB/s (H100; the same rate as
+// PyTorch's own gather of them).  A launch that gave a short row to TL
+// threads, several rows a warp, read no faster (stack sums 10% faster,
+// gather backwards 6-25% slower; PERF.md §6).
 //
 // kBlockEdges, kBlockRows and kWalkEdges were chosen by timing builds of
 // other values (-DPGSD_BLOCK_EDGES=16, -DPGSD_BLOCK_ROWS=16,
@@ -759,6 +784,71 @@ __device__ __forceinline__ void load_lanes(const T* m, int f0,
   }
 }
 
+// The message loaders of csr_msgs_kernel, csr_span_kernel and
+// csr_walk_kernel.  Slot j is a message's place in the CSR's edge order;
+// `cols` lanes of the message come from a row (lane off + c holds column
+// c), and an indexed message may put one scalar lane before them.
+
+// pgsd_csr_scatter: row-ordered messages, contiguous [E, width].
+template <typename T>
+struct RowMsgs {
+  static constexpr bool kIndexed = false;
+  using Type = T;
+  const T* __restrict__ msgs;
+  int width;
+  __device__ __forceinline__ int cols() const { return width; }
+  __device__ __forceinline__ int off() const { return 0; }
+  // lanes [f0, f0 + V) of message j (16-byte aligned rows)
+  template <int V>
+  __device__ __forceinline__ void lanes(int j, int f0, float (&v)[V]) const {
+    load_lanes<T, V>(msgs + (int64_t)j * width, f0, v);
+  }
+  // lane l of message j
+  __device__ __forceinline__ float lane(int j, int l) const {
+    return to_f32(msgs[(int64_t)j * width + l]);
+  }
+};
+
+// pgsd_csr_scatter_indexed: message j is [s_j | w_j * table[index[j]]]
+// (no scalar: [w_j * table[index[j]]]; no weight: w_j = 1), read at the
+// moment it is added, so the [E, F] messages never lie in device memory.
+// w_j and s_j are read at slot j.  Each product is rounded on its own
+// (__fmul_rn: nvcc may not contract it into the sum), so a message equals
+// the materialized w * row bit for bit.
+struct IndexedMsgs {
+  static constexpr bool kIndexed = true;
+  using Type = float;
+  const float* __restrict__ table;    // [M, F] f32, rows of F lanes
+  const int64_t* __restrict__ index;  // [E] the table row of each slot
+  const float* __restrict__ weight;   // [E] or null
+  const float* __restrict__ scalar;   // [E] or null (no scalar lane)
+  int F;
+  __device__ __forceinline__ int cols() const { return F; }
+  // with a scalar, lane 0 holds it and lane 1 + c column c
+  __device__ __forceinline__ int off() const { return scalar ? 1 : 0; }
+  __device__ __forceinline__ float w(int j) const {
+    return weight ? weight[j] : 1.f;
+  }
+  __device__ __forceinline__ float scal(int j) const { return scalar[j]; }
+  // columns [c0, c0 + 4) of the table row of message j (16-byte aligned
+  // rows), times its weight
+  template <int V>
+  __device__ __forceinline__ void lanes(int j, int c0, float (&v)[V]) const {
+    static_assert(V == 4, "an indexed row is read 4 f32 lanes a load");
+    const float4 u =
+        *reinterpret_cast<const float4*>(table + index[j] * F + c0);
+    const float x = w(j);
+    v[0] = __fmul_rn(x, u.x);
+    v[1] = __fmul_rn(x, u.y);
+    v[2] = __fmul_rn(x, u.z);
+    v[3] = __fmul_rn(x, u.w);
+  }
+  __device__ __forceinline__ float lane(int j, int l) const {
+    if (scalar && l == 0) return scal(j);
+    return __fmul_rn(w(j), table[index[j] * F + l - off()]);
+  }
+};
+
 // The edge slots P of a row at TL lane threads: a row (or piece) gets
 // TL * P threads of a warp, and a warp takes 32 / (TL * P) rows.  At most
 // 8 slots: on the trainable-q template's rows (~75 edges) at W=8, 8 or 4
@@ -780,39 +870,49 @@ __host__ __device__ constexpr int msg_depth() {
 // Thread (c, j) of a row's TL * P threads, c = its lane thread and j its
 // edge slot, sums lanes [f0, f0 + V) of edges e0 + j, e0 + j + P, ...
 // below e1 in edge order (compensated), D loads issued before any is
-// added; returns in s the float64 sum of its row's P slots.  Every thread
-// of the warp must call it (the fold is a warp shuffle).
-template <typename T, int V, int TL, int P>
-__device__ __forceinline__ void strided_sum(const T* msgs, int e0, int e1,
-                                            int width, int f0, bool live,
-                                            double (&s)[V]) {
+// added; returns in s the float64 sum of its row's P slots.  An indexed
+// message's scalar lane is summed beside them by the threads that `own`
+// it (lane thread 0 of the first lane tile), as lane f0 of those threads
+// is, into ss.  Every thread of the warp must call it (the fold is a warp
+// shuffle).
+template <class Ld, int V, int TL, int P>
+__device__ __forceinline__ void strided_sum(const Ld& ld, int e0, int e1,
+                                            int f0, bool live, bool own,
+                                            double (&s)[V], double& ss) {
   constexpr int D = msg_depth<V>();
-  float acc[V], cmp[V];
+  float acc[V], cmp[V], sacc = 0.f, scmp = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = cmp[i] = 0.f;
   if (live) {
     for (int e = e0; e < e1; e += D * P) {
-      float v[D][V];
+      float v[D][V], sv[D];
 #pragma unroll
       for (int u = 0; u < D; ++u)
-        if (e + u * P < e1)
-          load_lanes<T, V>(msgs + (int64_t)(e + u * P) * width, f0, v[u]);
+        if (e + u * P < e1) {
+          ld.template lanes<V>(e + u * P, f0, v[u]);
+          if constexpr (Ld::kIndexed)
+            if (own) sv[u] = ld.scal(e + u * P);
+        }
 #pragma unroll
       for (int u = 0; u < D; ++u)
         if (e + u * P < e1) {
 #pragma unroll
           for (int i = 0; i < V; ++i) kahan_add(acc[i], cmp[i], v[u][i]);
+          if constexpr (Ld::kIndexed)
+            if (own) kahan_add(sacc, scmp, sv[u]);
         }
     }
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) s[i] = (double)acc[i] - (double)cmp[i];
+  ss = (double)sacc - (double)scmp;
   // the P edge slots meet in a butterfly: every slot ends with the same
   // bits, since each step adds two values in either order
 #pragma unroll
   for (int d = TL; d < TL * P; d <<= 1) {
 #pragma unroll
     for (int i = 0; i < V; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], d);
+    if constexpr (Ld::kIndexed) ss += __shfl_xor_sync(0xffffffffu, ss, d);
   }
 }
 
@@ -824,11 +924,12 @@ constexpr int kMsgMinCtas = 3;
 // the rest one row of at most piece_len edges per TL * P threads into
 // `out`.  Threads without a row or piece (past the end, a cut row, an
 // empty row in the accumulate mode) sum nothing but join the fold.  Lane
-// tile blockIdx.y holds lanes [y*TL*V, (y+1)*TL*V).
-template <typename T, int V, int TL, bool ACCUM>
+// tile blockIdx.y holds the loader's columns [y*TL*V, (y+1)*TL*V); `width`
+// is the row stride of out and of the partials.
+template <class Ld, int V, int TL, bool ACCUM>
 __global__ void __launch_bounds__(kBlock, kMsgMinCtas)
     csr_msgs_kernel(
-    const T* __restrict__ msgs, const int* __restrict__ rowptr, Split sp,
+    const Ld ld, const int* __restrict__ rowptr, Split sp,
     float* __restrict__ out, int n_rows, int width, int row0) {
   constexpr int P = msg_slots<TL>();
   constexpr int kSlots = kBlock / (TL * P);  // rows (pieces) of a CTA
@@ -836,7 +937,11 @@ __global__ void __launch_bounds__(kBlock, kMsgMinCtas)
   const int slot = threadIdx.x / (TL * P);
   const int f0 = blockIdx.y * (TL * V) + (threadIdx.x % TL) * V;
   const int j = (threadIdx.x / TL) % P;
-  const bool live = f0 < width;
+  const int cols = ld.cols(), off = ld.off();
+  const bool live = f0 < cols;
+  bool own = false;  // the thread that sums the scalar lane
+  if constexpr (Ld::kIndexed)
+    own = ld.scalar && blockIdx.y == 0 && threadIdx.x % TL == 0;
   int e0 = 0, e1 = 0, p = -1, row = -1;
   if ((int)blockIdx.x < piece_ctas) {
     p = blockIdx.x * kSlots + slot;
@@ -859,34 +964,42 @@ __global__ void __launch_bounds__(kBlock, kMsgMinCtas)
     }
     if (row < 0) e0 = e1 = 0;
   }
-  double s[V];
-  strided_sum<T, V, TL, P>(msgs, e0 + j, e1, width, f0, live, s);
+  double s[V], ss;
+  strided_sum<Ld, V, TL, P>(ld, e0 + j, e1, f0, live, own, s, ss);
   if (j != 0 || !live) return;
   if (p >= 0) {
+    double* part = sp.partial + (int64_t)p * width + off;
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      if (f0 + i < width) sp.partial[(int64_t)p * width + f0 + i] = s[i];
+      if (f0 + i < cols) part[f0 + i] = s[i];
+    if constexpr (Ld::kIndexed)
+      if (own) sp.partial[(int64_t)p * width] = ss;
   } else if (row >= 0) {
     float* o = out + ((int64_t)row0 + row) * width;
 #pragma unroll
     for (int i = 0; i < V; ++i)
-      if (f0 + i < width)
-        o[f0 + i] = (float)(ACCUM ? (double)o[f0 + i] + s[i] : s[i]);
+      if (f0 + i < cols)
+        o[off + f0 + i] =
+            (float)(ACCUM ? (double)o[off + f0 + i] + s[i] : s[i]);
+    if constexpr (Ld::kIndexed)
+      if (own) o[0] = (float)(ACCUM ? (double)o[0] + ss : ss);
   }
 }
 
-template <typename T, int V, bool ACCUM>
-int scatter_dispatch(const int* rowptr, const T* msgs, const Split& sp,
-                     float* out, int n, int w, int row0, int tl,
-                     cudaStream_t s) {
+// The row kernel at the wrapper's TL, over the loader's `cols` columns
+// (lane tiles of TL * V) into out rows of `w` lanes.
+template <class Ld, int V, bool ACCUM>
+int scatter_dispatch(const int* rowptr, const Ld& ld, int cols,
+                     const Split& sp, float* out, int n, int w, int row0,
+                     int tl, cudaStream_t s) {
 #define PGSD_MSGS(TL)                                                      \
   case TL: {                                                               \
     constexpr int kSlots = kBlock / (TL * msg_slots<TL>());                \
     const unsigned gx = (sp.n_pieces + kSlots - 1) / kSlots +              \
                         (n + kSlots - 1) / kSlots;                         \
-    csr_msgs_kernel<T, V, TL, ACCUM>                                       \
-        <<<dim3(gx, (w + TL * V - 1) / (TL * V)), kBlock, 0, s>>>(         \
-            msgs, rowptr, sp, out, n, w, row0);                            \
+    csr_msgs_kernel<Ld, V, TL, ACCUM>                                      \
+        <<<dim3(gx, (cols + TL * V - 1) / (TL * V)), kBlock, 0, s>>>(      \
+            ld, rowptr, sp, out, n, w, row0);                              \
     return 0;                                                              \
   }
   switch (tl) {
@@ -961,10 +1074,10 @@ __device__ __forceinline__ void span_block(const int4 blk,
 // pairs in flight.  The pairs' float64 sums meet in `fold` (the warp's 64
 // doubles), where the thread of column c adds its slots in slot order and
 // calls store(column, sum).  Every thread of the warp must call it.
-template <typename T, class Store>
-__device__ __forceinline__ void warp_walk(const T* __restrict__ msgs, int e0,
-                                          int e1, int width, double* fold,
-                                          int lane, Store store) {
+template <class Ld, class Store>
+__device__ __forceinline__ void warp_walk(const Ld& ld, int e0, int e1,
+                                          int width, double* fold, int lane,
+                                          Store store) {
   constexpr int D = 8;
   for (int c0 = 32 * blockIdx.y; c0 < width; c0 += 32 * gridDim.y) {
     const int C = min(width - c0, 32);
@@ -986,9 +1099,7 @@ __device__ __forceinline__ void warp_walk(const T* __restrict__ msgs, int e0,
 #pragma unroll
         for (int u = 0; u < D; ++u) {
           const int j = e + slot[k] + u * S;
-          v[k][u] = live[k] && j < e1
-                        ? to_f32(msgs[(int64_t)j * width + l[k]])
-                        : 0.f;
+          v[k][u] = live[k] && j < e1 ? ld.lane(j, l[k]) : 0.f;
         }
 #pragma unroll
       for (int k = 0; k < 2; ++k)
@@ -1011,9 +1122,8 @@ __device__ __forceinline__ void warp_walk(const T* __restrict__ msgs, int e0,
 
 // One (row, column) pair per thread: column l walked down edges [e0, e1)
 // in edge order, compensated, 8 loads in flight, stored once at o.
-template <typename T, bool ACCUM>
-__device__ __forceinline__ void walk_pair(const T* __restrict__ msgs,
-                                          int e0, int e1, int l, int width,
+template <class Ld, bool ACCUM>
+__device__ __forceinline__ void walk_pair(const Ld& ld, int e0, int e1, int l,
                                           float* o) {
   constexpr int D = 8;
   float acc = 0.f, cmp = 0.f;
@@ -1021,7 +1131,7 @@ __device__ __forceinline__ void walk_pair(const T* __restrict__ msgs,
     float v[D];
 #pragma unroll
     for (int u = 0; u < D; ++u)
-      v[u] = e + u < e1 ? to_f32(msgs[(int64_t)(e + u) * width + l]) : 0.f;
+      v[u] = e + u < e1 ? ld.lane(e + u, l) : 0.f;
 #pragma unroll
     for (int u = 0; u < D; ++u)
       if (e + u < e1) kahan_add(acc, cmp, v[u]);
@@ -1033,11 +1143,12 @@ __device__ __forceinline__ void walk_pair(const T* __restrict__ msgs,
 // CTAs [0, block CTAs) take a row block per warp (staged), the rest a
 // (row, column) pair per thread of the listed rows: the plan's mid rows,
 // or with `every` each row (W = 1, where a thread a row needs no stage,
-// and W > kSpanWidth; the plan's blocks are then not read).  Cut rows and
-// rows of more than kWalkEdges edges are left to csr_walk_kernel.
-template <typename T, bool ACCUM>
+// and W > kSpanWidth, and indexed messages, which have no span to stage;
+// the plan's blocks are then not read).  Cut rows and rows of more than
+// kWalkEdges edges are left to csr_walk_kernel.
+template <class Ld, bool ACCUM>
 __global__ void __launch_bounds__(kSpanBlock) csr_span_kernel(
-    const T* __restrict__ msgs, const int* __restrict__ rowptr, Split sp,
+    const Ld ld, const int* __restrict__ rowptr, Split sp,
     Blocks bp, float* __restrict__ out, int n_rows, int width, int row0,
     int every) {
   // the warps' stages, dynamic: a launch without blocks takes none, which
@@ -1049,10 +1160,12 @@ __global__ void __launch_bounds__(kSpanBlock) csr_span_kernel(
   if (b < block_ctas) {
     const int warp = threadIdx.x / 32;
     const int i = b * kSpanWarps + warp;
-    if (i < bp.n_blocks)
-      span_block<T, ACCUM>(bp.blocks[i], msgs, rowptr,
-                           reinterpret_cast<SpanStage<T>*>(smem)[warp], out,
-                           width, row0, threadIdx.x & 31);
+    using T = typename Ld::Type;
+    if constexpr (!Ld::kIndexed)
+      if (i < bp.n_blocks)
+        span_block<T, ACCUM>(bp.blocks[i], ld.msgs, rowptr,
+                             reinterpret_cast<SpanStage<T>*>(smem)[warp],
+                             out, width, row0, threadIdx.x & 31);
     return;
   }
   const int64_t q = (int64_t)(b - block_ctas) * kSpanBlock + threadIdx.x;
@@ -1066,8 +1179,8 @@ __global__ void __launch_bounds__(kSpanBlock) csr_span_kernel(
   // mode an empty one
   if (e1 - e0 > kWalkEdges || e1 - e0 > sp.piece_len || (ACCUM && e0 == e1))
     return;
-  walk_pair<T, ACCUM>(msgs, e0, e1, l, width,
-                      out + ((int64_t)row0 + row) * width + l);
+  walk_pair<Ld, ACCUM>(ld, e0, e1, l,
+                       out + ((int64_t)row0 + row) * width + l);
 }
 
 // A warp per piece (into `partial`) and then per walked row (the plan's
@@ -1078,9 +1191,9 @@ __global__ void __launch_bounds__(kSpanBlock) csr_span_kernel(
 // 35% to the parent's scatter at W=34, where S = 1 left 30 of the second
 // pairs idle; timed on an H100 with scripts/ab_kernel_variants.py --only
 // odd.)
-template <typename T, bool ACCUM>
+template <class Ld, bool ACCUM>
 __global__ void __launch_bounds__(kSpanBlock) csr_walk_kernel(
-    const T* __restrict__ msgs, const int* __restrict__ rowptr, Split sp,
+    const Ld ld, const int* __restrict__ rowptr, Split sp,
     Blocks bp, float* __restrict__ out, int width, int row0) {
   __shared__ double fold[kSpanWarps][64];
   const int lane = threadIdx.x & 31;
@@ -1089,12 +1202,12 @@ __global__ void __launch_bounds__(kSpanBlock) csr_walk_kernel(
   if (w < sp.n_pieces) {
     const int2 pc = sp.pieces[w];
     double* part = sp.partial + (int64_t)w * width;
-    warp_walk(msgs, pc.x, pc.y, width, fold[warp], lane,
+    warp_walk(ld, pc.x, pc.y, width, fold[warp], lane,
               [&](int c, double s) { part[c] = s; });
   } else if (w < sp.n_pieces + bp.n_walks) {
     const int row = bp.walks[w - sp.n_pieces];
     float* o = out + ((int64_t)row0 + row) * width;
-    warp_walk(msgs, rowptr[row], rowptr[row + 1], width, fold[warp], lane,
+    warp_walk(ld, rowptr[row], rowptr[row + 1], width, fold[warp], lane,
               [&](int c, double s) {
                 o[c] = (float)(ACCUM ? (double)o[c] + s : s);
               });
@@ -1103,11 +1216,12 @@ __global__ void __launch_bounds__(kSpanBlock) csr_walk_kernel(
 
 // V = 1: the short rows in one launch, the pieces and walked rows in a
 // second where there are any (see above).
-template <typename T, bool ACCUM>
-int span_dispatch(const int* rowptr, const T* msgs, const Split& sp,
+template <class Ld, bool ACCUM>
+int span_dispatch(const int* rowptr, const Ld& ld, const Split& sp,
                   const Blocks& bp, float* out, int n, int w, int row0,
                   cudaStream_t s) {
-  const bool every = w == 1 || w > kSpanWidth;
+  using T = typename Ld::Type;
+  const bool every = Ld::kIndexed || w == 1 || w > kSpanWidth;
   const int64_t pairs = (int64_t)(every ? n : bp.n_mids) * w;
   const int64_t gx =
       (every ? 0 : (bp.n_blocks + kSpanWarps - 1) / kSpanWarps) +
@@ -1115,13 +1229,13 @@ int span_dispatch(const int* rowptr, const T* msgs, const Split& sp,
   const int smem =
       every || bp.n_blocks == 0 ? 0 : kSpanWarps * (int)sizeof(SpanStage<T>);
   if (gx)
-    csr_span_kernel<T, ACCUM><<<(unsigned)gx, kSpanBlock, smem, s>>>(
-        msgs, rowptr, sp, bp, out, n, w, row0, every ? 1 : 0);
+    csr_span_kernel<Ld, ACCUM><<<(unsigned)gx, kSpanBlock, smem, s>>>(
+        ld, rowptr, sp, bp, out, n, w, row0, every ? 1 : 0);
   const int walks = sp.n_pieces + bp.n_walks;
   if (walks)
-    csr_walk_kernel<T, ACCUM>
+    csr_walk_kernel<Ld, ACCUM>
         <<<dim3((walks + kSpanWarps - 1) / kSpanWarps, (w + 31) / 32),
-           kSpanBlock, 0, s>>>(msgs, rowptr, sp, bp, out, w, row0);
+           kSpanBlock, 0, s>>>(ld, rowptr, sp, bp, out, w, row0);
   return 0;
 }
 
@@ -1130,12 +1244,28 @@ int scatter_by_vec(const int* rowptr, const void* msgs, const Split& sp,
                    const Blocks& bp, float* out, int n, int w, int row0,
                    int v, int tl, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
-  const T* m = static_cast<const T*>(msgs);
+  const RowMsgs<T> ld{static_cast<const T*>(msgs), w};
   if (v == kVec)
-    return scatter_dispatch<T, kVec, ACCUM>(rowptr, m, sp, out, n, w, row0,
-                                            tl, s);
+    return scatter_dispatch<RowMsgs<T>, kVec, ACCUM>(rowptr, ld, w, sp, out,
+                                                     n, w, row0, tl, s);
   if (v == 1)
-    return span_dispatch<T, ACCUM>(rowptr, m, sp, bp, out, n, w, row0, s);
+    return span_dispatch<RowMsgs<T>, ACCUM>(rowptr, ld, sp, bp, out, n, w,
+                                            row0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Indexed messages (IndexedMsgs) into rows of w lanes: 4 lanes a load
+// where the table's rows are whole 16-byte lines (v = 4), else the V = 1
+// walks, every row walked (no span to stage).
+int scatter_indexed(const int* rowptr, const IndexedMsgs& ld,
+                    const Split& sp, const Blocks& bp, float* out, int n,
+                    int w, int v, int tl, cudaStream_t s) {
+  if (v == 4)
+    return scatter_dispatch<IndexedMsgs, 4, false>(rowptr, ld, ld.F, sp, out,
+                                                   n, w, 0, tl, s);
+  if (v == 1)
+    return span_dispatch<IndexedMsgs, false>(rowptr, ld, sp, bp, out, n, w,
+                                             0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1291,4 +1421,37 @@ extern "C" int pgsd_csr_scatter(const void* rowptr, const void* msgs,
                                        row0, lanes, lane_threads, s);
   if (err) return err;
   return combine(sp, o, width, row0, accum != 0, s);
+}
+
+// K1 over messages read by index (IndexedMsgs): message j of the CSR's
+// slot order is [s[j] | w[j] * table[index[j]]], `cols` the table's
+// width; out has cols + 1 columns (cols without a scalar) and `partial`
+// n_pieces times as many doubles.  `weight` and `scalar` may be null
+// (weight 1, no scalar lane).  `lanes` (4 where the table's rows are
+// whole 16-byte lines, else 1) and `lane_threads` as for
+// pgsd_csr_scatter, from the table's width.
+extern "C" int pgsd_csr_scatter_indexed(
+    const void* rowptr, const void* table, const void* index,
+    const void* weight, const void* scalar, void* out, int n_rows,
+    int cols, int lanes, int lane_threads,
+    const void* pieces, int n_pieces, const void* rows, const void* ptr,
+    int n_long, int piece_len, void* partial, const void* blocks,
+    int n_blocks, const void* mids, int n_mids, const void* walks,
+    int n_walks, void* stream) {
+  const int width = cols + (scalar ? 1 : 0);
+  if (n_rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Split sp =
+      split_of(pieces, n_pieces, rows, ptr, n_long, piece_len, partial);
+  const Blocks bp =
+      blocks_of(blocks, n_blocks, mids, n_mids, walks, n_walks);
+  const IndexedMsgs ld{static_cast<const float*>(table),
+                       static_cast<const int64_t*>(index),
+                       static_cast<const float*>(weight),
+                       static_cast<const float*>(scalar), cols};
+  float* o = static_cast<float*>(out);
+  const int err = scatter_indexed(static_cast<const int*>(rowptr), ld, sp, bp,
+                                  o, n_rows, width, lanes, lane_threads, s);
+  if (err) return err;
+  return combine(sp, o, width, 0, false, s);
 }

@@ -44,10 +44,13 @@ import torch
 from ...train.profiling import span
 from . import build
 
+# csr_scatter_sum_indexed counts the calls of csr_scatter_sum that read
+# their messages by index; csr_scatter_sum counts them too
 LAUNCHES: Dict[str, int] = {"csr_dual_spmm": 0, "csr_scatter_sum": 0,
                             "csr_dual_spmm_accum": 0,
                             "csr_scatter_accum": 0, "csr_pair_spmm": 0,
-                            "csr_pair_spmm_accum": 0}
+                            "csr_pair_spmm_accum": 0,
+                            "csr_scatter_sum_indexed": 0}
 
 # Longest row that one thread group sums alone; longer rows are cut into
 # pieces of this many edges.  A piece's chain of dependent loads is about
@@ -99,6 +102,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pgsd_csr_pair_spmm.argtypes = [p] * 8 + [i] * 6 + plan + [p]
     lib.pgsd_csr_scatter.restype = i
     lib.pgsd_csr_scatter.argtypes = [p, p, p] + [i] * 7 + plan + [p]
+    lib.pgsd_csr_scatter_indexed.restype = i
+    lib.pgsd_csr_scatter_indexed.argtypes = [p] * 6 + [i] * 4 + plan + [p]
     edges, rows, walk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     lib.pgsd_csr_block_shape(ctypes.byref(edges), ctypes.byref(rows),
                              ctypes.byref(walk))
@@ -600,7 +605,8 @@ def _scatter_launch(name, rowptr, msgs, out, row0, split):
                                              device=dev)
     if not accum:
         out = torch.empty((n, w), dtype=torch.float32, device=dev)
-    with span("kernel." + name, rows=n, nnz=msgs.shape[0], width=w):
+    with span("kernel." + name, rows=n, nnz=msgs.shape[0], width=w,
+              indexed=0):
         plan, _partial = _plan_args(rowptr, split, w, dev, blocks=True)
         err = _on(dev, _library().pgsd_csr_scatter,
                   rowptr.data_ptr(), msgs.data_ptr(), out.data_ptr(), n, w,
@@ -621,10 +627,73 @@ def csr_scatter_sum_plain(rowptr, msgs):
     return _add_rows_(out, rowptr, msgs)
 
 
+def indexed_messages(table, index, weight=None,
+                     scalar=None) -> torch.Tensor:
+    """The messages ``csr_scatter_sum`` reads by index, materialized:
+    ``[s | w[:, None] * table[index]]``; the message tensor the indexed
+    sum never writes."""
+    rows = table[index]
+    if weight is not None:
+        rows = rows * weight[:, None]
+    if scalar is None:
+        return rows
+    return torch.cat([scalar[:, None], rows], 1)
+
+
+def _indexed_launch(rowptr, table, index, weight, scalar, split):
+    dev = _cuda_device("csr_scatter_sum", table)
+    _check("table", table, (torch.float32,), 2, dev)
+    _check("index", index, (torch.int64,), 1, dev)
+    nnz = index.numel()
+    for k, v in (("weight", weight), ("scalar", scalar)):
+        if v is not None:
+            _check(k, v, (torch.float32,), 1, dev)
+            if v.numel() != nnz:
+                raise ValueError(f"{k} needs one entry per message "
+                                 f"({nnz}), got {v.numel()}")
+    n = _check_rowptr(rowptr, nnz, dev)
+    f = table.shape[1]
+    w = f + (scalar is not None)
+    if n == 0 or f == 0:
+        return torch.zeros((n, w), dtype=torch.float32, device=dev)
+    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    with span("kernel.csr_scatter_sum", rows=n, nnz=nnz, width=w,
+              indexed=1):
+        plan, _partial = _plan_args(rowptr, split, w, dev, blocks=True)
+        err = _on(dev, _library().pgsd_csr_scatter_indexed,
+                  rowptr.data_ptr(), table.data_ptr(), index.data_ptr(),
+                  *(0 if v is None else v.data_ptr()
+                    for v in (weight, scalar)),
+                  out.data_ptr(), n, f, *_msg_geometry(table), *plan,
+                  _stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"csr_scatter_sum launch failed: CUDA error "
+                               f"{err}")
+        LAUNCHES["csr_scatter_sum"] += 1
+        LAUNCHES["csr_scatter_sum_indexed"] += 1
+    return out
+
+
 def csr_scatter_sum(rowptr: torch.Tensor, msgs: torch.Tensor,
-                    split: Optional[RowSplit] = None) -> torch.Tensor:
+                    split: Optional[RowSplit] = None, *,
+                    index: Optional[torch.Tensor] = None,
+                    weight: Optional[torch.Tensor] = None,
+                    scalar: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Segment sum of row-ordered messages ``msgs [E, F]`` (float32 or
-    bfloat16) into float32 ``[N, F]``; rows without edges are 0."""
+    bfloat16) into float32 ``[N, F]``; rows without edges are 0.
+
+    Given ``index`` ([E] int64, in the CSR's slot order), ``msgs`` is a
+    float32 table [M, F] and message j is ``[s_j | w_j * msgs[index[j]]]``
+    (``indexed_messages``): ``weight`` w (else 1) and ``scalar`` s (else
+    no scalar lane) are [E] float32 in the same slot order.  The kernel
+    reads each message where it adds it, and its sums equal this sum over
+    the materialized messages at the same geometry bit for bit; the call
+    also counts in ``LAUNCHES["csr_scatter_sum_indexed"]``."""
+    if index is not None:
+        if msgs.device.type == "cpu":
+            return csr_scatter_sum_plain(rowptr, indexed_messages(
+                msgs, index, weight, scalar))
+        return _indexed_launch(rowptr, msgs, index, weight, scalar, split)
     if msgs.device.type == "cpu":
         return csr_scatter_sum_plain(rowptr, msgs)
     return _scatter_launch("csr_scatter_sum", rowptr, msgs, None, 0, split)

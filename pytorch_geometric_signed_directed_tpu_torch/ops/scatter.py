@@ -11,9 +11,10 @@ built, so a call makes no host sync.  The forward is
 version for CPU ones); the backward gathers ``g[row_ids]``.
 
 The reverse, ``gather_rows(table, GatherPlan)``, is a row gather whose
-backward is K1 over the positions sorted by row: no sort and no atomics
-a step, and a row gathered many times (a hub) is cut into pieces like
-any long row.
+backward is K1 over the positions sorted by row, reading the gradient
+rows by index (no reordered copy of them): no sort and no atomics a
+step, and a row gathered many times (a hub) is cut into pieces like any
+long row.
 """
 from __future__ import annotations
 
@@ -107,11 +108,12 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         gp = ctx.gplan
-        return csr_scatter_sum(gp.plan.rowptr, g[gp.order],
-                               gp.plan.split), None
+        return csr_scatter_sum(gp.plan.rowptr, g.contiguous(), gp.plan.split,
+                               index=gp.order), None
 
 
 def gather_rows(table: torch.Tensor, gplan: GatherPlan) -> torch.Tensor:
     """``table[gplan.index]``; differentiable in ``table``: its gradient is
-    the K1 segment sum of the output's gradient rows by index."""
+    the K1 segment sum of the output's gradient rows by index, read in
+    place (``csr_scatter_sum``'s indexed messages, ``index=order``)."""
     return _GatherRows.apply(table, gplan)

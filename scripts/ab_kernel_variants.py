@@ -60,7 +60,8 @@ work a call (a third number).  Cases:
 A build of ``scatter_csr.cu`` from before the dual's wide row blocks (no
 ``pgsd_csr_dual_tile``) is called without their flag, and one from
 before the row blocks (no ``pgsd_csr_block_shape``) also without the
-plan's block arguments,
+plan's block arguments, and one from before K1's indexed messages is
+bound without that entry,
 so the parent commit's source times against today's behind the same
 wrappers (``git show HEAD~1:<path> > build/scatter_csr_parent.cu``, with
 the parent's ``csr_common.cuh`` beside it; at V = 1 it is given the TL
@@ -181,6 +182,23 @@ class UntiledBuild:
         return fn
 
 
+class PreIndexedBuild:
+    """A build of scatter_csr.cu from before K1's indexed messages (no
+    ``pgsd_csr_scatter_indexed``): ``scatter_csr.bind`` sets the entry's
+    types on a stand-in, which raises if called."""
+
+    class _Missing:
+        def __call__(self, *args):
+            raise RuntimeError("this build has no pgsd_csr_scatter_indexed")
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.pgsd_csr_scatter_indexed = self._Missing()
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
 def build_variants(kernel, variants):
     """{name: bound library} of the kernel's source built per variant."""
     source, module = KERNELS[kernel]
@@ -218,6 +236,8 @@ def build_variants(kernel, variants):
             shape = [ctypes.c_int() for _ in range(3)]
             lib.pgsd_csr_block_shape(*map(ctypes.byref, shape))
             SHAPES[name] = tuple(v.value for v in shape)
+            if not hasattr(lib, "pgsd_csr_scatter_indexed"):
+                lib = PreIndexedBuild(lib)
             with planned_as(SHAPES[name]):
                 libs[name] = (module.bind(lib)
                               if hasattr(lib, "pgsd_csr_dual_tile")

@@ -18,6 +18,9 @@ span table.  Then, on the warm cell:
   device operation under the port span around its launch (eager) or its
   capture node (replayed).
 
+The kernel wrappers' launches an epoch (``launches_per_epoch``: the
+cell program's ``counters()`` over the stretch of epochs dispatched one
+at a time).
 From the attribution (per traced epoch): every span's count and device
 milliseconds (operations whose innermost span it is); the share of
 device time under some span; ``apply_roofline`` (the least time of each
@@ -223,6 +226,8 @@ def main(argv=None) -> int:
                prep_s=prep_s, calls_per_epoch=calls,
                attends_per_epoch=(counted["attends"] / k
                                   if "attends" in counted else None),
+               launches_per_epoch={n: v / k for n, v in counted.items()
+                                   if v and n != "attends"},
                applies_per_epoch=len(prog.applies_per_epoch()),
                table_rows=len(table.rows) if table else None,
                table_nodes=table.nodes if table else None,

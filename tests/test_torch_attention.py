@@ -219,6 +219,87 @@ def test_gather_rows_matches_indexing_and_its_gradient(width, hub):
     assert (table.grad[[5, n - 1]] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("caller", ["attend forward", "attend by source",
+                                    "gather backward"])
+def test_indexed_scatter_sum_is_the_composition_it_replaces(caller, dtype):
+    """K1 reading its messages by index (the plain version, on the CPU)
+    is the composition its callers built before, summed: the motif
+    attend's ``[ex | ex T[src]]``, its backward's ``[alpha dout[dst] |
+    dpre][src_perm]`` (now with dpre the first lane) and the gather
+    backward's ``g[order]``, bit for bit, over a hub row cut into pieces
+    and empty rows."""
+    rng = np.random.default_rng(len(caller))
+    n, f, hub = 30, 8, scatter_csr.PIECE_EDGES + 9
+    rows = np.sort(np.concatenate([rng.integers(0, n, 400),
+                                   np.full(hub, 6)]))
+    rows = rows[(rows != 4) & (rows != n - 1)]          # two empty rows
+    plan = build_scatter_plan(rows, n, device="cpu")
+    assert plan.split.rows.numel() == 1
+    e, m = len(rows), 50
+    table = torch.tensor(rng.standard_normal((m, f)), dtype=dtype)
+    index = torch.from_numpy(rng.integers(0, m, e))
+    w = torch.tensor(rng.standard_normal(e), dtype=dtype)
+    s = torch.tensor(rng.standard_normal(e), dtype=dtype)
+    perm = torch.from_numpy(rng.permutation(e))
+    if caller == "attend forward":
+        msgs = torch.cat([w[:, None], table[index] * w[:, None]], 1)
+        got = scatter_csr.csr_scatter_sum(plan.rowptr, table, plan.split,
+                                          index=index, weight=w, scalar=w)
+    elif caller == "attend by source":
+        msgs = torch.cat([w[:, None] * table[index], s[:, None]], 1)[perm]
+        got = scatter_csr.csr_scatter_sum(
+            plan.rowptr, table, plan.split, index=index[perm],
+            weight=w[perm], scalar=s[perm])
+        got = torch.cat([got[:, 1:], got[:, :1]], 1)
+    else:
+        g = torch.tensor(rng.standard_normal((e, f)), dtype=dtype)
+        msgs = g[perm]
+        got = scatter_csr.csr_scatter_sum(plan.rowptr, g, plan.split,
+                                          index=perm)
+    want = scatter_csr.csr_scatter_sum_plain(plan.rowptr, msgs)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (got[[4, n - 1]] == 0).all()
+
+
+def test_gather_rows_backward_is_the_sum_of_the_reordered_rows():
+    """The gather's backward reads the gradient rows by index: the same
+    bits as K1 over ``g[order]``, which it no longer makes."""
+    index, n = gather_case(3, hub=scatter_csr.PIECE_EDGES + 3)
+    gp = build_gather_plan(index, n, device="cpu")
+    rng = np.random.default_rng(4)
+    table = t(rng.standard_normal((n, 6))).requires_grad_(True)
+    g = t(rng.standard_normal((len(index), 6)))
+    (gather_rows(table, gp) * g).sum().backward()
+    want = scatter_csr.csr_scatter_sum_plain(gp.plan.rowptr, g[gp.order])
+    np.testing.assert_array_equal(table.grad.numpy(), want.numpy())
+
+
+def test_gather_rows_gradient_matches_autograd_in_float64():
+    index, n = gather_case(5, hub=40)
+    gp = build_gather_plan(index, n, device="cpu")
+    rng = np.random.default_rng(6)
+    table = torch.tensor(rng.standard_normal((n, 5)), requires_grad=True)
+    g = torch.tensor(rng.standard_normal((len(index), 5)))
+    (gather_rows(table, gp) * g).sum().backward()
+    ref = table.detach().clone().requires_grad_(True)
+    (ref[torch.from_numpy(index)] * g).sum().backward()
+    np.testing.assert_allclose(table.grad.numpy(), ref.grad.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_indexed_scatter_sum_by_hand():
+    """Rows 0 and 2 of three: [s | 1 1] messages."""
+    plan = build_scatter_plan(np.array([0, 0, 2]), 3, device="cpu")
+    table = torch.ones(4, 2)
+    got = scatter_csr.csr_scatter_sum(plan.rowptr, table, plan.split,
+                                      index=torch.tensor([3, 1, 0]),
+                                      scalar=torch.tensor([1., 2., 3.]))
+    np.testing.assert_array_equal(got.numpy(),
+                                  [[3, 2, 2], [0, 0, 0], [3, 1, 1]])
+
+
 def test_gather_rows_of_no_index():
     gp = build_gather_plan(np.zeros(0, np.int64), 6, device="cpu")
     table = torch.ones(6, 4, requires_grad=True)

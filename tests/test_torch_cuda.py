@@ -1660,3 +1660,182 @@ def test_gather_rows_backward_on_the_card(card, width):
                        ).index_add_(0, gp.index, g.double())
     torch.testing.assert_close(grads[0].double(), want, rtol=1e-5,
                                atol=1e-5)
+
+
+def _indexed_case(card, f, seed):
+    """A CSR of 5,000 rows (every odd row empty, the others ~25 edges)
+    with hub rows of 3,000 + 25 and PIECE_EDGES + 1 edges (cut), rows of
+    WALK_EDGES, WALK_EDGES + 1, 200 and PIECE_EDGES edges (the last three
+    walked), a table of 7,000 rows of ``f`` lanes, and per-edge indices,
+    weights and scalars."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops import (
+        build_scatter_plan)
+
+    rng = np.random.default_rng(seed)
+    long_rows = {4802: scatter_csr.WALK_EDGES,
+                 4804: scatter_csr.WALK_EDGES + 1, 4806: 200,
+                 4808: scatter_csr.PIECE_EDGES,
+                 4810: scatter_csr.PIECE_EDGES + 1}
+    rows = np.sort(np.concatenate(
+        [rng.integers(0, 2400, 60000) * 2, np.full(3000, 10)]
+        + [np.full(k, r) for r, k in long_rows.items()]))
+    plan = build_scatter_plan(rows, 5000, device=card)
+    assert plan.split.rows.tolist() == [10, 4810]
+    assert plan.split.walks.tolist() == [4804, 4806, 4808]
+    e, m = len(rows), 7000
+    table = torch.randn(m, f, device=card)
+    index = torch.from_numpy(rng.integers(0, m, e)).to(card)
+    w, s = torch.randn(e, device=card), torch.randn(e, device=card)
+    return plan, table, index, w, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scalar", ["none", "scalar", "scalar, no weight",
+                                    "no weight"])
+@pytest.mark.parametrize("f", [32, 20, 21])
+def test_indexed_scatter_sum_is_k1_over_its_messages_on_card(card, f,
+                                                             scalar):
+    """K1 reading its messages by index against K1 over the materialized
+    messages at the same geometry, bit for bit: at F % 4 == 0 the row
+    lanes against the [E, F] messages w * table[index], the scalar lane
+    against lane 0 of those messages with s in place of lane 0 (the
+    scalar is summed as lane 0 is); at F = 21 (V = 1) against the
+    [E, F + 1] messages themselves; all against the float64 plain
+    version.  Hub rows cut into pieces, walked rows, empty rows; one
+    launch counted in both keys; the same bits twice."""
+    plan, table, index, w, s = _indexed_case(card, f, f)
+    weighted = "no weight" not in scalar
+    kw = dict(index=index, weight=w) if weighted else dict(index=index)
+    if scalar.startswith("scalar"):
+        kw["scalar"] = s
+    before = dict(scatter_csr.LAUNCHES)
+    got = scatter_csr.csr_scatter_sum(plan.rowptr, table, plan.split, **kw)
+    assert scatter_csr.LAUNCHES["csr_scatter_sum"] == \
+        before["csr_scatter_sum"] + 1
+    assert scatter_csr.LAUNCHES["csr_scatter_sum_indexed"] == \
+        before["csr_scatter_sum_indexed"] + 1
+    msgs = scatter_csr.indexed_messages(table, **kw)
+    torch.testing.assert_close(
+        got, scatter_csr.csr_scatter_sum_plain(plan.rowptr, msgs), **F32_TOL)
+    assert torch.all(got[1::2] == 0)
+    assert torch.equal(got, scatter_csr.csr_scatter_sum(
+        plan.rowptr, table, plan.split, **kw))
+    if f % 4:
+        assert scatter_csr._msg_geometry(table)[0] == 1
+        assert torch.equal(got, scatter_csr.csr_scatter_sum(
+            plan.rowptr, msgs, plan.split))
+        return
+    rows_ = table[index] * (w[:, None] if weighted else 1)
+    lanes = scatter_csr.csr_scatter_sum(plan.rowptr, rows_, plan.split)
+    off = 1 if "scalar" in kw else 0
+    assert torch.equal(got[:, off:off + f], lanes)
+    if "scalar" in kw:
+        lane0 = rows_.clone()
+        lane0[:, 0] = s
+        want = scatter_csr.csr_scatter_sum(plan.rowptr, lane0, plan.split)
+        assert torch.equal(got[:, 0], want[:, 0])
+
+
+@pytest.mark.cuda
+def test_indexed_scatter_sum_of_an_unaligned_table_on_card(card):
+    """A table whose rows do not start 16-byte aligned takes the V = 1
+    walks: the bits of K1 over the materialized messages."""
+    plan, table, index, w, s = _indexed_case(card, 33, 5)
+    shifted = torch.randn(table.numel() + 1, device=card)[1:].view(
+        table.shape)
+    kw = dict(index=index, weight=w, scalar=s)
+    got = scatter_csr.csr_scatter_sum(plan.rowptr, shifted, plan.split, **kw)
+    msgs = scatter_csr.indexed_messages(shifted, **kw)
+    assert torch.equal(got, scatter_csr.csr_scatter_sum(plan.rowptr, msgs,
+                                                        plan.split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [32, 20, 7])
+def test_attend_logit_grad_matches_plain_on_card(card, f):
+    """The edge kernel against its plain version (which sums an edge's
+    products in float32, the kernel in float64), edges of a hub of 5,000
+    into one destination among them; the same bits twice."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        attend_grad)
+
+    rng = np.random.default_rng(f)
+    n, e = 4000, 60000
+    row = torch.from_numpy(np.sort(np.concatenate([
+        rng.integers(0, n, e - 5000), np.full(5000, 17)]))).to(card)
+    index = torch.from_numpy(rng.integers(0, n, e)).to(card)
+    T, out, dout = (torch.randn(n, f, device=card) for _ in range(3))
+    alpha = torch.rand(e, device=card)
+    pre = torch.randn(e, device=card)
+    args = (row, index, T, out, dout, alpha, pre, 0.2)
+    before = attend_grad.LAUNCHES["attend_logit_grad"]
+    got = attend_grad.attend_logit_grad(*args)
+    assert attend_grad.LAUNCHES["attend_logit_grad"] == before + 1
+    want = attend_grad.attend_logit_grad_plain(
+        *(a.double() if a.is_floating_point() else a for a in args[:-1]),
+        0.2)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, attend_grad.attend_logit_grad(*args))
+
+
+@pytest.mark.cuda
+def test_motif_attend_on_card_matches_the_composition_it_replaces(card):
+    """``motif_attend`` forward and backward on the card (indexed K1 and
+    the edge kernel) against the composition it replaced, run on the
+    card: the gathered [E, F] messages, their concatenation and reorder,
+    and K1 over them, at a size whose hub destinations and sources are cut
+    into pieces.  The calls: one K1 forward, two backward (both indexed
+    but the W = 1 sum by destination), one edge kernel."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        motif_stack)
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed.snea_conv \
+        import _global_shift
+    from pytorch_geometric_signed_directed_tpu_torch.ops import scatter_sum
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        launch_counts)
+
+    rng = np.random.default_rng(7)
+    n, f, G = 20000, 32, 4
+    lists = []
+    for g in range(G):
+        src = np.concatenate([rng.integers(0, n, 60000), np.full(3000, g),
+                              rng.integers(0, n, 2500)])
+        dst = np.concatenate([rng.integers(0, n, 60000),
+                              rng.integers(0, n, 3000), np.full(2500, 5)])
+        lists.append(np.vstack([src, dst]))
+    ms = motif_stack.build_motif_stack(lists, n, device=card)
+    assert ms.g.plan.split.rows.numel() >= G
+    assert ms.src_plan.split.rows.numel() >= G
+    GN, slope = G * n, 0.2
+    T0, a0, b0 = (torch.randn(GN, f, device=card), torch.randn(GN, device=card),
+                  torch.randn(GN, device=card))
+    gout = torch.randn(GN, f, device=card)
+
+    def composed(T, a_src, a_dst):
+        g = ms.g
+        pre = a_src[g.src] + a_dst[g.dst]
+        logit = torch.where(pre >= 0, pre, slope * pre)
+        ex = torch.exp(logit - _global_shift(logit))
+        msgs = torch.cat([ex[:, None], T[g.src] * ex[:, None]], 1)
+        agg = scatter_sum(g.plan, msgs)
+        S = agg[:, :1].clamp_min(torch.finfo(T.dtype).tiny)
+        return agg[:, 1:] / S
+
+    ins = [v.clone().requires_grad_(True) for v in (T0, a0, b0)]
+    before = launch_counts()
+    out = motif_stack.motif_attend(slope, ms, *ins)
+    (out * gout).sum().backward()
+    counted = {k: v - before[k] for k, v in launch_counts().items()
+               if v != before[k]}
+    assert counted == {"csr_scatter_sum": 3, "csr_scatter_sum_indexed": 2,
+                       "attend_logit_grad": 1}
+    # the composition's backward by autograd: K1's gather backward and the
+    # indexing's own
+    ref = [v.clone().requires_grad_(True) for v in (T0, a0, b0)]
+    want = composed(*ref)
+    (want * gout).sum().backward()
+    torch.testing.assert_close(out, want, **F32_TOL)
+    for a, b, name in zip(ins, ref, ("T", "a_src", "a_dst")):
+        scale = float(b.grad.abs().max())
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                   atol=1e-5 * scale, msg=name)

@@ -303,6 +303,68 @@ def test_motif_attend_backward_matches_autograd():
                                    rtol=1e-5, atol=1e-5, err_msg=name)
 
 
+def attend_case(seed, dtype=torch.float32):
+    es, n = signed_edges(n=20, m=120, seed=seed)
+    lists = motifs.sigat_edge_lists(es, n)[:7]
+    ms = motif_stack.build_motif_stack(lists, n, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    GN, f = len(lists) * n, 4
+
+    def draw(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype)
+
+    return ms, (draw(GN, f), draw(GN), draw(GN)), draw(GN, f)
+
+
+def test_motif_attend_gradients_match_float64_autograd():
+    """Forward and backward (the indexed sums and the edge kernel's plain
+    versions) in float64 against autograd of the plain composition."""
+    ms, ins0, gout = attend_case(21, torch.float64)
+    ins = [v.clone().requires_grad_(True) for v in ins0]
+    out = motif_stack.motif_attend(0.2, ms, *ins)
+    (out * gout).sum().backward()
+    ref = [v.clone().requires_grad_(True) for v in ins0]
+    want = plain_attend(0.2, ms, *ref)
+    (want * gout).sum().backward()
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-12, atol=1e-12)
+    for a, b, name in zip(ins, ref, ("T", "a_src", "a_dst")):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   rtol=1e-10, atol=1e-12, err_msg=name)
+
+
+def test_attend_logit_grad_plain_is_the_backward_composition():
+    """The edge kernel's plain version is the PyTorch composition that
+    the backward ran before it, bit for bit."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        attend_grad)
+
+    ms, (T, a_src, a_dst), dout = attend_case(23)
+    g = ms.g
+    pre = a_src[g.src] + a_dst[g.dst]
+    rng = np.random.default_rng(24)
+    out = t(rng.standard_normal(tuple(T.shape)))
+    alpha = t(rng.random(g.src.numel()))
+    dl = alpha * ((T[g.src] - out[g.dst]) * dout[g.dst]).sum(dim=1)
+    want = dl * torch.where(pre >= 0, 1.0, 0.2)
+    got = attend_grad.attend_logit_grad(g.dst, g.src, T, out, dout, alpha,
+                                        pre, 0.2)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_motif_stack_plans_the_backward_index():
+    """The sum by source reads dout at each source-CSR slot's destination:
+    ``dst_by_src`` is the destination of the forward edge ``src_perm``
+    names, slot for slot."""
+    ms, _, _ = attend_case(25)
+    np.testing.assert_array_equal(ms.dst_by_src.numpy(),
+                                  ms.g.dst[ms.src_perm].numpy())
+    assert ms.dst_by_src.dtype == torch.int64
+    np.testing.assert_array_equal(ms.g.src[ms.src_perm].numpy(),
+                                  ms.src_plan.row_ids.numpy())
+
+
 def test_motif_stack_matches_jax():
     es, n = signed_edges(n=20, m=120, seed=13)
     lists = motifs.sigat_edge_lists(es, n)

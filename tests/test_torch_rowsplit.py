@@ -240,7 +240,7 @@ class BlockShapeBuild:
     def __init__(self, shape, tile=scatter_csr.BLOCK_TILE):
         self.shape, self.tile = shape, tile
         for name in ("pgsd_csr_dual_spmm", "pgsd_csr_pair_spmm",
-                     "pgsd_csr_scatter"):
+                     "pgsd_csr_scatter", "pgsd_csr_scatter_indexed"):
             setattr(self, name, types.SimpleNamespace())
 
     def pgsd_csr_block_shape(self, edges, rows, walk):

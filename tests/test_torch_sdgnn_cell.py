@@ -309,6 +309,46 @@ def test_attends_count_the_gat_aggregates():
         assert snea_conv.ATTENDS == {"mxu": 8, "segment": 0}
 
 
+def test_a_stack_step_counts_its_sums(monkeypatch):
+    """One SDGNN step on the motif stack with planned edges, as the cell
+    runs it: 18 K1 sums (a layer's attend forward, by source and by
+    destination; the backward of the losses' 12 gathers), 16 of them
+    reading their messages by index (all but the W=1 sums by
+    destination), and the edge kernel once a layer.  The CPU runs the
+    plain versions, which count nothing: the calls are counted here."""
+    from pytorch_geometric_signed_directed_tpu_torch.ops import scatter
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        scatter_csr)
+
+    counts = {"csr_scatter_sum": 0, "csr_scatter_sum_indexed": 0,
+              "attend_logit_grad": 0}
+
+    def counted(fn, key):
+        def call(*args, **kw):
+            counts[key] += 1
+            if key == "csr_scatter_sum" and kw.get("index") is not None:
+                counts["csr_scatter_sum_indexed"] += 1
+            return fn(*args, **kw)
+        return call
+
+    for mod in (motif_stack, scatter):
+        monkeypatch.setattr(mod, "csr_scatter_sum", counted(
+            scatter_csr.csr_scatter_sum, "csr_scatter_sum"))
+    monkeypatch.setattr(motif_stack, "attend_logit_grad", counted(
+        motif_stack.attend_logit_grad, "attend_logit_grad"))
+    graph = tiny_graph()
+    n = graph["num_nodes"]
+    es = np.vstack([graph["edge_index"], graph["edge_sign"]]).T
+    pos, neg, emb, graphs, w_pos, w_neg = sdgnn.prepare_sdgnn_inputs(
+        n, es, 8, init_emb=np.zeros((n, 8)), fused=True, device="cpu")
+    model = SDGNN(n, 8, 8, init_emb=emb, fused=True, device="cpu")
+    model.loss(graphs, *(link_sign_loss.plan_edges(e, n, "cpu")
+                         for e in (pos, neg)),
+               torch.as_tensor(w_pos), torch.as_tensor(w_neg)).backward()
+    assert counts == {"csr_scatter_sum": 18, "csr_scatter_sum_indexed": 16,
+                      "attend_logit_grad": 2}
+
+
 def test_scatter_readers():
     fams = trace.load_families(harness.ROOT)
     ops = [("csr_span_kernel", 0.0, 30.0), ("csr_walk_kernel", 30.0, 40.0),
