@@ -507,8 +507,10 @@ def train(model, x, y, lap, steps):
     to 0 just before and read just after.  Returns (losses, launches,
     per-step device ms, host seconds)."""
     import torch
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        complex_epilogue, launch_counts, reset_launch_counts)
+        complex_epilogue, launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
     def loss_fn(m):
@@ -518,8 +520,7 @@ def train(model, x, y, lap, steps):
     state = trainer.init(model)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     torch.cuda.synchronize()
-    reset_launch_counts()
-    complex_epilogue.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     events[0].record()
     losses = []
@@ -2153,12 +2154,14 @@ def run_main(mod, argv):
     read just after, and each training step's launches counted around it:
     (result, seconds, launches, launches by step)."""
     import torch
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
 
     torch.cuda.synchronize()
     with launches_by_step([]) as by_step:
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = mod.main(argv)
         wall = time.perf_counter() - t0
@@ -2342,15 +2345,17 @@ def train_path(name, loss_fn, model, steps, per_step, smi, edges,
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.experiments._common \
         import run_steps
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
     trainer = Trainer(loss_fn, lr=1e-2, device=DEV)
     state = trainer.init(model)
     torch.cuda.synchronize()
     with launches_by_step([]) as by_step:
-        reset_launch_counts()
+        reset_counts()
         run = run_steps(trainer, state, (), steps)
         launches = launch_counts()
     check_counts(name, launches, by_step, per_step, steps)
@@ -3294,8 +3299,10 @@ def indexed_phase(smi):
     from pytorch_geometric_signed_directed_tpu_torch.nn import SDGNN
     from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
         prepare_sdgnn_inputs)
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.utils.signed import (
         link_sign_loss)
 
@@ -3349,7 +3356,7 @@ def indexed_phase(smi):
     weights = [torch.as_tensor(w, dtype=torch.float32, device=DEV)
                for w in (w_pos, w_neg)]
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     for _ in range(INDEXED_STEPS):
         model.zero_grad(set_to_none=True)
         model.loss(ms, *planned, *weights).backward()
@@ -3399,8 +3406,10 @@ def digcl_run(name, model, x, P, batch, steps, smi, per_step, profile):
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.experiments._common \
         import run_steps
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.train import Trainer
 
     def loss_fn(m):
@@ -3411,7 +3420,7 @@ def digcl_run(name, model, x, P, batch, steps, smi, per_step, profile):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with launches_by_step([]) as by_step:
-        reset_launch_counts()
+        reset_counts()
         run = run_steps(trainer, state, (), steps)
         launches = {k: v for k, v in launch_counts().items() if v}
     peak = torch.cuda.max_memory_allocated()
@@ -3715,8 +3724,10 @@ def captured_path(name, splits, epochs, smi):
     replay; traces ``PROFILE_STEPS`` replays of split 0 for the device
     time an epoch and the idle share."""
     import torch
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.train import (
         SplitRun, adam)
 
@@ -3763,7 +3774,7 @@ def captured_path(name, splits, epochs, smi):
         del run
 
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     cap_ms, capture_s, prof = [], [], None
     for s in range(splits):
         run = split_run(s)
@@ -4111,8 +4122,10 @@ def sharded_bsr(smi, cases):
     import torch
     import torch.nn.functional as F
     from pytorch_geometric_signed_directed_tpu_torch import parallel
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.parallel import (
         distributed)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
@@ -4173,7 +4186,7 @@ def sharded_bsr(smi, cases):
             model = make_model(DEV, seed=0)
             opt = torch.optim.Adam(model.parameters(), lr=1e-2)
             torch.cuda.synchronize()
-            reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             loss = loss_fn(model, lap_s)
             loss.backward()
@@ -4278,13 +4291,15 @@ def giant_digrac_run(script, form, smi, cases):
     "highest" precision, from the same initial weights."""
     import torch
     from pytorch_geometric_signed_directed_tpu_torch.ops import spmm
+    from pytorch_geometric_signed_directed_tpu_torch.instrument import (
+        reset_counts)
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
 
     name = f"giant digrac {form}"
     report = {}
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     try:
         rc = script.main(fused=form == "fused", device=DEV, report=report,
                          **GIANT_DIGRAC)

@@ -6,8 +6,12 @@ Hopper card.  Plain tensor code is PyTorch; every Pallas kernel on a
 ported path is a CUDA C++ kernel written by hand for ``sm_90a``
 (``ops/cuda``), built with ``nvcc`` at first use and bound with ctypes.
 
-Layout mirrors the JAX package so a reader can find each counterpart:
+Layout mirrors the JAX package so a reader can find each counterpart.
+Imports point one way, from the bottom of this list up: ``device`` and
+``instrument``, ``native``, ``ops``, ``graph`` and ``spectral``, ``nn`` and
+``utils``, ``parallel``, ``train``, ``experiments``.
 
+  instrument.py  the port's spans and call counters (imports only torch).
   ops/       COO container, segment tier (``index_add_``), tiered SpMM
              (dense / segment / mxu / bsr), the layouts, the CUDA
              kernels (ops/cuda).

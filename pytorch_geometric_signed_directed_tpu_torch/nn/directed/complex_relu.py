@@ -1,7 +1,7 @@
 """Complex ReLU: mask both parts by (real >= 0)."""
 import torch
 
-from ...train.profiling import layer
+from ...instrument import layer
 
 
 @layer("nn.complex_relu")

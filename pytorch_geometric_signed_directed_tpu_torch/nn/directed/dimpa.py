@@ -11,9 +11,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ... import instrument
 from ...device import DeviceLike, resolve_device
 from ...ops.spmm import DualPropagator, dual_spmm_stacked
-from ...train import profiling
 from ..dropout import dropout
 from ..inits import linear, xavier_1414, zeros
 from ..normalize import l2_normalize
@@ -30,7 +30,7 @@ class DIMPA(nn.Module):
         self._w_s = nn.Parameter(torch.ones(hop + 1, 1, device=device))
         self._w_t = nn.Parameter(torch.ones(hop + 1, 1, device=device))
 
-    @profiling.layer("nn.dimpa")
+    @instrument.layer("nn.dimpa")
     def forward(self, x_s, x_t, P_s, P_t=None):
         """``P_s``/``P_t``: the two walk Propagators, or ``P_s`` one fused
         DualPropagator and ``P_t`` None: each hop then applies
@@ -78,12 +78,12 @@ class DIGRAC_node_clustering(nn.Module):
             xavier_1414((2 * hidden, nclass), generator).to(device))
         self.bias = nn.Parameter(zeros((nclass,)).to(device))
 
-    @profiling.layer("nn.digrac_mlp")
+    @instrument.layer("nn.digrac_mlp")
     def _mlp(self, x, first, second, training, generator):
         x = torch.relu(first(x))
         return second(dropout(x, self.dropout, training, generator))
 
-    @profiling.layer("nn.digrac")
+    @instrument.layer("nn.digrac")
     def forward(self, P_s, P_t, features, training: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:
@@ -91,7 +91,7 @@ class DIGRAC_node_clustering(nn.Module):
         x_t = self._mlp(features, self.w_t0, self.w_t1, training, generator)
         return self._head(self.dimpa(x_s, x_t, P_s, P_t))
 
-    @profiling.layer("nn.digrac_head")
+    @instrument.layer("nn.digrac_head")
     def _head(self, z):
         output = z @ self.W_prob + self.bias
         return (l2_normalize(z), torch.log_softmax(output, dim=1),

@@ -9,10 +9,10 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ... import instrument
 from ...device import DeviceLike, resolve_device
 from ...ops.spmm import Propagator
 from ...spectral.magnetic import MagneticTemplate
-from ...train import profiling
 from ..dropout import dropout
 from ..inits import linear
 from .magnet_conv import MagNetConv
@@ -60,7 +60,7 @@ class _MagNetTrunk(nn.Module):
     def _drop(self, x, training, generator):
         return dropout(x, self.dropout, training, generator)
 
-    @profiling.layer("nn.magnet_head")
+    @instrument.layer("nn.magnet_head")
     def _head(self, x, training, generator):
         return torch.log_softmax(
             self.linear(self._drop(x, training, generator)), dim=1)
@@ -83,7 +83,7 @@ class MagNet_node_classification(_MagNetTrunk):
                          trainable_q, layer, dropout, normalization,
                          2 * hidden, device, generator)
 
-    @profiling.layer("nn.magnet_node")
+    @instrument.layer("nn.magnet_node")
     def forward(self, real, imag, lap, training: bool = False,
                 generator: Optional[torch.Generator] = None):
         return self._head(self._trunk(real, imag, lap), training, generator)

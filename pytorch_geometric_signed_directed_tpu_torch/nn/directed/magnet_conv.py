@@ -35,11 +35,12 @@ for the clipped phase: through ``template_dual_apply`` on the kernel
 tier (flat, split, streamed or sharded), through
 ``template_propagators`` on the dense and segment tiers.
 """
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ... import instrument
 from ...device import DeviceLike, resolve_device
 from ...ops.cuda.complex_epilogue import (complex_epilogue,
                                           complex_epilogue_backward)
@@ -51,7 +52,6 @@ from ...spectral.magnetic import (
     template_dual_apply,
     template_propagators,
 )
-from ...train import profiling
 from ..inits import glorot, zeros
 from .complex_relu import complex_relu
 
@@ -89,14 +89,10 @@ def _dual_chebyshev(D: DualPropagator, x: torch.Tensor, K: int,
 
 
 # Calls of the fused layer since the last reset: forwards (training and
-# evaluation) and hand-written backwards.  Not part of
-# ``ops.cuda.launch_counts()``, which counts the sparse kernels.
-FUSED_CALLS: Dict[str, int] = {"forward": 0, "backward": 0}
-
-
-def reset_fused_calls() -> None:
-    for k in FUSED_CALLS:
-        FUSED_CALLS[k] = 0
+# evaluation) and hand-written backwards, in the counter group
+# "magnet_fused".  Not part of ``ops.cuda.launch_counts()``, which counts
+# the sparse kernels.
+FUSED_CALLS = instrument.counter("magnet_fused", ("forward", "backward"))
 
 
 def _terms(D: DualPropagator, x: torch.Tensor, K: int) -> List[torch.Tensor]:
@@ -261,7 +257,7 @@ class MagNetConv(nn.Module):
         else:
             self.register_parameter("bias", None)
 
-    @profiling.layer("nn.magnet_conv")
+    @instrument.layer("nn.magnet_conv")
     def _stacked(self, z: torch.Tensor, lap,
                  activation: bool = False) -> torch.Tensor:
         """The layer, and the complex ReLU with ``activation``, on

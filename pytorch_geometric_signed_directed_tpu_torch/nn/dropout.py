@@ -5,7 +5,7 @@ from typing import Optional
 
 import torch
 
-from ..train.profiling import layer
+from ..instrument import layer
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

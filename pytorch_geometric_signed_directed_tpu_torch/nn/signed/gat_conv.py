@@ -3,18 +3,18 @@
 Counterpart of ``pytorch_geometric_signed_directed_tpu/nn/signed/
 gat_conv.py``: the PyG GATConv inside SiGAT and SDGNN, as gathers and the
 attention aggregate of ``snea_conv`` on an ``AttnGraph`` with a self-loop
-a node built in, or ``parallel.sharded_attention_apply`` on a sharded one.
+a node built in, or ``parallel.sharded_attention_apply`` on a sharded one
+(the graph's ``attend``).
 """
 from typing import Optional
 
 import torch
 from torch import nn
 
+from ... import instrument
 from ...device import DeviceLike, resolve_device
-from ...train import profiling
 from ..inits import glorot, linear, zeros
-from .snea_conv import (AttnGraph, _check_aggregate,
-                        attention_softmax_aggregate, build_attention_graph)
+from .snea_conv import AttnGraph, _check_aggregate, build_attention_graph
 
 
 def gat_graph(edge_index, num_nodes: int,
@@ -62,27 +62,18 @@ class GATConv(nn.Module):
                     else 0, width=1 + self.linear.out_features,
                     motif=-1 if self.motif is None else self.motif)
 
-    @profiling.layer("nn.gat_conv", attrs=_span_attrs)
+    def _edges(self, src, dst, edge_p, h, a_src, a_dst):
+        """The logits leaky_relu(a_src at the source + a_dst at the
+        destination) and the messages h at the sources."""
+        return (leaky_relu(a_src[src] + a_dst[dst], self.negative_slope),
+                h[src])
+
+    @instrument.layer("nn.gat_conv", attrs=_span_attrs)
     def forward(self, x: torch.Tensor, g: AttnGraph) -> torch.Tensor:
         """``g``: an ``AttnGraph`` or a ``parallel.ShardedAttnGraph`` (K1
         a shard, whatever the aggregate)."""
-        from ...parallel.attn_shard import (ShardedAttnGraph,
-                                            sharded_attention_apply)
-
         h = self.linear(x)
         a_src = (h @ self.att_src)[:, 0]
         a_dst = (h @ self.att_dst)[:, 0]
-        if isinstance(g, ShardedAttnGraph):
-            from ...parallel.mesh import shard_input
-
-            hs, a_s, a_d = (shard_input(t, g.mesh) for t in (h, a_src, a_dst))
-
-            def edge_fn(src, dst, ep, valid):
-                return (leaky_relu(a_s[src] + a_d[dst], self.negative_slope),
-                        hs[src])
-
-            return sharded_attention_apply(g, edge_fn) + self.bias
-        logits = leaky_relu(a_src[g.src] + a_dst[g.dst], self.negative_slope)
-        out = attention_softmax_aggregate(g, logits, h[g.src],
-                                          self.aggregate)
-        return out + self.bias
+        return g.attend(self._edges, (h, a_src, a_dst),
+                        self.aggregate) + self.bias

@@ -31,11 +31,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import instrument
 from ...device import DeviceLike, resolve_device
 from ...ops.cuda.attend_grad import attend_logit_grad
 from ...ops.cuda.scatter_csr import csr_scatter_sum
 from ...ops.scatter import ScatterPlan, build_scatter_plan
-from ...train import profiling
 from ..inits import glorot, zeros
 from .gat_conv import leaky_relu
 from .snea_conv import ATTENDS, AttnGraph, _global_shift
@@ -193,7 +193,7 @@ class MotifGATStack(nn.Module):
             glorot((G, f, 1), generator, gain_sq=1.0 / G).to(device))
         self.bias = nn.Parameter(zeros((G, f)).to(device))
 
-    @profiling.layer("nn.motif_gat_stack")
+    @instrument.layer("nn.motif_gat_stack")
     def forward(self, x: torch.Tensor, stack: MotifStackGraph
                 ) -> torch.Tensor:
         """[G, N, out]: each motif's attend of x, + its bias."""

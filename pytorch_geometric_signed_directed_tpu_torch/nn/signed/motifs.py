@@ -20,8 +20,8 @@ from typing import List, Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from ...instrument import span
 from ...ops.coalesce import sorted_unique
-from ...train.profiling import span
 from ...utils.signed.sampling import _member
 
 

@@ -12,9 +12,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import instrument
 from ...device import DeviceLike, resolve_device
 from ...spectral.features import create_spectral_features
-from ...train import profiling
 from ...utils.signed.link_sign_loss import (PlannedEdges,
                                             Sign_Direction_Loss,
                                             Sign_Triangle_Loss,
@@ -76,7 +76,7 @@ class SDRLayer(nn.Module):
         self.linear1 = linear(out_dim, out_dim, True, device, generator,
                               init=kaiming_normal)
 
-    @profiling.layer("nn.sdr_layer")
+    @instrument.layer("nn.sdr_layer")
     def forward(self, x: torch.Tensor, graphs) -> torch.Tensor:
         if self.fused != isinstance(graphs, MotifStackGraph):
             raise TypeError("a fused SDRLayer takes a MotifStackGraph, an "
@@ -117,7 +117,7 @@ class SDGNN(nn.Module):
         self.loss_tri = Sign_Triangle_Loss(out_dim, device=device,
                                            generator=generator)
 
-    @profiling.layer("nn.sdgnn")
+    @instrument.layer("nn.sdgnn")
     def forward(self, graphs) -> torch.Tensor:
         x = self.x
         for layer in self.layers:

@@ -14,9 +14,12 @@ is softmaxed by destination and weights the messages.  Two aggregates:
     (the JAX package's ``"xla"`` backend, which it selects by a module
     global).
 
-Both accept a ``parallel.ShardedAttnGraph`` in place of an ``AttnGraph``:
-each attend then runs ``parallel.sharded_attention_apply`` (K1 a shard,
-whatever the aggregate), and the pair is two attends.
+A layer writes its edge math once, as a function of (source ids,
+destination ids, edge types, the layer's tables) returning the logits and
+the messages, and the graph applies it (``attend``): an ``AttnGraph``
+calls ``attention_softmax_aggregate`` on it, a ``parallel.ShardedAttnGraph``
+puts the tables on its mesh and runs ``parallel.sharded_attention_apply``
+(K1 a shard, whatever the aggregate; the fused pair is two attends there).
 
 Faithful to the reference's message function: the aggregated message is
 alpha * x_i, the *destination* feature selected per edge type, not the
@@ -25,13 +28,14 @@ source feature.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...instrument import counter
 from ...ops.scatter import ScatterPlan, build_scatter_plan, scatter_sum
 from ...ops.segment import segment_softmax, segment_sum
 from ..inits import linear, xavier_normal
@@ -44,14 +48,9 @@ PAIR_FUSION_MAX_LANES = 128
 
 # Softmax-by-destination aggregates since the last reset, by aggregate
 # (a pair counts two, a motif stack one a motif; the sharded attends are
-# not counted).  Not part of ``ops.cuda.launch_counts()``, which counts
-# the kernel calls.
-ATTENDS: Dict[str, int] = {"mxu": 0, "segment": 0}
-
-
-def reset_attends() -> None:
-    for k in ATTENDS:
-        ATTENDS[k] = 0
+# not counted), in the counter group "attends".  Not part of
+# ``ops.cuda.launch_counts()``, which counts the kernel calls.
+ATTENDS = counter("attends", AGGREGATES)
 
 
 @dataclass(frozen=True)
@@ -78,6 +77,14 @@ class AttnGraph:
     @property
     def split(self):
         return self.plan.split
+
+    def attend(self, edge_fn: Callable, tables: tuple,
+               aggregate: str) -> torch.Tensor:
+        """``attention_softmax_aggregate`` of the logits and messages that
+        ``edge_fn(src, dst, edge_p, *tables)`` gives on this graph's
+        edges: [num_nodes, F]."""
+        logits, msgs = edge_fn(self.src, self.dst, self.edge_p, *tables)
+        return attention_softmax_aggregate(self, logits, msgs, aggregate)
 
 
 def build_attention_graph(edge_sets, num_nodes: int,
@@ -180,33 +187,22 @@ def _select(sel, table_b, table_u, index):
     return torch.where(sel, table_u[index], table_b[index])
 
 
+def _snea_edges(src, dst, edge_p, x1, x2, w, b):
+    """SNEA's logits and messages on the edges: the edge type selects x1
+    (balanced) or x2 (unbalanced) at both ends; the logit is tanh of the
+    attention Linear (``w``, ``b``) on [x_j | x_i], the message x_i."""
+    sel = (edge_p == 1)[:, None]
+    h_j = _select(sel, x1, x2, src)
+    h_i = _select(sel, x1, x2, dst)
+    edge_h = torch.cat([h_j, h_i], dim=-1)
+    return torch.tanh(nn.functional.linear(edge_h, w, b))[:, 0], h_i
+
+
 def _attend(x1, x2, g: AttnGraph, alpha: nn.Linear, aggregate: str):
     """One attention propagate of x1 (balanced edges) and x2 (unbalanced
     edges): [N, F].  ``g`` may be a ``parallel.ShardedAttnGraph``."""
-    from ...parallel.attn_shard import (ShardedAttnGraph,
-                                        sharded_attention_apply)
-
-    if isinstance(g, ShardedAttnGraph):
-        from ...parallel.mesh import shard_input
-
-        x1s = shard_input(x1, g.mesh)
-        x2s = x1s if x2 is x1 else shard_input(x2, g.mesh)
-        w = shard_input(alpha.weight, g.mesh)
-        b = None if alpha.bias is None else shard_input(alpha.bias, g.mesh)
-
-        def edge_fn(src, dst, ep, valid):
-            sel = (ep == 1)[:, None]
-            h_j = _select(sel, x1s, x2s, src)
-            h_i = _select(sel, x1s, x2s, dst)
-            edge_h = torch.cat([h_j, h_i], dim=-1)
-            return torch.tanh(nn.functional.linear(edge_h, w, b))[:, 0], h_i
-
-        return sharded_attention_apply(g, edge_fn)
-    sel = (g.edge_p == 1)[:, None]
-    h_j = _select(sel, x1, x2, g.src)
-    h_i = _select(sel, x1, x2, g.dst)
-    logits = torch.tanh(alpha(torch.cat([h_j, h_i], dim=-1)))[:, 0]
-    return attention_softmax_aggregate(g, logits, h_i, aggregate)
+    return g.attend(_snea_edges, (x1, x2, alpha.weight, alpha.bias),
+                    aggregate)
 
 
 def _attend_pair(x1b, x2b, x1u, x2u, g: AttnGraph, alpha_b, alpha_u):

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, built with nvcc at first use."""
 
-from . import attend_grad, bsr_spmm, dual_sddmm, scatter_csr
+from ...instrument import counts
+# in this order, the order of launch_counts()'s keys
+from . import scatter_csr, bsr_spmm, dual_sddmm, attend_grad
 from .bsr_spmm import bsr_matmul, bsr_matmul_plain
 from .dual_sddmm import (
     csr_dual_sddmm,
@@ -26,17 +28,10 @@ from .scatter_csr import (
 
 def launch_counts() -> dict:
     """Launches of every sparse kernel wrapper and of the attention's edge
-    kernel (``attend_grad``) since the last reset, by name.  MagNetConv's
-    epilogue counts its own (``complex_epilogue.LAUNCHES``)."""
-    return {**scatter_csr.LAUNCHES, **bsr_spmm.LAUNCHES,
-            **dual_sddmm.LAUNCHES, **attend_grad.LAUNCHES}
-
-
-def reset_launch_counts() -> None:
-    scatter_csr.reset_launch_counts()
-    bsr_spmm.reset_launch_counts()
-    dual_sddmm.reset_launch_counts()
-    attend_grad.reset_launch_counts()
+    kernel (``attend_grad``) since the last ``instrument.reset_counts()``,
+    by name: the counter group ``"kernels"``.  MagNetConv's epilogue counts
+    its own (``complex_epilogue.LAUNCHES``)."""
+    return counts("kernels")
 
 
 __all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_sddmm",
@@ -47,4 +42,4 @@ __all__ = ["bsr_matmul", "bsr_matmul_plain", "csr_dual_sddmm",
            "csr_pair_spmm_accum_plain", "csr_pair_spmm_plain",
            "csr_scatter_accum",
            "csr_scatter_accum_plain", "csr_scatter_sum",
-           "csr_scatter_sum_plain", "launch_counts", "reset_launch_counts"]
+           "csr_scatter_sum_plain", "launch_counts"]

@@ -21,23 +21,17 @@ launches (in ``ops.cuda.launch_counts()``); each is the span
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
-from ...train.profiling import span
+from ...instrument import counter, span
 from . import build
 from .scatter_csr import _check, _cuda_device, _on, _stream_ptr
 
-LAUNCHES: Dict[str, int] = {"attend_logit_grad": 0}
+LAUNCHES = counter("kernels", ("attend_logit_grad",))
 
 _SOURCE = "attend_grad.cu"
 _lib = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _library():

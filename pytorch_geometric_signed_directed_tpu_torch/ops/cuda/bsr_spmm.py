@@ -29,7 +29,7 @@ lanes.
 CPU; for CUDA tensors it launches the kernel or raises.  ``LAUNCHES``
 counts calls that launched (one per call; each call makes two device
 launches); each such call is also the span ``pgsd.kernel.bsr_spmm``
-(``train.profiling``).
+(``instrument``).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ...train.profiling import span
+from ...instrument import counter, span
 from . import build
 from .scatter_csr import (RowSplit, _check, _check_split, _row_ids,
                           _stream_ptr, plan_row_split)
@@ -51,15 +51,10 @@ CTAS_PER_SM = 2
 # The H100's SM count, for plans made away from a card.
 H100_SMS = 132
 
-LAUNCHES: Dict[str, int] = {"bsr_spmm": 0}
+LAUNCHES = counter("kernels", ("bsr_spmm",))
 
 _SOURCE = "bsr_spmm.cu"
 _lib = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -19,10 +19,10 @@ atomics and rounded once.  What bounds both is bytes: 17F bytes a row
 Each entry has its plain PyTorch version beside it.  A wrapper takes the
 plain version only for tensors on the CPU and for float64 ones (a model
 run in float64 as a reference; the kernel is float32); for other CUDA
-tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that launched; each such
-call is also the span ``pgsd.kernel.<entry>`` (``train.profiling``).
-These counts are not part of ``ops.cuda.launch_counts()``, which counts
-the sparse kernels.
+tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls
+that launched, in the counter group ``"complex_epilogue"`` of their own
+(not in ``ops.cuda.launch_counts()``, which counts the sparse kernels);
+each such call is also the span ``pgsd.kernel.<entry>`` (``instrument``).
 """
 from __future__ import annotations
 
@@ -31,12 +31,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ...train.profiling import span
+from ...instrument import counter, span
 from . import build
 from .scatter_csr import _check, _on, _stream_ptr
 
-LAUNCHES: Dict[str, int] = {"complex_epilogue": 0,
-                            "complex_epilogue_backward": 0}
+LAUNCHES = counter("complex_epilogue", ("complex_epilogue",
+                                        "complex_epilogue_backward"))
 
 THREADS = 256
 # Row CTAs an SM: 8 of 256 threads fill its 2,048 thread slots.
@@ -45,11 +45,6 @@ CTAS_PER_SM = 8
 _SOURCE = "complex_epilogue.cu"
 _lib = None
 _sms: Dict[int, int] = {}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -25,29 +25,24 @@ Each entry has its plain PyTorch version beside it, summing in float64.  A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that
 launched; each such call is also the span ``pgsd.kernel.<entry>``
-(``train.profiling``).
+(``instrument``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ...train.profiling import span
+from ...instrument import counter, span
 from . import build
 from .scatter_csr import (RowSplit, _check, _check_rowptr, _plan_args,
                           _row_ids, _stream_ptr)
 
-LAUNCHES: Dict[str, int] = {"csr_dual_sddmm": 0, "csr_dual_sddmm_accum": 0}
+LAUNCHES = counter("kernels", ("csr_dual_sddmm", "csr_dual_sddmm_accum"))
 
 _SOURCE = "dual_sddmm.cu"
 _lib = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -31,7 +31,7 @@ plain version only for tensors on the CPU (which need no plan); for CUDA
 tensors it launches the kernel or raises.  ``LAUNCHES`` counts calls that
 launched, one per call, whether the call made one device launch or two
 (the second when a row is cut); each such call is also the span
-``pgsd.kernel.<wrapper>`` (``train.profiling``).
+``pgsd.kernel.<wrapper>`` (``instrument``).
 """
 from __future__ import annotations
 
@@ -41,16 +41,15 @@ from typing import Dict, Optional
 
 import torch
 
-from ...train.profiling import span
+from ...instrument import counter, span
 from . import build
 
 # csr_scatter_sum_indexed counts the calls of csr_scatter_sum that read
 # their messages by index; csr_scatter_sum counts them too
-LAUNCHES: Dict[str, int] = {"csr_dual_spmm": 0, "csr_scatter_sum": 0,
-                            "csr_dual_spmm_accum": 0,
-                            "csr_scatter_accum": 0, "csr_pair_spmm": 0,
-                            "csr_pair_spmm_accum": 0,
-                            "csr_scatter_sum_indexed": 0}
+LAUNCHES = counter("kernels", (
+    "csr_dual_spmm", "csr_scatter_sum", "csr_dual_spmm_accum",
+    "csr_scatter_accum", "csr_pair_spmm", "csr_pair_spmm_accum",
+    "csr_scatter_sum_indexed"))
 
 # Longest row that one thread group sums alone; longer rows are cut into
 # pieces of this many edges.  A piece's chain of dependent loads is about
@@ -84,11 +83,6 @@ WIDE_BLOCK_L2 = 2
 
 _SOURCE = "scatter_csr.cu"
 _lib = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..train.profiling import span
+from ..instrument import span
 from .cuda.scatter_csr import RowSplit, plan_row_split
 
 # The column split: operators with more than COL_SPLIT_MIN_COLS columns

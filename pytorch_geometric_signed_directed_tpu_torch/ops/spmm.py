@@ -19,7 +19,9 @@ mode strings are the JAX package's, so both take the same arguments:
 
 Operators sharded by parallel/ (``shard_propagator``, ``shard_dual``)
 carry their shards in ``sharded``: the kernel tier becomes
-``mxu_sharded``, the dense, segment and bsr tiers keep their modes.
+``mxu_sharded``, the dense, segment and bsr tiers keep their modes.  The
+shards apply themselves (``sharded.apply``, ``sharded.forward_stacked``),
+so this module imports nothing of parallel/.
 
 Every tier is differentiable; on ``mxu`` the backward is the forward of
 the transposed operator, built at preparation time.
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..train.profiling import NO_SPAN, span, tracing
+from ..instrument import NO_SPAN, span, tracing
 from .bsr import BSR, bsr_from_coo, bsr_spmm
 from .coo import COO, build_coo, check_indices
 from .cuda.scatter_csr import _row_ids, csr_dual_spmm, csr_dual_spmm_accum
@@ -43,6 +45,17 @@ from .segment import segment_sum
 
 # Graphs at or below this many nodes use the dense tier by default.
 _DENSE_AUTO_MAX_NODES = 8192
+
+
+def resolve_mode(mode: str, num_rows: int, num_cols: int) -> str:
+    """``mode``, with ``"auto"`` resolved for an operator of ``num_rows``
+    rows and ``num_cols`` columns: ``dense`` where neither exceeds 8192,
+    else ``mxu``."""
+    if mode != "auto":
+        return mode
+    return ("dense" if max(num_rows, num_cols) <= _DENSE_AUTO_MAX_NODES
+            else "mxu")
+
 
 _MATMUL_PRECISION = "highest"
 
@@ -238,10 +251,6 @@ class Propagator:
         return self.coo.num_nodes
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mode == "mxu_sharded":
-            from ..parallel.mxu_shard import sharded_mxu_spmm
-
-            return sharded_mxu_spmm(self.sharded, x)
         if self.sharded is not None:
             return self.sharded.apply(x)
         if self.mode == "dense":
@@ -285,9 +294,7 @@ def propagator_from_coo(A: COO, mode: str = "auto",
     the memory it holds between calls; each call widens it to float32 for
     the product), for training that does not need float32 parity."""
     _check_mode(mode)
-    if mode == "auto":
-        mode = ("dense" if max(A.num_nodes, A.num_cols)
-                <= _DENSE_AUTO_MAX_NODES else "mxu")
+    mode = resolve_mode(mode, A.num_nodes, A.num_cols)
     if mode == "dense":
         dense = A.to_dense()
         if dense_dtype is not None:
@@ -359,9 +366,7 @@ def dual_propagator(row, col, val_a, val_b, num_nodes: Optional[int] = None,
     num_nodes = int(num_nodes if num_nodes is not None
                     else (row.max() + 1 if row.size else 0))
     num_cols = int(num_cols) if num_cols is not None else num_nodes
-    if mode == "auto":
-        mode = ("dense" if max(num_nodes, num_cols) <= _DENSE_AUTO_MAX_NODES
-                else "mxu")
+    mode = resolve_mode(mode, num_nodes, num_cols)
     if mode in ("dense", "bsr"):
         return None
     check_indices(row, col, num_nodes, num_cols)
@@ -430,9 +435,7 @@ def _dual_forward_stacked(D: DualPropagator, x: torch.Tensor) -> torch.Tensor:
             f"{x.shape[1]}")
     fa = x.shape[1] // 2
     if D.sharded is not None:
-        from ..parallel.sharded import sharded_dual_forward
-
-        return sharded_dual_forward(D.sharded, x)
+        return D.sharded.forward_stacked(x)
     if D.mode == "mxu":
         return _layout_apply(D, D.val_a, D.val_b, D.num_nodes, x, fa)
     lane = torch.arange(2 * fa, device=x.device) < fa

@@ -11,7 +11,8 @@ one shard, so the softmax needs no communication:
     their destination, and each shard gets a destination CSR over its
     local rows (``ops.scatter.ScatterPlan``, plan of cut rows included),
     built once;
-  * ``sharded_attention_apply`` runs the model's ``edge_fn`` on each
+  * ``sharded_attention_apply`` (a ``ShardedAttnGraph``'s ``attend``, as
+    the layers call it) runs the model's ``edge_fn`` on each
     shard's edges, shifts by the shard's own largest logit, and sums the
     stacked ``[exp | msgs * exp]`` into the shard's rows with K1
     ``csr_scatter_sum`` (through ``scatter_sum``, whose backward is a
@@ -21,9 +22,9 @@ The TPU's window, chunk, dummy-chunk and ``visited`` geometry has no
 counterpart: each shard is a plain CSR without padding, so ``valid`` is
 all True and an edgeless shard's rows come out 0.  The tables and
 parameters that ``edge_fn`` reads are replicated: on a mesh that spans
-processes the caller passes them through ``parallel.shard_input``, which
-sums their gradients over the processes (JAX's ``shard_map`` transposes
-its captured operands so).
+processes they pass through ``parallel.shard_input`` (``attend`` does
+that), which sums their gradients over the processes (JAX's
+``shard_map`` transposes its captured operands so).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.scatter import ScatterPlan, build_scatter_plan, scatter_sum
-from .mesh import Mesh, all_gather
+from .mesh import Mesh, all_gather, shard_input
 
 
 @dataclass(frozen=True)
@@ -58,6 +59,20 @@ class ShardedAttnGraph:
     num_nodes: int
     rows_per_device: int
     mesh: Mesh
+
+    def attend(self, edge_fn: Callable, tables: tuple,
+               aggregate: str) -> torch.Tensor:
+        """``sharded_attention_apply`` of ``edge_fn(src, dst, edge_p,
+        *tables)``, the tables put on the mesh (``shard_input``, once a
+        tensor; None stays None).  ``aggregate`` is not read: every shard
+        sums with K1."""
+        placed = {}
+        for t in tables:
+            if t is not None and id(t) not in placed:
+                placed[id(t)] = shard_input(t, self.mesh)
+        ts = tuple(None if t is None else placed[id(t)] for t in tables)
+        return sharded_attention_apply(
+            self, lambda src, dst, ep, valid: edge_fn(src, dst, ep, *ts))
 
 
 def shard_attention_graph(g, mesh: Mesh,

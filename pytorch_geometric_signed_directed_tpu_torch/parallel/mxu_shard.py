@@ -35,7 +35,7 @@ from ..ops.cuda.scatter_csr import _row_ids
 from ..ops.layout import CsrLayout, build_layout
 from ..ops.sddmm import dual_scatter_sddmm
 from ..ops.spmm import _kernel_dtype, _layout_apply
-from ..spectral.magnetic import _template_terms
+from ..spectral.magnetic import MagneticTemplate, _template_terms
 from .mesh import Mesh, all_gather, psum
 
 
@@ -71,6 +71,39 @@ class ShardedMXU:
         """Each local shard's hot table (None where the shard is
         unsplit)."""
         return tuple(s.layout.hot_ids for s in self.shards)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``A @ x`` (or the lane-stacked pair ``[A x_a | B x_b]``) for the
+        replicated ``x`` [num_cols, F]; returns [num_rows, F] on the
+        controller.  No autograd: ``apply`` and ``dual_spmm_stacked`` run
+        it inside their Functions."""
+        fa = x.shape[1] if self.shards[0].val_b is None else x.shape[1] // 2
+        outs = []
+        for sh, dev in zip(self.shards, self.mesh.local_devices):
+            vb = sh.val if sh.val_b is None else sh.val_b
+            outs.append(_layout_apply(sh.layout, sh.val, vb,
+                                      self.rows_per_device, x.to(dev), fa))
+        return all_gather(outs, self.mesh)[:self.num_rows]
+
+    # a fused pair's lane-stacked forward (``ops.spmm.dual_spmm_stacked``)
+    forward_stacked = forward
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """``A @ x`` across the mesh, differentiable through the
+        transposed partition."""
+        if self.transposed is None:
+            raise ValueError("build_sharded_mxu(with_transpose=False) is "
+                             "not differentiable")
+        return _ShardedSpmm.apply(x, self)
+
+    def template_dual_apply(self, q: torch.Tensor,
+                            x: torch.Tensor) -> torch.Tensor:
+        """``[L_re x_a | L_im x_b]`` for phase ``q`` across the mesh, of a
+        template sharded by ``build_sharded_template``; differentiable in
+        q and x."""
+        if self.transposed is None:
+            raise ValueError("sharded template built without a transpose")
+        return _ShardedTemplateApply.apply(x, q, self)
 
 
 def build_sharded_mxu(row, col, val, num_rows: int, num_cols: int,
@@ -108,37 +141,21 @@ def build_sharded_mxu(row, col, val, num_rows: int, num_cols: int,
                       transposed=t)
 
 
-def sharded_forward(S: ShardedMXU, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` (or the lane-stacked pair ``[A x_a | B x_b]``) for the
-    replicated ``x`` [num_cols, F]; returns [num_rows, F] on the
-    controller."""
-    fa = x.shape[1] if S.shards[0].val_b is None else x.shape[1] // 2
-    outs = []
-    for sh, dev in zip(S.shards, S.mesh.local_devices):
-        vb = sh.val if sh.val_b is None else sh.val_b
-        outs.append(_layout_apply(sh.layout, sh.val, vb, S.rows_per_device,
-                                  x.to(dev), fa))
-    return all_gather(outs, S.mesh)[:S.num_rows]
-
-
 class _ShardedSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, S):
         ctx.S = S
-        return sharded_forward(S, x)
+        return S.forward(x)
 
     @staticmethod
     def backward(ctx, g):
-        return sharded_forward(ctx.S.transposed, g.contiguous()), None
+        return ctx.S.transposed.forward(g.contiguous()), None
 
 
 def sharded_mxu_spmm(S: ShardedMXU, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` across the mesh, differentiable through the transposed
-    partition."""
-    if S.transposed is None:
-        raise ValueError("build_sharded_mxu(with_transpose=False) is not "
-                         "differentiable")
-    return _ShardedSpmm.apply(x, S)
+    partition (``S.apply``)."""
+    return S.apply(x)
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +209,6 @@ def build_sharded_template(tmpl, mesh: Mesh, axis: str = "graph"):
     MagneticTemplate of mode "mxu_sharded" whose ``sharded`` carries
     (a_norm, theta) in its (val, val_b) slots, every shard unsplit.  Apply
     it with spectral.template_dual_apply."""
-    from ..spectral.magnetic import MagneticTemplate
-
     rows, valid = _planned_valid_edges(tmpl)
     col = _unsplit_cols(tmpl, valid)
     a = tmpl.a_norm.cpu().numpy()[valid]
@@ -252,7 +267,5 @@ class _ShardedTemplateApply(torch.autograd.Function):
 def sharded_template_dual_apply(S: ShardedMXU, q: torch.Tensor,
                                 x: torch.Tensor) -> torch.Tensor:
     """``[L_re x_a | L_im x_b]`` for phase ``q`` across the mesh,
-    differentiable in q and x."""
-    if S.transposed is None:
-        raise ValueError("sharded template built without a transpose")
-    return _ShardedTemplateApply.apply(x, q, S)
+    differentiable in q and x (``S.template_dual_apply``)."""
+    return S.template_dual_apply(q, x)

@@ -38,6 +38,7 @@ from ..ops.bsr import BSR
 from ..ops.cuda.bsr_spmm import BLOCK, bsr_matmul, plan_block_split, sm_count
 from ..ops.segment import segment_sum
 from ..ops.spmm import DualPropagator, Propagator, _dense_apply
+from ..spectral.magnetic import MagneticPair, MagneticTemplate, _edge_values
 from .mesh import Mesh, all_gather, shard_input
 from .mxu_shard import (
     _coo_from_dual,
@@ -85,6 +86,21 @@ class ShardedDense:
         outs = [_dense_apply(b, xs.to(dev))
                 for b, dev in zip(self.blocks, self.mesh.local_devices)]
         return all_gather(outs, self.mesh)[:self.num_rows]
+
+    def template_propagators(self, q) -> Tuple[Propagator, Propagator]:
+        """(L_hat_re, L_hat_im) for phase ``q`` of a sharded dense
+        template: each block's values from its own (a_norm, theta),
+        carrying q's gradient (summed over the processes of a process
+        mesh)."""
+        qs = shard_input(q, self.mesh)
+        vals = [_edge_values(a, th, qs.to(a.device))
+                for a, th in zip(self.blocks, self.blocks_b)]
+        return tuple(
+            Propagator(coo=None, dense=None, mode="dense",
+                       sharded=dataclasses.replace(
+                           self, blocks=tuple(v[i] for v in vals),
+                           blocks_b=None))
+            for i in (0, 1))
 
 
 def _dense_blocks(dense: torch.Tensor, mesh: Mesh, rp: int):
@@ -157,6 +173,21 @@ class ShardedSegment:
                                             sh.val_b[:, None])
             outs.append(segment_sum(msgs, sh.row, self.rows_per_device))
         return all_gather(outs, self.mesh)[:self.num_rows]
+
+    def template_propagators(self, q) -> Tuple[Propagator, Propagator]:
+        """(L_hat_re, L_hat_im) for phase ``q`` of a sharded segment
+        template: each shard's values from its own (a_norm, theta),
+        carrying q's gradient (summed over the processes of a process
+        mesh)."""
+        qs = shard_input(q, self.mesh)
+        vals = [_edge_values(sh.val, sh.val_b, qs.to(sh.val.device))
+                for sh in self.shards]
+        return tuple(
+            Propagator(coo=None, dense=None, mode="segment",
+                       sharded=dataclasses.replace(self, shards=tuple(
+                           SegmentShard(row=sh.row, col=sh.col, val=v[i])
+                           for sh, v in zip(self.shards, vals))))
+            for i in (0, 1))
 
 
 def shard_segment(row, col, val, num_rows: int, num_cols: int, mesh: Mesh,
@@ -262,16 +293,6 @@ def shard_bsr(A: BSR, mesh: Mesh, axis: str = "graph") -> ShardedBSR:
 # the entry points
 
 
-def sharded_dual_forward(S, x: torch.Tensor) -> torch.Tensor:
-    """The lane-stacked pair forward of a sharded DualPropagator (mxu or
-    segment), inside ``dual_spmm_stacked``'s autograd Function."""
-    if isinstance(S, ShardedSegment):
-        return S.forward_stacked(x)
-    from .mxu_shard import sharded_forward
-
-    return sharded_forward(S, x)
-
-
 def shard_propagator(prop: Propagator, mesh: Mesh,
                      axis: str = "graph") -> Propagator:
     """Shard a Propagator's operator across ``axis`` of ``mesh``."""
@@ -336,8 +357,6 @@ def shard_dual(dual, mesh: Mesh, axis: str = "graph"):
 def shard_magnet_laplacian(lap, mesh: Mesh, axis: str = "graph"):
     """Shard a MagneticPair, a (P_re, P_im) pair or a MagneticTemplate
     (dense, segment or mxu)."""
-    from ..spectral.magnetic import MagneticPair, MagneticTemplate
-
     if isinstance(lap, MagneticPair):
         return MagneticPair(re=shard_propagator(lap.re, mesh, axis),
                             im=shard_propagator(lap.im, mesh, axis),
@@ -361,29 +380,3 @@ def shard_magnet_laplacian(lap, mesh: Mesh, axis: str = "graph"):
     return (shard_propagator(P_re, mesh, axis),
             shard_propagator(P_im, mesh, axis))
 
-
-def sharded_template_propagators(tmpl, q) -> Tuple[Propagator, Propagator]:
-    """(L_hat_re, L_hat_im) for phase ``q`` of a sharded dense or segment
-    template: each shard's values from its own (a_norm, theta), carrying
-    q's gradient (summed over the processes of a process mesh)."""
-    from ..spectral.magnetic import _edge_values
-
-    S = tmpl.sharded
-    qs = shard_input(q, S.mesh)
-    if isinstance(S, ShardedDense):
-        vals = [_edge_values(a, th, qs.to(a.device))
-                for a, th in zip(S.blocks, S.blocks_b)]
-        return tuple(
-            Propagator(coo=None, dense=None, mode="dense",
-                       sharded=dataclasses.replace(
-                           S, blocks=tuple(v[i] for v in vals),
-                           blocks_b=None))
-            for i in (0, 1))
-    vals = [_edge_values(sh.val, sh.val_b, qs.to(sh.val.device))
-            for sh in S.shards]
-    return tuple(
-        Propagator(coo=None, dense=None, mode="segment",
-                   sharded=dataclasses.replace(S, shards=tuple(
-                       SegmentShard(row=sh.row, col=sh.col, val=v[i])
-                       for sh, v in zip(S.shards, vals))))
-        for i in (0, 1))

@@ -25,8 +25,8 @@ import scipy.sparse.linalg  # noqa: F401  (binds sp.linalg)
 import torch
 
 from ..device import DeviceLike
+from ..instrument import span
 from ..ops.coalesce import sorted_unique
-from ..train.profiling import span
 
 
 def standard_scale(X: np.ndarray) -> np.ndarray:

@@ -27,7 +27,6 @@ from ..ops.cuda.scatter_csr import (RowSplit, csr_pair_spmm,
                                      csr_pair_spmm_accum)
 from ..ops.layout import CsrBlock, build_layout
 from ..ops.spmm import (
-    _DENSE_AUTO_MAX_NODES,
     DualPropagator,
     Propagator,
     _kernel_dtype,
@@ -36,6 +35,7 @@ from ..ops.spmm import (
     dual_propagator,
     propagator_from_coo,
     propagators_from_dual,
+    resolve_mode,
 )
 
 
@@ -409,8 +409,7 @@ def magnetic_template(
     deg_inv_sqrt[nz] = deg[nz] ** -0.5
     a_norm = deg_inv_sqrt[row] * sym * deg_inv_sqrt[col]
 
-    if mode == "auto":
-        mode = "dense" if num_nodes <= _DENSE_AUTO_MAX_NODES else "mxu"
+    mode = resolve_mode(mode, num_nodes, num_nodes)
     if mode == "dense":
         A = np.zeros((num_nodes, num_nodes), np.float32)
         T = np.zeros((num_nodes, num_nodes), np.float32)
@@ -451,9 +450,7 @@ def template_propagators(tmpl: MagneticTemplate,
     """(L_hat_re, L_hat_im) for phase ``q`` on a dense or segment template
     (sharded or not); the values carry q's gradient through autograd."""
     if tmpl.sharded is not None and tmpl.mode in ("dense", "segment"):
-        from ..parallel.sharded import sharded_template_propagators
-
-        return sharded_template_propagators(tmpl, q)
+        return tmpl.sharded.template_propagators(q)
     re_vals, im_vals = _template_values(tmpl, q)
     if tmpl.mode == "dense":
         return (Propagator(coo=None, dense=re_vals, mode="dense"),
@@ -572,9 +569,7 @@ def template_dual_apply(tmpl: MagneticTemplate, q,
     ``mxu_sharded`` one, differentiable in q and x."""
     q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
     if tmpl.mode == "mxu_sharded":
-        from ..parallel.mxu_shard import sharded_template_dual_apply
-
-        return sharded_template_dual_apply(tmpl.sharded, q, x)
+        return tmpl.sharded.template_dual_apply(q, x)
     if tmpl.mode != "mxu" or tmpl.transposed is None:
         raise ValueError("template_dual_apply needs an mxu template with "
                          "its transpose")

@@ -10,7 +10,7 @@ from typing import Callable, Iterable
 
 import torch
 
-from .profiling import span
+from ..instrument import span
 
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]],
                             torch.optim.Optimizer]

@@ -16,9 +16,9 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops import cuda
+from ..instrument import capture_table, layer
+from ..ops.cuda import launch_counts
 from .optim import OptimizerFactory
-from .profiling import capture_table, layer
 
 
 @layer("loss.masked_nll")
@@ -36,7 +36,7 @@ def _masked_acc(pred, y, mask):
 
 
 def _count_delta(before: Dict[str, int]) -> Dict[str, int]:
-    return {k: v - before.get(k, 0) for k, v in cuda.launch_counts().items()
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()
             if v != before.get(k, 0)}
 
 
@@ -63,8 +63,8 @@ class SplitRun:
     and its memory pool (which holds the kernels' scratch) live as long as
     this object.
 
-    With the port's spans on (``profiling.set_tracing``), ``capture()``
-    also keeps ``span_table``, the capture's ``profiling.SpanTable``,
+    With the port's spans on (``instrument.set_tracing``), ``capture()``
+    also keeps ``span_table``, the capture's ``instrument.SpanTable``,
     which maps a replay's device operations onto the spans recorded while
     it was captured; else it is None."""
 
@@ -115,7 +115,7 @@ class SplitRun:
         dev = self.y.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        before = cuda.launch_counts()
+        before = launch_counts()
         with torch.cuda.stream(side):
             self.epoch()
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -124,7 +124,7 @@ class SplitRun:
         if self.generator is not None:
             # each replay then advances the dropout generator's offset
             graph.register_generator_state(self.generator)
-        before = cuda.launch_counts()
+        before = launch_counts()
         t0 = perf_counter()
         try:
             with torch.cuda.graph(graph):
@@ -144,7 +144,7 @@ class SplitRun:
         """All ``epochs`` epochs: captured and replayed, or eagerly (the
         plain version, and the reference a captured run is held to)."""
         if not captured:
-            before = cuda.launch_counts()
+            before = launch_counts()
             for _ in range(self.epochs):
                 self.epoch()
             self.launches = _count_delta(before)

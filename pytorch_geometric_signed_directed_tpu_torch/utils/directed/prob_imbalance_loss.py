@@ -10,8 +10,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ...instrument import layer
 from ...ops.spmm import DualPropagator, dual_spmm_stacked
-from ...train.profiling import layer
 
 
 class Prob_Imbalance_Loss:

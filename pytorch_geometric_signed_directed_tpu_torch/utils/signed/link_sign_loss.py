@@ -16,9 +16,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import DeviceLike, resolve_device
+from ...instrument import layer
 from ...nn.inits import linear
 from ...ops.scatter import GatherPlan, build_gather_plan, gather_rows
-from ...train.profiling import layer
 
 
 @dataclass(frozen=True)

@@ -5,7 +5,7 @@ layers, and what the spans cost when on.
 
 Builds the cell as ``port_bench/harness.py`` does (the same inputs,
 weights, driver and warm-up from ``--seed``), with the port's spans
-(``train.profiling``) on from the start, so the set-up's ``pgsd.prep.*``
+(``instrument``) on from the start, so the set-up's ``pgsd.prep.*``
 and ``pgsd.train.*`` spans are recorded and MagNet's capture keeps its
 span table.  Then, on the warm cell:
 
@@ -60,6 +60,8 @@ import torch  # noqa: E402
 
 from port_bench import cost, harness, trace  # noqa: E402
 from port_bench.reference import common as ref_common  # noqa: E402
+from pytorch_geometric_signed_directed_tpu_torch import (  # noqa: E402
+    instrument)
 from pytorch_geometric_signed_directed_tpu_torch.train import (  # noqa: E402
     profiling)
 
@@ -125,14 +127,14 @@ def top_ops(att: profiling.Attribution, epochs: int, limit: int = 40):
 def _traced(prog, stamps, k, families, spans_on):
     from torch.profiler import ProfilerActivity, profile
 
-    profiling.set_tracing(spans_on)
+    instrument.set_tracing(spans_on)
     acts = [ProfilerActivity.CPU]
     if stamps.cuda:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         epochs, _, epoch_s, _ = harness.drive(prog, stamps, math.inf, k,
                                               spans=True)
-    profiling.set_tracing(False)
+    instrument.set_tracing(False)
     return prof, trace.Trace.from_profile(prof, families), epochs, epoch_s
 
 
@@ -158,7 +160,7 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         print("span_report: needs a CUDA card", file=sys.stderr)
         return 2
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     cell = harness.Cell.find(ROOT, args.workload)
     if args.tiny:
         cell.traffic.update(TINY.get(cell.traffic["generator"],
@@ -186,7 +188,7 @@ def main(argv=None) -> int:
     prog.first_steps()
     _, _, warm, _ = harness.drive(prog, stamps, harness.WARMUP_S,
                                   harness.CAPACITY)
-    setup_records = profiling.drain()
+    setup_records = instrument.drain()
     table = getattr(getattr(prog, "run", None), "span_table", None)
     epoch_est = statistics.median(warm)
     k = int(min(max(harness.TRACE_S / max(epoch_est, 1e-9),
@@ -196,12 +198,12 @@ def main(argv=None) -> int:
     # the spans' cost, in turns off, on, on, off
     cost_rows = []
     for on in (False, True, True, False):
-        profiling.set_tracing(on)
+        instrument.set_tracing(on)
         _, _, _, d_ms = harness.drive(prog, stamps, math.inf, k, ahead=0)
         n, wall, _, _ = harness.drive(prog, stamps, args.seconds,
                                       harness.CAPACITY)
-        profiling.set_tracing(False)
-        profiling.drain()
+        instrument.set_tracing(False)
+        instrument.drain()
         cost_rows.append(dict(spans=on, dispatch_ms=statistics.fmean(d_ms),
                               train_edges_per_s=edges * n / wall))
 
@@ -214,7 +216,7 @@ def main(argv=None) -> int:
     bench_off = _bench_metrics(prog, tr_off, e_off, s_off, calls, metrics)
     prof, tr_on, e_on, s_on = _traced(prog, stamps, k, families, True)
     bench_on = _bench_metrics(prog, tr_on, e_on, s_on, calls, metrics)
-    profiling.drain()
+    instrument.drain()
     att = profiling.attribute(prof, table)
     del prof
 

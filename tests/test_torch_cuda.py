@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_geometric_signed_directed_tpu_torch.instrument import reset_counts
 from pytorch_geometric_signed_directed_tpu_torch.ops import (
     build_coo, layout, spmm)
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
@@ -246,7 +247,7 @@ def test_layouts_match_flat_layout_on_card(card, kind, monkeypatch):
     g = torch.randn(n, 64, device=card)
     outs, grads = [], []
     for op in (flat, D):
-        scatter_csr.reset_launch_counts()
+        reset_counts()
         out = spmm.dual_spmm_stacked(op, x)
         outs.append(out)
         grads.append(torch.autograd.grad(out, x, g)[0])
@@ -538,7 +539,7 @@ def test_sharded_template_backward_runs_k3_on_card(card):
     """The one-card mesh: the sharded template's forward (K1) and backward
     (K3) against the flat template's (K1 pair forward, K1 dx)."""
     from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
-        launch_counts, reset_launch_counts)
+        launch_counts)
     from pytorch_geometric_signed_directed_tpu_torch.parallel import (
         local_mesh, shard_magnet_laplacian)
     from pytorch_geometric_signed_directed_tpu_torch.spectral import (
@@ -553,7 +554,7 @@ def test_sharded_template_backward_runs_k3_on_card(card):
     g = torch.randn(n, 64, device=card)
     res = []
     for t in (flat, sharded):
-        reset_launch_counts()
+        reset_counts()
         q = torch.tensor(0.2, device=card, requires_grad=True)
         xx = x.clone().requires_grad_(True)
         y = template_dual_apply(t, q, xx)
@@ -947,13 +948,14 @@ def test_replayed_spans_match_eager_spans_on_card(card):
     wrapper spans number the launch counters' calls and hold K1."""
     from torch.profiler import ProfilerActivity, profile
 
+    from pytorch_geometric_signed_directed_tpu_torch import instrument
     from pytorch_geometric_signed_directed_tpu_torch.train import (
         SplitRun, adam, profiling)
     from pytorch_geometric_signed_directed_tpu_torch.train.scan_trainer \
         import split_generator
 
     apply_fn, init, y, masks = _hub_magnet(card, 0.5)
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     try:
         run = SplitRun(apply_fn, init(), adam(1e-2, 5e-4), y, *masks, 8,
                        split_generator(0, 0, card))
@@ -967,8 +969,8 @@ def test_replayed_spans_match_eager_spans_on_card(card):
             run.graph.replay()
             torch.cuda.synchronize()
     finally:
-        profiling.set_tracing(False)
-        profiling.drain()
+        instrument.set_tracing(False)
+        instrument.drain()
     table = run.span_table
     assert table is not None and table.nodes > 0
     by_eager = profiling.attribute(eager)
@@ -1544,8 +1546,7 @@ def test_fused_magnet_matches_generic_on_card(card):
     results = []
     for pair in (lap, unfused):
         model = init()
-        magnet_conv.reset_fused_calls()
-        epi.reset_launch_counts()
+        reset_counts()
         logp = model(x, x, pair)
         loss = -(logp[torch.arange(len(y), device=card), y] * masks[0]).sum()
         loss.backward()

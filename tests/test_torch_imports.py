@@ -93,6 +93,123 @@ def test_signed_modules_import_nothing_forbidden(module):
     assert [m for m in _imports(path) if _forbidden(m)] == []
 
 
+
+# The direction of the port's imports, bottom to top: device and
+# instrument, native, ops, graph and spectral, nn and utils, parallel,
+# train, experiments.  The layers below parallel/ and train/ import
+# neither, at module level or inside a function.
+PKG = "pytorch_geometric_signed_directed_tpu_torch"
+LOWER = ("ops", "spectral", "nn", "utils", "data", "native", "graph.py")
+UPPER = (PKG + ".train", PKG + ".parallel")
+
+
+def _resolved_imports(source: str, module: str, is_package: bool = False):
+    """Every module an import statement of ``source`` (the module
+    ``module``) names, relative imports resolved and imports inside
+    functions included; ``from a import b`` names ``a`` and ``a.b``."""
+    package = module.split(".") if is_package else module.split(".")[:-1]
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                up = package[:len(package) - node.level + 1]
+                base = ".".join(up + ([node.module] if node.module else []))
+            yield base
+            yield from (base + "." + alias.name for alias in node.names)
+
+
+def _module_name(path: pathlib.Path):
+    rel = path.relative_to(ROOT).with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__init__":
+        return ".".join(parts[:-1]), True
+    return ".".join(parts), False
+
+
+def _upper(name: str) -> bool:
+    return any(name == u or name.startswith(u + ".") for u in UPPER)
+
+
+def test_the_import_resolver_sees_function_level_and_relative_imports():
+    src = ("from ...train.profiling import span\n"
+           "def f():\n"
+           "    from ...parallel.mxu_shard import sharded_mxu_spmm\n"
+           "    from ... import parallel\n"
+           "    from . import build\n")
+    got = set(_resolved_imports(src, PKG + ".ops.cuda.scatter_csr"))
+    assert {PKG + ".train.profiling", PKG + ".parallel.mxu_shard",
+            PKG + ".parallel", PKG + ".ops.cuda.build"} <= got
+    got = set(_resolved_imports("from . import scatter_csr\n",
+                                PKG + ".ops.cuda", is_package=True))
+    assert PKG + ".ops.cuda.scatter_csr" in got
+    assert _upper(PKG + ".train.profiling") and _upper(PKG + ".parallel")
+    assert not _upper(PKG + ".training") and not _upper(PKG + ".ops")
+
+
+def test_the_lower_layers_import_neither_train_nor_parallel():
+    files = [p for top in LOWER for p in (
+        [PORT / top] if top.endswith(".py")
+        else sorted((PORT / top).rglob("*.py")))]
+    assert len(files) > 60
+    bad = []
+    for path in files:
+        module, is_package = _module_name(path)
+        bad += [(str(path.relative_to(ROOT)), m) for m in _resolved_imports(
+            path.read_text(), module, is_package) if _upper(m)]
+    assert bad == []
+
+
+def test_instrument_imports_nothing_of_the_package():
+    path = PORT / "instrument.py"
+    module, _ = _module_name(path)
+    got = set(_resolved_imports(path.read_text(), module))
+    assert got and not [m for m in got if m.startswith(PKG)]
+
+
+def _import_nesting(stderr: str):
+    """(module, the modules whose import it ran inside, innermost first)
+    for each line of ``python -X importtime``'s report, which lists a
+    module after the modules its import loaded, two spaces deeper."""
+    entries = []
+    for line in stderr.splitlines():
+        if not line.startswith("import time:") or line.count("|") < 2:
+            continue
+        field = line.split("|", 2)[2]
+        name = field.strip()
+        if name != "imported package":
+            entries.append((len(field) - len(field.lstrip(" ")), name))
+    out = []
+    for i, (depth, name) in enumerate(entries):
+        outer = []
+        for d, n in entries[i + 1:]:
+            if d < depth:
+                outer.append(n)
+                depth = d
+        out.append((name, outer))
+    return out
+
+
+def test_train_loads_only_where_the_package_root_imports_it():
+    """In a fresh interpreter, no module of train/ loads inside the import
+    of ops/, spectral/ or nn/: train/ loads where the package root
+    imports it, after them."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c", f"import {PKG}"],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    nesting = _import_nesting(proc.stderr)
+    order = [name for name, _ in nesting]
+    lower = tuple(f"{PKG}.{m}" for m in ("ops", "spectral", "nn"))
+    inside = [(name, outer) for name, outer in nesting
+              if name.startswith(PKG + ".train")
+              and any(o == m or o.startswith(m + ".")
+                      for o in outer for m in lower)]
+    assert inside == []
+    assert dict(nesting)[PKG + ".train"] == [PKG]
+    assert all(order.index(PKG + ".train") > order.index(m) for m in lower)
+
 JAX = ROOT / "pytorch_geometric_signed_directed_tpu"
 # JAX module names the port deliberately does without, with the reason
 NOT_PORTED = {

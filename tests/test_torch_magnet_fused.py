@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_geometric_signed_directed_tpu_torch.instrument import reset_counts
 from pytorch_geometric_signed_directed_tpu_torch.nn import (
     MagNet_link_prediction, MagNet_node_classification,
     MSGNN_node_classification, complex_relu)
@@ -205,8 +206,7 @@ def test_fused_counters(case):
            else MagNet_node_classification)
     model = cls(**MODEL_KW, trainable_q=case == "trainable_q",
                 generator=torch.Generator().manual_seed(0))
-    magnet_conv.reset_fused_calls()
-    epi.reset_launch_counts()
+    reset_counts()
     after_step = _step(model, lap, n)
     engaged = case in ("magnet_mxu", "msgnn_segment")
     # two layers: two fused forwards and two hand-written backwards in the
@@ -232,7 +232,7 @@ def test_link_prediction_takes_the_fused_path_and_matches():
     x = torch.from_numpy(rng.random((n, 2)).astype(np.float32))
     q = torch.from_numpy(rng.integers(0, n, (40, 2)))
     unfused = type(lap)(lap.re, lap.im, None)    # the same pair, no dual
-    magnet_conv.reset_fused_calls()
+    reset_counts()
     got = model(x, x, lap, q)
     assert magnet_conv.FUSED_CALLS["forward"] == 2
     want = model(x, x, unfused, q)

@@ -20,6 +20,7 @@ from pytorch_geometric_signed_directed_tpu.parallel.mxu_shard import (
 from pytorch_geometric_signed_directed_tpu.spectral import (
     magnetic_template as jx_magnetic_template)
 
+from pytorch_geometric_signed_directed_tpu_torch.instrument import reset_counts
 from pytorch_geometric_signed_directed_tpu_torch.ops import layout, sddmm
 from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import dual_sddmm
 from pytorch_geometric_signed_directed_tpu_torch.parallel.mxu_shard import (
@@ -263,7 +264,7 @@ def test_entries_reject_the_wrong_layout(knobs):
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
-    dual_sddmm.reset_launch_counts()
+    reset_counts()
     n = 200
     tt, _ = both_transposed(n, 1500, seed=6)
     g, x, _, _ = tables(n, 4, 6, "f32")

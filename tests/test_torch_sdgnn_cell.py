@@ -24,9 +24,11 @@ from port_bench.drivers.sdgnn import per_motif  # noqa: E402
 from port_bench.gen import signed_powerlaw  # noqa: E402
 from port_bench.reference import common as ref_common  # noqa: E402
 from port_bench.reference import sdgnn as ref  # noqa: E402
+from pytorch_geometric_signed_directed_tpu_torch.instrument import (  # noqa
+    reset_counts)
 from pytorch_geometric_signed_directed_tpu_torch.nn import SDGNN  # noqa
 from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (  # noqa
-    gat_conv, motif_stack, motifs, sdgnn, snea_conv)
+    motif_stack, motifs, sdgnn, snea_conv)
 from pytorch_geometric_signed_directed_tpu_torch.spectral import (  # noqa
     features)
 from pytorch_geometric_signed_directed_tpu_torch.train import adam  # noqa
@@ -252,14 +254,14 @@ def plant(monkeypatch, fault, fused):
 
         monkeypatch.setattr(motif_stack, "motif_attend", altered_stack)
     else:
-        aggregate = gat_conv.attention_softmax_aggregate
+        aggregate = snea_conv.attention_softmax_aggregate
 
         def altered(*a, **k):
             out = aggregate(*a, **k)
             rows = max(1, out.shape[0] // 32)
             return torch.cat([2.0 * out[:rows], out[rows:]])
 
-        monkeypatch.setattr(gat_conv, "attention_softmax_aggregate",
+        monkeypatch.setattr(snea_conv, "attention_softmax_aggregate",
                             altered)
 
 
@@ -304,7 +306,7 @@ def test_attends_count_the_gat_aggregates():
         _, _, emb, graphs, _, _ = sdgnn.prepare_sdgnn_inputs(
             n, es, 8, init_emb=np.zeros((n, 8)), fused=fused, device="cpu")
         model = SDGNN(n, 8, 8, init_emb=emb, fused=fused, device="cpu")
-        snea_conv.reset_attends()
+        reset_counts()
         model(graphs)
         assert snea_conv.ATTENDS == {"mxu": 8, "segment": 0}
 

@@ -1,4 +1,4 @@
-"""The port's spans (``train.profiling``) on the CPU: off they leave no
+"""The port's spans (``instrument``) on the CPU: off they leave no
 trace and build no autograd node; on they reach the backward through the
 markers and change no number; the set-up spans; ``trace``; the
 attribution of device operations to spans, eager through the profiler's
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_geometric_signed_directed_tpu_torch import instrument
 from pytorch_geometric_signed_directed_tpu_torch.graph import (
     adj_dual_propagator, rw_norm_dual_propagator)
 from pytorch_geometric_signed_directed_tpu_torch.nn import (
@@ -48,8 +49,8 @@ def one_thread():
 @pytest.fixture(autouse=True)
 def spans_off_after():
     yield
-    profiling.set_tracing(False)
-    profiling.drain()
+    instrument.set_tracing(False)
+    instrument.drain()
 
 
 def _graph():
@@ -146,7 +147,7 @@ def _graph_nodes(loss):
 
 
 def _spans(prof):
-    return [e for e in prof.events() if e.name.startswith(profiling.PREFIX)]
+    return [e for e in prof.events() if e.name.startswith(instrument.PREFIX)]
 
 
 @pytest.mark.parametrize("model", sorted(STEPS))
@@ -154,19 +155,19 @@ def test_spans_off_leave_no_event_and_no_marker(model, monkeypatch):
     opened = []
     monkeypatch.setattr(torch.profiler, "record_function",
                         lambda *a, **k: opened.append(a))
-    assert not profiling.tracing()
+    assert not instrument.tracing()
     _, _, loss, prof = STEPS[model]()
     assert _spans(prof) == []
     assert opened == []
     nodes = _graph_nodes(loss)
     assert nodes and not any("Mark" in n for n in nodes)
-    assert profiling.drain() == []
+    assert instrument.drain() == []
 
 
 @pytest.mark.parametrize("model", sorted(STEPS))
 def test_spans_on_change_no_number(model):
     off = STEPS[model](steps=2)
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     on = STEPS[model](steps=2)
     for a, b in zip(off[0], on[0]):
         assert torch.equal(a, b)
@@ -177,16 +178,16 @@ def test_spans_on_change_no_number(model):
 
 
 def _names(events):
-    return [profiling.parse_label(e.name)[0] for e in events]
+    return [instrument.parse_label(e.name)[0] for e in events]
 
 
 def test_magnet_spans_reach_the_backward():
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     _, _, _, prof = magnet_step()
     events = sorted(_spans(prof), key=lambda e: e.time_range.start)
     names = _names(events)
     # the forward: two convs of K=2 applies each (lanes 2F = 4, then 8)
-    applies = [profiling.parse_label(e.name)[1] for e in events
+    applies = [instrument.parse_label(e.name)[1] for e in events
                if e.name.startswith("pgsd.spmm.apply")]
     assert [a["width"] for a in applies] == [4, 4, 8, 8, 8, 8]
     assert all(a["layout"] == "flat" and a["rows"] == a["cols"] == N
@@ -211,13 +212,13 @@ def test_magnet_spans_reach_the_backward():
         assert model_bw.time_range.start <= c.time_range.start
         assert c.time_range.end <= model_bw.time_range.end
     assert convs[1].time_range.start >= convs[0].time_range.end
-    records = profiling.drain()
+    records = instrument.drain()
     assert sum(r.name == "nn.magnet_conv.backward" for r in records) == 2
     assert all(r.t0 <= r.t1 for r in records)
 
 
 def test_digrac_spans_reach_the_backward():
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     _, _, _, prof = digrac_step()
     events = sorted(_spans(prof), key=lambda e: e.time_range.start)
     names = _names(events)
@@ -233,13 +234,13 @@ def test_digrac_spans_reach_the_backward():
         inner = [e for e in events if e.name.startswith("pgsd.spmm.apply")
                  and loss.time_range.start <= e.time_range.start
                  and e.time_range.end <= loss.time_range.end]
-        assert [profiling.parse_label(e.name)[1]["width"]
+        assert [instrument.parse_label(e.name)[1]["width"]
                 for e in inner] == [6]
     assert names.count("spmm.apply") == 6
 
 
 def test_sdgnn_spans_reach_the_backward():
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     _, _, _, prof = sdgnn_step()
     events = sorted(_spans(prof), key=lambda e: e.time_range.start)
     names = _names(events)
@@ -248,13 +249,13 @@ def test_sdgnn_spans_reach_the_backward():
         assert names.count(name) == names.count(name + ".backward") == 1
     assert names.count("nn.sdr_layer") == 2
     assert names.count("nn.sdr_layer.backward") == 2
-    convs = [profiling.parse_label(e.name)[1] for e in events
-             if profiling.parse_label(e.name)[0] == "nn.gat_conv"]
+    convs = [instrument.parse_label(e.name)[1] for e in events
+             if instrument.parse_label(e.name)[0] == "nn.gat_conv"]
     assert [a["motif"] for a in convs] == [0, 1, 2, 3] * 2
     assert all(a["rows"] == N and a["width"] == 5 for a in convs)
     assert convs[0]["nnz"] > N
-    backward = [profiling.parse_label(e.name)[1] for e in events
-                if profiling.parse_label(e.name)[0] ==
+    backward = [instrument.parse_label(e.name)[1] for e in events
+                if instrument.parse_label(e.name)[0] ==
                 "nn.gat_conv.backward"]
     assert sorted(a["motif"] for a in backward) == [0, 0, 1, 1, 2, 2, 3, 3]
     # every K1 call of the forward runs inside a GAT's span
@@ -267,11 +268,11 @@ def test_sdgnn_spans_reach_the_backward():
 
 
 def test_sdgnn_setup_spans_are_recorded():
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     ei, _, _, _ = _graph()
     es = np.vstack([ei, np.where(np.arange(ei.shape[1]) % 5, 1, -1)]).T
     prepare_sdgnn_inputs(N, es, 4, device="cpu")
-    records = profiling.drain()
+    records = instrument.drain()
     assert [(r.name, r.attrs) for r in records
             if r.name.startswith("prep.")] == [
         ("prep.spectral_features", dict(rows=N, dim=4)),
@@ -279,72 +280,113 @@ def test_sdgnn_setup_spans_are_recorded():
 
 
 def test_setup_spans_are_recorded():
-    profiling.set_tracing(True)
+    instrument.set_tracing(True)
     ei, w, _, _ = _graph()
     D = spmm.dual_propagator(ei[0], ei[1], w, w, N, mode="mxu",
                              device="cpu")
     adam(1e-2)([torch.nn.Parameter(torch.zeros(3))])
-    records = profiling.drain()
+    records = instrument.drain()
     layouts = [r for r in records if r.name == "prep.layout"]
     assert [r.attrs for r in layouts] == [
         dict(rows=N, nnz=D.col.numel(), streamed=0)] * 2
     assert [r.name for r in records].count("train.optimizer_build") == 1
     assert all(r.t1 >= r.t0 for r in records)
-    assert profiling.drain() == []
+    assert instrument.drain() == []
 
 
 @pytest.mark.parametrize("before", [False, True])
 def test_trace_turns_spans_on_for_its_block(before, tmp_path):
-    profiling.set_tracing(before)
+    instrument.set_tracing(before)
     ei, w, _, _ = _graph()
     with profiling.trace(str(tmp_path)) as prof:
-        assert profiling.tracing()
+        assert instrument.tracing()
         spmm.dual_propagator(ei[0], ei[1], w, w, N, mode="mxu",
                              device="cpu")
-    assert profiling.tracing() is before
+    assert instrument.tracing() is before
     assert any(e.name.startswith("pgsd.prep.layout") for e in prof.events())
-    assert len(profiling.drain()) == (2 if before else 0)
+    assert len(instrument.drain()) == (2 if before else 0)
     assert list(tmp_path.iterdir())
 
 
 def test_label_round_trip():
     attrs = dict(layout="split", rows=8, nnz=12, values=2, width=64)
-    assert profiling.parse_label(profiling.label("spmm.apply", attrs)) == (
+    assert instrument.parse_label(instrument.label("spmm.apply", attrs)) == (
         "spmm.apply", attrs)
-    assert profiling.parse_label("pgsd.nn.dimpa.backward") == (
+    assert instrument.parse_label("pgsd.nn.dimpa.backward") == (
         "nn.dimpa.backward", {})
-    assert profiling.parse_label("aten::add") is None
+    assert instrument.parse_label("aten::add") is None
 
+
+
+def test_reset_counts_zeroes_every_group():
+    """One reset for the four counter groups; ``ops.cuda.launch_counts()``
+    is the "kernels" group, under the keys it had before the registry."""
+    from pytorch_geometric_signed_directed_tpu_torch.nn.directed import (
+        magnet_conv)
+    from pytorch_geometric_signed_directed_tpu_torch.nn.signed import (
+        snea_conv)
+    from pytorch_geometric_signed_directed_tpu_torch.ops.cuda import (
+        attend_grad, bsr_spmm, complex_epilogue, dual_sddmm, launch_counts,
+        scatter_csr)
+
+    kernels = ["csr_dual_spmm", "csr_scatter_sum", "csr_dual_spmm_accum",
+               "csr_scatter_accum", "csr_pair_spmm", "csr_pair_spmm_accum",
+               "csr_scatter_sum_indexed", "bsr_spmm", "csr_dual_sddmm",
+               "csr_dual_sddmm_accum", "attend_logit_grad"]
+    assert list(launch_counts()) == kernels
+    assert instrument.counts("kernels") == launch_counts()
+    groups = {"kernels": [m.LAUNCHES for m in (scatter_csr, bsr_spmm,
+                                                dual_sddmm, attend_grad)],
+              "complex_epilogue": [complex_epilogue.LAUNCHES],
+              "magnet_fused": [magnet_conv.FUSED_CALLS],
+              "attends": [snea_conv.ATTENDS]}
+    assert list(complex_epilogue.LAUNCHES) == ["complex_epilogue",
+                                               "complex_epilogue_backward"]
+    assert list(magnet_conv.FUSED_CALLS) == ["forward", "backward"]
+    assert list(snea_conv.ATTENDS) == ["mxu", "segment"]
+    for group in groups.values():
+        for counts in group:
+            for k in counts:
+                counts[k] += 3
+    before = launch_counts()
+    assert min(before.values()) >= 3
+    instrument.reset_counts()
+    for name, group in groups.items():
+        assert all(set(c.values()) == {0} for c in group), name
+        assert set(instrument.counts(name).values()) == {0}, name
+    assert set(launch_counts().values()) == {0}
+    # launch_counts() hands out a copy: a reading taken before stays
+    assert before["csr_scatter_sum"] >= 3
 
 def test_capture_table_with_a_node_counter(monkeypatch):
     """Spans opened while the stream captures take the nodes made while
     they were open; a span on no capturing stream takes no row."""
     nodes = {"n": 0}
     capturing = {"on": True}
-    monkeypatch.setattr(profiling, "_capture_stream",
+    monkeypatch.setattr(instrument, "_capture_stream",
                         lambda: 7 if capturing["on"] else None)
-    monkeypatch.setattr(profiling, "_count", lambda stream: nodes["n"])
+    monkeypatch.setattr(instrument, "_count", lambda stream: nodes["n"])
 
     def launch(k):
         nodes["n"] += k
 
-    with profiling.capture_table() as table:
+    with instrument.capture_table() as table:
         assert table is None
-    profiling.set_tracing(True)
-    with profiling.capture_table() as table:
+    instrument.set_tracing(True)
+    with instrument.capture_table() as table:
         launch(2)
-        with profiling.span("nn.a"):
+        with instrument.span("nn.a"):
             launch(1)
-            with profiling.span("spmm.apply", width=4):
+            with instrument.span("spmm.apply", width=4):
                 launch(3)
             capturing["on"] = False
-            with profiling.span("nn.off"):
+            with instrument.span("nn.off"):
                 pass
             capturing["on"] = True
         launch(1)
     assert table.nodes == 7
-    assert table.rows == [profiling.SpanRow("nn.a", {}, 2, 6),
-                          profiling.SpanRow("spmm.apply", {"width": 4}, 3, 6)]
+    assert table.rows == [instrument.SpanRow("nn.a", {}, 2, 6),
+                          instrument.SpanRow("spmm.apply", {"width": 4}, 3, 6)]
     assert profiling.map_replay(7, table) == [(), (), (0,), (0, 1), (0, 1),
                                               (0, 1), ()]
     assert profiling.map_replay(6, table) is None
@@ -423,11 +465,11 @@ def _replay_profile(n_ops, launches=2):
 
 
 def _table():
-    return profiling.SpanTable(rows=[
-        profiling.SpanRow("nn.magnet_conv", {}, 0, 3),
-        profiling.SpanRow("spmm.apply", dict(width=4), 1, 3),
-        profiling.SpanRow("kernel.csr_dual_spmm_accum", dict(rows=3), 2, 3),
-        profiling.SpanRow("nn.magnet_conv.backward", {}, 4, 5),
+    return instrument.SpanTable(rows=[
+        instrument.SpanRow("nn.magnet_conv", {}, 0, 3),
+        instrument.SpanRow("spmm.apply", dict(width=4), 1, 3),
+        instrument.SpanRow("kernel.csr_dual_spmm_accum", dict(rows=3), 2, 3),
+        instrument.SpanRow("nn.magnet_conv.backward", {}, 4, 5),
     ], nodes=5)
 
 
@@ -469,9 +511,9 @@ def _report():
 def test_span_report_quantities():
     report = _report()
     att = profiling.attribute(_eager_profile())
-    records = [profiling.SpanRecord("prep.layout", {}, 0, 2_000_000_000, 1),
-               profiling.SpanRecord("prep.layout", {}, 5, 500_000_005, 1),
-               profiling.SpanRecord("train.optimizer_build", {}, 0,
+    records = [instrument.SpanRecord("prep.layout", {}, 0, 2_000_000_000, 1),
+               instrument.SpanRecord("prep.layout", {}, 5, 500_000_005, 1),
+               instrument.SpanRecord("train.optimizer_build", {}, 0,
                                     250_000_000, 1)]
     q = report.quantities(att, records, epochs=2)
     from port_bench import cost
@@ -514,7 +556,7 @@ def test_span_report_runs_a_tiny_cell_on_the_cpu(capsys, monkeypatch):
     assert out["layout_s"] > 0 and out["optimizer_build_s"] > 0
     assert out["device_ms_per_epoch"] == 0 and out["covered"] is None
     assert [r["spans"] for r in out["cost"]] == [False, True, True, False]
-    assert not profiling.tracing()
+    assert not instrument.tracing()
 
 
 def test_span_report_reads_the_sdgnn_cell(capsys, monkeypatch):
@@ -544,4 +586,4 @@ def test_span_report_reads_the_sdgnn_cell(capsys, monkeypatch):
     assert all(v > 0 for v in out["prep_spans_s"].values())
     assert set(out["bench_spans_on"]) == {"idle_share", "mfu",
                                           "scatter_roofline"}
-    assert not profiling.tracing()
+    assert not instrument.tracing()
